@@ -1,0 +1,74 @@
+"""Parameter scopes and the weight bridge from the JAX layouts.
+
+Parameters are a flat dict keyed by the torch state_dict names of the
+reference networks (e.g. "mv_encoder.0.weight"), held in torch layouts:
+
+  * Conv2d weight           (O, I/groups, kH, kW)
+  * ConvTranspose2d weight  (I, O, kH, kW), not flipped
+  * Bitparm h / b / a       (1, C, 1, 1)
+  * everything else (biases, GDN beta/gamma) as-is.
+
+`params_from_jax` takes the JAX package's parameter dict as numpy arrays
+(HWIO conv kernels, spatially flipped conv-equivalent transposed-conv
+kernels, (1, 1, 1, C) Bitparm tensors) and returns these layouts.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# ConvTranspose2d weights of the base-layer DMC (the reference's
+# `dmc_net.py` hyper decoders and MV decoder).  Their layout cannot be told
+# from a regular conv's by shape alone.
+DMC_TRANSPOSED_KEYS = frozenset(
+    [f"mv_prior_decoder.{i}.weight" for i in (0, 2, 4)]
+    + [f"mv_decoder.{i}.weight" for i in (0, 4, 6, 8)]
+    + [f"res_prior_decoder.{i}.weight" for i in (0, 2, 4)]
+)
+# The two-layer LSSVC holds the DMC under `base_layer_model.`; its own
+# enhancement-layer decoders are sub-pixel convs, not transposed convs.
+LSSVC_TRANSPOSED_KEYS = frozenset(
+    "base_layer_model." + k for k in DMC_TRANSPOSED_KEYS)
+
+
+def params_from_jax(np_params: dict) -> dict[str, torch.Tensor]:
+    """JAX-layout parameters (numpy arrays) -> torch-layout CPU tensors.
+
+    A dict with `base_layer_model.` keys is an LSSVC dict, any other a DMC
+    dict; that picks the set of transposed-conv keys."""
+    lssvc = any(k.startswith("base_layer_model.") for k in np_params)
+    transposed = LSSVC_TRANSPOSED_KEYS if lssvc else DMC_TRANSPOSED_KEYS
+    out = {}
+    for key, val in np_params.items():
+        a = np.asarray(val)
+        if a.ndim == 4 and key in transposed:
+            # conv-equivalent (kH, kW, I, O) -> (I, O, kH, kW), un-flipped
+            a = a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+        elif a.ndim == 4 and key.endswith(".weight"):
+            # HWIO -> OIHW (grouped/depthwise (k, k, 1, C) -> (C, 1, k, k))
+            a = a.transpose(3, 2, 0, 1)
+        elif a.ndim == 4:
+            # per-channel Bitparm (1, 1, 1, C) -> (1, C, 1, 1)
+            a = a.reshape(1, -1, 1, 1)
+        out[key] = torch.from_numpy(a.copy())  # C-contiguous, writable
+    return out
+
+
+class P:
+    """Scoped view over the flat parameter dict: P(params, 'g_a.0.')('weight')."""
+
+    __slots__ = ("d", "prefix")
+
+    def __init__(self, d, prefix: str = ""):
+        self.d = d
+        self.prefix = prefix
+
+    def __call__(self, name: str):
+        return self.d[self.prefix + name]
+
+    def sub(self, name: str) -> "P":
+        return P(self.d, self.prefix + name + ".")
+
+    def __contains__(self, name: str) -> bool:
+        return self.prefix + name in self.d
