@@ -7,20 +7,23 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. Device: CUDA must be available; prints the card's name and power limit.
 2. Build: compiles the kernels of lssvc_tpu_torch/csrc with nvcc (sm_90a).
-3. Kernels: each CUDA kernel against its plain PyTorch version on the card,
-   at the shapes the main path gives it plus edge cases (unaligned, batch 2,
-   bf16, flows far past the borders, NaN flows), with times of the kernel,
-   the plain version and the one PyTorch call computing the same function
-   where one exists.  Prints one JSON line {"kernels": [...]}.
-4. Whole path, CPU against card: one two-layer P-frame at EL 128x128 /
+3. Main path: LSSVC from the port's random init, fp32 (TF32 off), offset cap
+   10 px, EL 1152x1920 / BL 576x960 from a random decoded-picture buffer.
+   A warm-up frame records the shape of every kernel launch; then a chain
+   of K=3 frames runs with the launch counts set to 0 just before it, and
+   they must read 14*K flow_warp and K grouped_warp launches after it.
+   Prints s/frame, peak memory and the launch counts.
+4. Kernels: each CUDA kernel against its plain PyTorch version on the card,
+   at every shape the warm-up frame launched it with, plus edge cases
+   (unaligned, batch 2, bf16, flows far past the borders, NaN flows, and a
+   tensor past 2^31 elements, where flow_warp indexes in 64 bits), with
+   times of the kernel, the plain version and the one PyTorch call
+   computing the same function where one exists.  Prints one JSON line
+   {"kernels": [...]} with the launches counted in phase 3.
+5. Whole path, CPU against card: one two-layer P-frame at EL 128x128 /
    BL 64x64 from the same weights on both devices (plain warps on the CPU,
    kernels on the card); bits within 3e-3 relative, recon within 5%
    relative RMS.
-5. Main path: LSSVC from the port's random init, fp32 (TF32 off), offset cap
-   10 px, EL 1152x1920 / BL 576x960 from a random decoded-picture buffer,
-   a chain of K=3 frames.  The launch counts are set to 0 just before the
-   chain and must read 14*K flow_warp and K grouped_warp launches after it.
-   Prints s/frame, peak memory and the launch counts.
 
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -43,20 +46,12 @@ from lssvc_tpu_torch.models.init import init_lssvc
 from lssvc_tpu_torch.ops import OD_OFFSET_CAP_SERVING
 from lssvc_tpu_torch.ops import warp as plain
 from lssvc_tpu_torch.ops import warp_kernels as wk
-from lssvc_tpu_torch.tools.time_warps import smooth_field, time_ms, uniform
 
 EL_HW, BL_HW, K = (1152, 1920), (576, 960), 3
 # H100 SXM peaks from NVIDIA's data sheet
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
-# flow_warp launches of one two-layer P-frame: (H, W, C), BL then EL
-FRAME_WARPS = (
-    [(72, 120, 3), (144, 240, 3), (288, 480, 3), (576, 960, 3)]  # BL SpyNet
-    + [(576, 960, 67), (288, 480, 64), (144, 240, 64)]           # BL contexts
-    + [(144, 240, 3), (288, 480, 3), (576, 960, 3), (1152, 1920, 3)]
-    + [(1152, 1920, 51), (576, 960, 64), (288, 480, 96)])        # EL contexts
-FLOW_WARP_MAIN = (1, 1152, 1920, 51)   # the EL pair [ref_el, f1]
-GROUPED_MAIN = (1, 1152, 1920, 48)     # OffsetDiversity: 48 ch, 32 units
+DTYPES = {0: torch.float32, 1: torch.bfloat16}  # the kernels' dtype codes
 FLOW_WARP_REPLACES = ("lssvc_tpu/ops/warp_pallas.py:305 (_warp_kernel_cblock),"
                       " lssvc_tpu/ops/warp_pallas.py:151 (_warp_kernel)")
 GROUPED_REPLACES = ("lssvc_tpu/ops/warp_pallas.py:647 "
@@ -68,6 +63,53 @@ TIME_FLOW_PX = 12.0  # flow amplitude of the timed calls: motion + OD offset
 
 def log(msg):
     print(msg, flush=True)
+
+
+def time_ms(fn, iters=30, warmup=3):
+    """Mean device time of fn() over `iters` back-to-back calls, in ms."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def uniform(gen, shape, lo, hi):
+    """Uniform [lo, hi) float32 tensor on the generator's device."""
+    return torch.rand(shape, generator=gen, device=gen.device) * (hi - lo) + lo
+
+
+def smooth_field(gen, shape, amp):
+    """An NHWC field with |value| <= amp that varies over ~32 pixels, the
+    way a codec's motion does."""
+    n, h, w, c = shape
+    cell = 32
+    coarse = uniform(gen, (n, c, h // cell + 2, w // cell + 2), -amp, amp)
+    return F.interpolate(coarse, size=(h, w), mode="bilinear",
+                         align_corners=False).permute(0, 2, 3, 1).contiguous()
+
+
+class LaunchRecorder:
+    """Stands in for the kernel library and records every launch's shape
+    and dtype code: flow_warp (n, h, w, c); grouped_warp (n, h, w, c_src,
+    go, group_num)."""
+
+    def __init__(self, lib):
+        self.lib, self.calls = lib, []
+
+    def lssvc_flow_warp(self, *args):
+        self.calls.append(("flow_warp", tuple(args[3:7]), args[7]))
+        return self.lib.lssvc_flow_warp(*args)
+
+    def lssvc_grouped_warp(self, *args):
+        self.calls.append(("grouped_warp", tuple(args[5:11]), args[11]))
+        return self.lib.lssvc_grouped_warp(*args)
 
 
 def bound_ms(nbytes, flops):
@@ -137,7 +179,10 @@ def phase_build():
         f"{time.perf_counter() - t0:.2f} s to load")
 
 
-def phase_kernels(dev):
+def phase_kernels(dev, calls):
+    """Each kernel against its plain version at every shape the warm-up
+    frame launched it with (`calls`, from LaunchRecorder) and at edge
+    cases; times at its largest main-path launch."""
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def uni(shape, lo, hi):
@@ -146,19 +191,28 @@ def phase_kernels(dev):
     def smooth(shape, amp):
         return smooth_field(gen, shape, amp)
 
+    flow_calls = [(shape, DTYPES[dt]) for name, shape, dt in calls
+                  if name == "flow_warp"]
+    grouped_calls = [(shape, DTYPES[dt]) for name, shape, dt in calls
+                     if name == "grouped_warp"]
+    if not flow_calls or not grouped_calls:
+        raise AssertionError(f"main path launched {calls}")
+
     log("# flow_warp against its plain version")
     errs = []
-    n, h, w, c = FLOW_WARP_MAIN
-    x_main = uni(FLOW_WARP_MAIN, -1, 1)
+    # timed at its largest launch of the main path (the EL pair)
+    main_shape, main_dtype = max(flow_calls, key=lambda sd: math.prod(sd[0]))
+    n, h, w, c = main_shape
+    x_main = uni(main_shape, -1, 1).to(main_dtype)
     for label, lo in (("|f|<=2", 2.0), ("|f|<=25", 25.0),
                       ("|f|<=300 past borders", 300.0)):
         flow = uni((n, h, w, 2), -lo, lo)
-        errs.append(check_equal(f"f32 {FLOW_WARP_MAIN} {label}",
+        errs.append(check_equal(f"{main_shape} {label}",
                                 wk.flow_warp(x_main, flow),
                                 plain.flow_warp(x_main, flow), x_main))
     flow_small = uni((n, h, w, 2), -2, 2)
     xb = x_main.to(torch.bfloat16)
-    errs.append(check_equal(f"bf16 {FLOW_WARP_MAIN} |f|<=2",
+    errs.append(check_equal(f"bf16 {main_shape} |f|<=2",
                             wk.flow_warp(xb, flow_small),
                             plain.flow_warp(xb, flow_small), xb))
     for shape, lo in (((1, 1150, 1918, 3), 25.0), ((2, 576, 960, 64), 25.0)):
@@ -169,10 +223,25 @@ def phase_kernels(dev):
                                 plain.flow_warp(x, flow), x))
     flow_nan = flow_small.clone()
     flow_nan[0, 100:110, 200:260, 0] = float("nan")
-    errs.append(check_equal("f32 NaN flows", wk.flow_warp(x_main, flow_nan),
+    errs.append(check_equal("NaN flows", wk.flow_warp(x_main, flow_nan),
                             plain.flow_warp(x_main, flow_nan), x_main))
+    # past 2^31 elements the kernel indexes in 64 bits; the warp is per
+    # channel, so the plain version is held against the first and last
+    # channels, which hold the smallest and the largest offsets
+    big = (1, h, w, 2 ** 31 // (h * w) + 1)
+    x_big = torch.empty(big, dtype=torch.bfloat16, device=dev).uniform_(
+        -1, 1, generator=gen)
+    flow = uni((1, h, w, 2), -25, 25)
+    out = wk.flow_warp(x_big, flow)
+    for chans in (slice(0, 4), slice(-4, None)):
+        xs = x_big[..., chans].contiguous()
+        errs.append(check_equal(
+            f"bf16 {big} ({math.prod(big)} elements) channels "
+            f"{chans.start}:{chans.stop or ''}", out[..., chans],
+            plain.flow_warp(xs, flow), xs))
+    del x_big, out, xs
 
-    # times at the EL pair shape: a smooth flow field (what a codec's motion
+    # times at the main shape: a smooth flow field (what a codec's motion
     # looks like), and independent per-pixel flows (the worst locality)
     flow_smooth = smooth((n, h, w, 2), TIME_FLOW_PX)
     flow_random = uni((n, h, w, 2), -TIME_FLOW_PX, TIME_FLOW_PX)
@@ -187,33 +256,32 @@ def phase_kernels(dev):
     library_ms = time_ms(lambda: F.grid_sample(
         x_nchw, grid, mode="bilinear", padding_mode="border",
         align_corners=True))
-    nbytes, flops = flow_warp_cost(n, h, w, c, 4)
-    b_ms, b_by = bound_ms(nbytes, flops)
-    # all 14 launches of one frame, each at its own shape
+    elt = x_main.element_size()
+    b_ms, b_by = bound_ms(*flow_warp_cost(n, h, w, c, elt))
+    # every launch of one frame, each at its own shape
     frame_ms = frame_bound = 0.0
-    for (fh, fw, fc) in FRAME_WARPS:
-        x = uni((1, fh, fw, fc), -1, 1)
-        flow = smooth((1, fh, fw, 2), TIME_FLOW_PX)
-        errs.append(check_equal(f"f32 (1, {fh}, {fw}, {fc}) frame launch",
+    for shape, dtype in flow_calls:
+        x = uni(shape, -1, 1).to(dtype)
+        flow = smooth(shape[:3] + (2,), TIME_FLOW_PX)
+        errs.append(check_equal(f"{shape} frame launch",
                                 wk.flow_warp(x, flow),
                                 plain.flow_warp(x, flow), x))
         frame_ms += time_ms(lambda: wk.flow_warp(x, flow))
-        frame_bound += bound_ms(*flow_warp_cost(1, fh, fw, fc, 4))[0]
+        frame_bound += bound_ms(*flow_warp_cost(*shape, x.element_size()))[0]
     fw_entry = {
         "name": "flow_warp", "route": "cuda", "source": SOURCE,
-        "replaces": FLOW_WARP_REPLACES, "shape": list(FLOW_WARP_MAIN),
-        "dtype": "float32", "max_abs_err": max(errs),
+        "replaces": FLOW_WARP_REPLACES, "shape": list(main_shape),
+        "dtype": str(main_dtype)[6:], "max_abs_err": max(errs),
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
         "library_call": "F.grid_sample(bilinear, border, align_corners=True)",
         "ms_random_flows": random_ms,
-        "launches_per_frame": len(FRAME_WARPS),
         "frame_ms": frame_ms, "frame_bound_ms": frame_bound,
     }
     log(f"# flow_warp {kernel_ms:.4f} ms, {random_ms:.4f} ms on random flows "
         f"(bound {b_ms:.4f}, plain {plain_ms:.4f}, grid_sample "
-        f"{library_ms:.4f}); 14 launches of a frame {frame_ms:.4f} ms "
-        f"(bound {frame_bound:.4f})")
+        f"{library_ms:.4f}); the {len(flow_calls)} launches of a frame "
+        f"{frame_ms:.4f} ms (bound {frame_bound:.4f})")
 
     log("# grouped_warp against its plain version")
     errs = []
@@ -227,26 +295,30 @@ def phase_kernels(dev):
                 f"{str(dtype)[6:]} (1, 288, 480, 48) |off|<={off:g}",
                 wk.grouped_warp(x, fx, fy, m, 16),
                 plain.grouped_warp_plain(x, fx, fy, m, 16), x))
-    n, h, w, c_src = GROUPED_MAIN
-    x = uni(GROUPED_MAIN, -1, 1)
-    fx, fy = uni((n, h, w, 32), -12, 12), uni((n, h, w, 32), -12, 12)
-    m = uni((n, h, w, 32), 0, 1)
-    errs.append(check_equal(f"f32 {GROUPED_MAIN} |off|<=12",
-                            wk.grouped_warp(x, fx, fy, m, 16),
-                            plain.grouped_warp_plain(x, fx, fy, m, 16), x))
-    random_ms = time_ms(lambda: wk.grouped_warp(x, fx, fy, m, 16))
-    fx, fy = (smooth((n, h, w, 32), TIME_FLOW_PX) for _ in range(2))
-    kernel_ms = time_ms(lambda: wk.grouped_warp(x, fx, fy, m, 16))
-    plain_ms = time_ms(lambda: plain.grouped_warp_plain(x, fx, fy, m, 16),
+    for (n, h, w, c_src, go, gn), dtype in grouped_calls:
+        x = uni((n, h, w, c_src), -1, 1).to(dtype)
+        fx, fy = uni((n, h, w, go), -12, 12), uni((n, h, w, go), -12, 12)
+        m = uni((n, h, w, go), 0, 1)
+        errs.append(check_equal(
+            f"{(n, h, w, c_src)} x {go} units |off|<=12 frame launch",
+            wk.grouped_warp(x, fx, fy, m, gn),
+            plain.grouped_warp_plain(x, fx, fy, m, gn), x))
+    # timed at the main path's launch (OffsetDiversity, once a frame)
+    (n, h, w, c_src, go, gn), dtype = grouped_calls[-1]
+    random_ms = time_ms(lambda: wk.grouped_warp(x, fx, fy, m, gn))
+    fx, fy = (smooth((n, h, w, go), TIME_FLOW_PX) for _ in range(2))
+    kernel_ms = time_ms(lambda: wk.grouped_warp(x, fx, fy, m, gn))
+    plain_ms = time_ms(lambda: plain.grouped_warp_plain(x, fx, fy, m, gn),
                        3, 1)
-    b_ms, b_by = bound_ms(*grouped_cost(n, h, w, c_src, 32, 16, 4))
+    b_ms, b_by = bound_ms(*grouped_cost(n, h, w, c_src, go, gn,
+                                        x.element_size()))
     gw_entry = {
         "name": "grouped_warp", "route": "cuda", "source": SOURCE,
-        "replaces": GROUPED_REPLACES, "shape": list(GROUPED_MAIN),
-        "dtype": "float32", "max_abs_err": max(errs),
+        "replaces": GROUPED_REPLACES, "shape": [n, h, w, c_src],
+        "units": go, "dtype": str(dtype)[6:], "max_abs_err": max(errs),
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "ms_random_flows": random_ms, "launches_per_frame": 1,
+        "ms_random_flows": random_ms,
     }
     log(f"# grouped_warp {kernel_ms:.4f} ms, {random_ms:.4f} ms on random "
         f"flows (bound {b_ms:.4f}, plain {plain_ms:.4f})")
@@ -312,7 +384,13 @@ def phase_main_path(dev):
             nxt[k] = torch.clamp(nxt[k], 0, 1)
         return out, nxt
 
-    frame(dpb0)  # warm-up, uncounted
+    # warm-up, uncounted: records the shape of every kernel launch
+    recorder, real_lib = LaunchRecorder(wk._lib()), wk._lib
+    wk._lib = lambda: recorder
+    try:
+        frame(dpb0)
+    finally:
+        wk._lib = real_lib
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     wk.flow_warp.launches = 0
@@ -347,18 +425,19 @@ def phase_main_path(dev):
         "s_per_frame": seconds / K, "peak_mem_gib": peak_gib,
         "launches": launches,
         "bits": [[float(o["bit_bl"]), float(o["bit_el"])] for o in outs]}))
-    return launches
+    return recorder.calls, launches
 
 
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
     phase_build()
-    kernels = phase_kernels(dev)
+    calls, launches = phase_main_path(dev)
+    kernels = phase_kernels(dev, calls)
     phase_cpu_vs_card(dev)
-    launches = phase_main_path(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["launches_per_frame"] = launches[k["name"]] / K
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -83,7 +83,7 @@ __device__ __forceinline__ float lerp2(float v00, float v01, float v10,
   return __fadd_rn(__fmul_rn(top, ay), __fmul_rn(bot, wy));
 }
 
-// Launch shapes, each the fastest of three measured on an H100 (PERF.md):
+// Launch shapes, each the faster of the variants tried on an H100:
 // flow_warp runs a grid-stride loop over the flat output on a grid capped at
 // a few waves of the card; its index type I is 32-bit unsigned when the
 // tensor has fewer than 2^31 elements, else 64-bit (splitting a flat index

@@ -11,7 +11,6 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..convert import params_from_jax
 from ..ops.nn import set_fp32_parity
 from ..utils.platform import resolve_device
 
@@ -37,11 +36,6 @@ class Model(nn.Module):
         self.to(self.device)
         # fp32 is the parity mode, and the only mode of this model
         set_fp32_parity()
-
-    @classmethod
-    def from_jax(cls, np_params: dict, device="cuda", **kwargs):
-        """From the JAX package's parameter dict, as numpy arrays."""
-        return cls(params_from_jax(np_params), device=device, **kwargs)
 
     def flat_params(self) -> dict[str, torch.Tensor]:
         return dict(self.named_parameters())

@@ -19,7 +19,7 @@ from .components import cat, conv, depth_conv_block
 PASS_MASKS = ((0, 1, 2, 3), (3, 2, 1, 0), (2, 3, 0, 1), (1, 0, 3, 2))
 
 
-def checkerboard_masks(h: int, w: int, device="cpu"):
+def checkerboard_masks(h: int, w: int, device):
     """Four (1,H,W,1) quad-phase masks: mask k selects (row%2, col%2) phase."""
     rows = np.arange(h) % 2
     cols = np.arange(w) % 2

@@ -1,18 +1,17 @@
 """Where the time of one two-layer P-frame goes on the GPU.
 
-    python -m lssvc_tpu_torch.tools.profile_frame [--el 1152 1920] [--top 15]
+    python -m lssvc_tpu_torch.tools.profile_frame
 
-Builds LSSVC from the port's random init (fp32, offset cap 10 px), runs one
-warm-up frame, then one frame under torch.profiler, and prints one JSON
-line: the frame's wall time, the summed device time of its kernels, the
+Builds LSSVC from the port's random init (fp32, offset cap 10 px) at EL
+1152x1920 / BL 576x960, runs one warm-up frame, then one frame under
+torch.profiler, and prints one JSON line: the frame's wall time, the summed device time of its kernels, the
 device's busy share (summed kernel time over wall time; kernels do not
-overlap on one stream), the share of the warp kernels, and the top ops by
-device time.  Needs a CUDA device.
+overlap on one stream), the share of the warp kernels, and the 15 top ops
+by device time.  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
 import time
@@ -24,6 +23,9 @@ from ..models import LSSVC
 from ..models.init import init_lssvc
 from ..ops import OD_OFFSET_CAP_SERVING
 
+EL_HW, BL_HW = (1152, 1920), (576, 960)
+TOP = 15
+
 
 def _device_us(evt):
     # torch renamed cuda_* timing attributes to device_* in 2.4
@@ -31,13 +33,8 @@ def _device_us(evt):
                    getattr(evt, "self_cuda_time_total", 0.0))
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--el", type=int, nargs=2, default=(1152, 1920))
-    ap.add_argument("--top", type=int, default=15)
-    args = ap.parse_args(argv)
-    el = tuple(args.el)
-    bl = (el[0] // 2, el[1] // 2)
+def main():
+    el, bl = EL_HW, BL_HW
     dev = torch.device("cuda")
     model = LSSVC(init_lssvc(torch.Generator().manual_seed(0)), device=dev,
                   od_offset_cap=OD_OFFSET_CAP_SERVING)
@@ -62,7 +59,7 @@ def main(argv=None):
             and e.device_type == torch.autograd.DeviceType.CUDA]
     total_ms = sum(_device_us(e) for e in rows) / 1e3
     warp_ms = sum(_device_us(e) for e in rows if "warp_kernel" in e.key) / 1e3
-    top = sorted(rows, key=_device_us, reverse=True)[:args.top]
+    top = sorted(rows, key=_device_us, reverse=True)[:TOP]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()

@@ -31,8 +31,8 @@ from lssvc_tpu_torch.models.lssvc_blocks import offset_diversity as t_od
 @pytest.fixture(scope="module")
 def dmc_pair():
     jparams = init_dmc(0)
-    model = DMC.from_jax({k: np.asarray(v) for k, v in jparams.items()},
-                         device="cpu")
+    model = DMC(params_from_jax({k: np.asarray(v) for k, v in jparams.items()}),
+                device="cpu")
     return jparams, model
 
 

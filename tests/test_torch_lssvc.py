@@ -33,8 +33,8 @@ DPB_KEYS = ("ref_frame_bl", "ref_frame_el", "ref_feature_bl",
 def pair():
     jparams = j_init_lssvc(0)
     np_params = {k: np.asarray(v) for k, v in jparams.items()}
-    model = LSSVC.from_jax(np_params, device="cpu",
-                           od_offset_cap=OD_OFFSET_CAP_SERVING)
+    model = LSSVC(params_from_jax(np_params), device="cpu",
+                  od_offset_cap=OD_OFFSET_CAP_SERVING)
     model.set_scale_information(2.0, EL, (0, 0, 0, 0))
     set_od_offset_cap(OD_OFFSET_CAP_SERVING)  # read when JAX traces
     jax.clear_caches()
