@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. Device: CUDA must be available; prints the card's name and power limit.
-2. Build: compiles the kernels of lssvc_tpu_torch/csrc with nvcc (sm_90a).
+2. Build: compiles the kernels of lssvc_tpu_torch/csrc with nvcc (sm_90a),
+   one nvcc per source, all at once.
 3. Main path: LSSVC from the port's random init, fp32 (TF32 off), offset cap
    10 px, EL 1152x1920 / BL 576x960 from a random decoded-picture buffer.
    A warm-up frame records the shape of every kernel launch; then a chain
@@ -18,21 +19,38 @@ Phases (any failure exits non-zero; nothing is caught):
    (unaligned, batch 2, bf16, flows far past the borders, NaN flows, and a
    tensor past 2^31 elements, where flow_warp indexes in 64 bits), with
    times of the kernel, the plain version and the one PyTorch call
-   computing the same function where one exists.  Prints one JSON line
-   {"kernels": [...]} with the launches counted in phase 3.
+   computing the same function where one exists.
 5. Whole path, CPU against card: one two-layer P-frame at EL 128x128 /
    BL 64x64 from the same weights on both devices (plain warps on the CPU,
    kernels on the card); bits within 3e-3 relative, recon within 5%
    relative RMS.
+6. Conv-chain path: the port's conv-chain bench (tools/convchain_bench.py)
+   at its defaults, 1x1152x1920x48, 4 layers, in bf16 and in fp32, with the
+   conv_chain count set to 0 just before and read just after; each call
+   must launch once.  Then edge chains, each against conv_chain_plain with
+   one launch per image: a mixed spec chain with biases at 1x576x960x64,
+   the bench chain at 1x1150x1918 (unaligned), at 2x576x960 (batch 2, equal
+   to its images one by one), and at 128 channels (its f32 slots outgrow
+   shared memory).  f32: max |err| <= 1e-5 max|ref|; bf16: relative RMS
+   <= 1e-3 and max |err| <= 2^-5 max|ref|.  Times the kernel, the plain
+   version and the unfused cuDNN chain.
+7. Warp-tier path: the port's warp tier bench (tools/warp_tier_bench.py),
+   every variant of the JAX one at its shapes, with the warp counts set to
+   0 just before and read just after; each variant through flow_warp /
+   grouped_warp launches its kernel once and equals the plain version
+   within check_equal's tolerance; then each kernel's plain version,
+   library call and bound at those shapes.
 
-The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
+Then one JSON line {"kernels": [...]}: each kernel's launches counted on its
+path (the warps on the P-frame chain of phase 3, with their warp-tier path
+counts beside them; conv_chain on the conv-chain path of phase 6), its
+times, bound and errors.  The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
 import math
-import subprocess
 import sys
 import time
 
@@ -44,40 +62,40 @@ from lssvc_tpu_torch import build
 from lssvc_tpu_torch.models import LSSVC
 from lssvc_tpu_torch.models.init import init_lssvc
 from lssvc_tpu_torch.ops import OD_OFFSET_CAP_SERVING
+from lssvc_tpu_torch.ops import conv_chain as cc
 from lssvc_tpu_torch.ops import warp as plain
 from lssvc_tpu_torch.ops import warp_kernels as wk
+from lssvc_tpu_torch.tools import convchain_bench, warp_tier_bench
+from lssvc_tpu_torch.tools.timing import card, time_ms
 
 EL_HW, BL_HW, K = (1152, 1920), (576, 960), 3
 # H100 SXM peaks from NVIDIA's data sheet
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_TENSOR_FLOP_PER_S = 989e12  # dense, tensor cores
 DTYPES = {0: torch.float32, 1: torch.bfloat16}  # the kernels' dtype codes
-FLOW_WARP_REPLACES = ("lssvc_tpu/ops/warp_pallas.py:305 (_warp_kernel_cblock),"
-                      " lssvc_tpu/ops/warp_pallas.py:151 (_warp_kernel)")
-GROUPED_REPLACES = ("lssvc_tpu/ops/warp_pallas.py:647 "
-                    "(_grouped_warp_kernel_cblock), "
-                    "lssvc_tpu/ops/warp_pallas.py:892 (_grouped_warp_kernel)")
+FLOW_WARP_REPLACES = (
+    "lssvc_tpu/ops/warp_pallas.py:305 (_warp_kernel_cblock), "
+    "lssvc_tpu/ops/warp_pallas.py:151 (_warp_kernel), "
+    "lssvc_tpu/ops/warp_pallas.py:477 (_warp_kernel_cblock_roll), "
+    "lssvc_tpu/ops/warp_pallas.py:407 (_warp_kernel_cblock_wide), "
+    "lssvc_tpu/ops/warp_pallas.py:232 (_warp_kernel_smallflow)")
+GROUPED_REPLACES = (
+    "lssvc_tpu/ops/warp_pallas.py:647 (_grouped_warp_kernel_cblock), "
+    "lssvc_tpu/ops/warp_pallas.py:892 (_grouped_warp_kernel), "
+    "lssvc_tpu/ops/warp_pallas.py:859 (_grouped_warp_kernel_smallflow)")
 SOURCE = "lssvc_tpu_torch/csrc/warp.cu"
+CHAIN_SOURCE = "lssvc_tpu_torch/csrc/conv_chain.cu"
+CHAIN_REPLACES = "lssvc_tpu/ops/conv_chain.py:64 (_chain_kernel)"
 TIME_FLOW_PX = 12.0  # flow amplitude of the timed calls: motion + OD offset
+# conv_chain edge cases: the mixed chain, then the bench chain unaligned,
+# in a batch of 2, and at 128 channels
+CHAIN_EDGES = [(1, 576, 960, 64), (1, 1150, 1918, 48), (2, 576, 960, 48),
+               (1, 576, 960, 128)]
 
 
 def log(msg):
     print(msg, flush=True)
-
-
-def time_ms(fn, iters=30, warmup=3):
-    """Mean device time of fn() over `iters` back-to-back calls, in ms."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def uniform(gen, shape, lo, hi):
@@ -112,9 +130,23 @@ class LaunchRecorder:
         return self.lib.lssvc_grouped_warp(*args)
 
 
-def bound_ms(nbytes, flops):
+def grid_sample_ms(x, flow):
+    """Time of the one PyTorch call that computes flow_warp:
+    F.grid_sample(bilinear, border, align_corners=True) on x's NCHW view."""
+    _, h, w, _ = x.shape
+    iy = torch.arange(h, device=x.device, dtype=torch.float32)[None, :, None]
+    ix = torch.arange(w, device=x.device, dtype=torch.float32)[None, None, :]
+    grid = torch.stack([(ix + flow[..., 0]) / ((w - 1) / 2) - 1,
+                        (iy + flow[..., 1]) / ((h - 1) / 2) - 1], -1)
+    x_nchw = x.permute(0, 3, 1, 2)
+    return time_ms(lambda: F.grid_sample(
+        x_nchw, grid, mode="bilinear", padding_mode="border",
+        align_corners=True))
+
+
+def bound_ms(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -132,6 +164,50 @@ def grouped_cost(n, h, w, c_src, go, group_num, elt):
     cg = c_src // group_num
     return (n * h * w * (c_src * elt + 3 * go * 4 + go * cg * elt),
             n * h * w * go * (12 * cg + 10))
+
+
+def chain_cost(specs, n, h, w, c_in, elt):
+    """Bytes: the input read once, the output written once, the f32 weights
+    and biases read once.  Operations per pixel: 2*9*ci*co for a conv3,
+    2*ci*co for a conv1, 2*9*c for a dw3, one per output channel for a bias,
+    a leaky ReLU, an act or an add."""
+    cur, flops, params = c_in, 0, 0
+    for s in specs:
+        kind = s["kind"]
+        if kind == "save":
+            continue
+        if kind in ("act", "add_saved"):
+            flops += cur
+            continue
+        co = s["w"].shape[0]
+        taps = 1 if kind == "conv1" else 9
+        macs = taps * co if kind == "dw3" else taps * cur * co
+        flops += 2 * macs + co * ((s.get("b") is not None)
+                                  + (s.get("slope") is not None))
+        params += macs + co
+        if not s.get("branch"):
+            cur = co
+    return n * h * w * (c_in + cur) * elt + 4 * params, n * h * w * flops
+
+
+def chain_peak(dtype):
+    """The unit the best design would use: bf16 tensor cores, or the f32
+    CUDA cores of the parity mode (TF32 off)."""
+    return BF16_TENSOR_FLOP_PER_S if dtype == torch.bfloat16 \
+        else FP32_FLOP_PER_S
+
+
+def check_chain(name, errs, dtype):
+    """f32: max |err| <= 1e-5 max|ref|; bf16: relative RMS <= 1e-3 and max
+    |err| <= 2^-5 max|ref|."""
+    err, top, rms = errs["max_abs_err"], errs["max_abs_ref"], errs["rel_rms"]
+    ok = (err <= 1e-5 * top if dtype == torch.float32
+          else rms <= 1e-3 and err <= 2.0 ** -5 * top)
+    log(f"  {name}: max |err| {err:.3g} at max |ref| {top:.3g}, "
+        f"relative RMS {rms:.3g}")
+    if not ok:
+        raise AssertionError(f"{name}: beyond tolerance")
+    return err
 
 
 def check_equal(name, out, ref, x):
@@ -162,10 +238,7 @@ def phase_device():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(2)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card()
     log(smi)
     log(f"# torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
@@ -174,9 +247,13 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    build.load("warp")
-    log(f"# build: warp.cu {build.BUILD_SECONDS['warp']:.2f} s nvcc, "
-        f"{time.perf_counter() - t0:.2f} s to load")
+    names = ("warp", "conv_chain")
+    build.build_all(names)
+    for name in names:
+        build.load(name)
+    log(f"# build: " + ", ".join(
+        f"{n}.cu {build.BUILD_SECONDS[n]:.2f} s nvcc" for n in names)
+        + f"; {time.perf_counter() - t0:.2f} s to build all and load")
 
 
 def phase_kernels(dev, calls):
@@ -248,14 +325,7 @@ def phase_kernels(dev, calls):
     kernel_ms = time_ms(lambda: wk.flow_warp(x_main, flow_smooth))
     random_ms = time_ms(lambda: wk.flow_warp(x_main, flow_random))
     plain_ms = time_ms(lambda: plain.flow_warp(x_main, flow_smooth), 5, 1)
-    iy = torch.arange(h, device=dev, dtype=torch.float32)[None, :, None]
-    ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, :]
-    grid = torch.stack([(ix + flow_smooth[..., 0]) / ((w - 1) / 2) - 1,
-                        (iy + flow_smooth[..., 1]) / ((h - 1) / 2) - 1], -1)
-    x_nchw = x_main.permute(0, 3, 1, 2)
-    library_ms = time_ms(lambda: F.grid_sample(
-        x_nchw, grid, mode="bilinear", padding_mode="border",
-        align_corners=True))
+    library_ms = grid_sample_ms(x_main, flow_smooth)
     elt = x_main.element_size()
     b_ms, b_by = bound_ms(*flow_warp_cost(n, h, w, c, elt))
     # every launch of one frame, each at its own shape
@@ -357,6 +427,139 @@ def phase_cpu_vs_card(dev):
         f"{float(cpu['bit_el']):.3f}, recon rel RMS {rms}")
 
 
+def mixed_chain(c, seed):
+    """save, conv3 (bias, slope), a conv1 branch under a tag, dw3, act,
+    conv3, add_saved(tag), add_saved; a nonzero bias on every conv."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def w(*shape):
+        return torch.randn(shape, generator=gen) * (2.0 / (shape[1] * 9)) ** .5
+
+    def b(c):
+        return torch.randn(c, generator=gen) * 0.1
+
+    return [{"kind": "save"},
+            {"kind": "conv3", "w": w(c, c, 3, 3), "b": b(c), "slope": 0.1},
+            {"kind": "conv1", "w": w(c, c, 1, 1), "b": b(c), "branch": "a"},
+            {"kind": "dw3", "w": w(c, 1, 3, 3) * 3, "b": b(c), "slope": 0.01},
+            {"kind": "act", "slope": 0.2},
+            {"kind": "conv3", "w": w(c, c, 3, 3), "b": b(c)},
+            {"kind": "add_saved", "tag": "a"},
+            {"kind": "add_saved"}]
+
+
+def phase_conv_chain(dev):
+    """The conv-chain bench at its defaults (the path, counted), then edge
+    chains against the plain version (uncounted)."""
+    log("# conv-chain path: tools/convchain_bench.py at 1x1152x1920x48 x4")
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    cc.conv_chain.launches = 0
+    runs = {mode: convchain_bench.run(mode) for mode in dtypes}
+    launches = cc.conv_chain.launches
+    for mode, run in runs.items():
+        log(json.dumps(run))
+        check_chain(f"bench {mode}", run["chain"], dtypes[mode])
+        if run["chain"]["launches_per_call"] != 1:
+            raise AssertionError(f"bench {mode}: {run['chain']} launches")
+    if launches == 0:
+        raise AssertionError("the conv-chain path launched no kernel")
+
+    log("# conv_chain edge chains against the plain version")
+    errs = []
+    edges = [(f"mixed {CHAIN_EDGES[0]}", mixed_chain(CHAIN_EDGES[0][-1], 1),
+              CHAIN_EDGES[0])]
+    for shape in CHAIN_EDGES[1:]:
+        specs = convchain_bench.make_chain(shape[-1], 4, 8, 8,
+                                           device="cpu")[1]
+        edges.append((f"bench chain {shape}", specs, shape))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for name, specs, shape in edges:
+        x = uniform(gen, shape, -1, 1)
+        for mode, dtype in dtypes.items():
+            chain = cc.ConvChain(specs, shape[-1], dtype, dev)
+            n0 = cc.conv_chain.launches
+            out = chain(x)
+            if cc.conv_chain.launches - n0 != shape[0]:
+                raise AssertionError(f"{name}: {cc.conv_chain.launches - n0}"
+                                     f" launches for {shape[0]} images")
+            where = "shared" if chain.in_shared_memory else "global"
+            errs.append(check_chain(
+                f"{mode} {name}, tile {chain.tile}, slots in {where} memory",
+                convchain_bench.errors(out, cc.conv_chain_plain(x, specs,
+                                                                dtype)),
+                dtype))
+            if shape[0] > 1 and not torch.equal(out[1:], chain(x[1:])):
+                raise AssertionError(f"{name}: image 1 differs from its "
+                                     "own launch")
+
+    entry = {"name": "conv_chain", "route": "cuda", "source": CHAIN_SOURCE,
+             "replaces": CHAIN_REPLACES, "launches": launches,
+             "max_abs_err": max(errs + [r["chain"]["max_abs_err"]
+                                        for r in runs.values()]),
+             "library_call": "F.conv2d + F.leaky_relu per layer, "
+                             "channels_last, compute dtype (cuDNN)"}
+    specs = convchain_bench.make_chain(h=8, w=8, device="cpu")[1]
+    for mode, run in runs.items():
+        dtype = dtypes[mode]
+        b_ms, b_by = bound_ms(*chain_cost(specs, *run["shape"],
+                                          dtype.itemsize), chain_peak(dtype))
+        numbers = {"shape": run["shape"], "dtype": mode,
+                   "ms": run["chain"]["ms"],
+                   "plain_ms": run["plain_version_ms"],
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": run["plain"]["ms"], "tile": run["tile"]}
+        if mode == "bf16":  # the bench's default mode heads the entry
+            entry.update(numbers)
+        else:
+            entry[mode] = numbers
+        log(f"# conv_chain {mode}: {numbers['ms']:.3f} ms (bound "
+            f"{b_ms:.4f} by {b_by}, plain {numbers['plain_ms']:.3f}, cuDNN "
+            f"chain {numbers['library_ms']:.3f})")
+    return entry
+
+
+def phase_warp_tiers(dev):
+    """Every variant of the warp tier bench (the path, counted)."""
+    log("# warp-tier path: tools/warp_tier_bench.py at 1x1152x1920x48")
+    inp = warp_tier_bench.make_inputs(dev)
+    wk.flow_warp.launches = 0
+    wk.grouped_warp.launches = 0
+    rows = warp_tier_bench.run(inp, check=check_equal)
+    launches = {"flow_warp": wk.flow_warp.launches,
+                "grouped_warp": wk.grouped_warp.launches}
+    for row in rows:
+        log(json.dumps(row))
+        want = {k: int(k == row["kernel"])  # a shift sum launches none
+                for k in ("flow_warp", "grouped_warp")}
+        if row["launches_per_call"] != want:
+            raise AssertionError(f"{row['name']}: launched "
+                                 f"{row['launches_per_call']}, want {want}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"warp-tier path launches {launches}")
+    # each kernel's yardsticks at the bench's shapes (outside the count)
+    x, flow = inp["x"], inp["flow"]
+    units = (inp["fx"], inp["fy"], inp["mask"])
+    n, h, w, c = x.shape
+    go, gn = units[0].shape[-1], warp_tier_bench.GROUPS
+    elt = x.element_size()
+    numbers = {
+        "flow_warp": {
+            "plain_ms": time_ms(lambda: plain.flow_warp(x, flow), 5, 1),
+            "library_ms": grid_sample_ms(x, flow),
+            "bound_ms": bound_ms(*flow_warp_cost(n, h, w, c, elt))[0]},
+        "grouped_warp": {
+            "plain_ms": time_ms(
+                lambda: plain.grouped_warp_plain(x, *units, gn), 3, 1),
+            "library_ms": None,
+            "bound_ms": bound_ms(*grouped_cost(n, h, w, c, go, gn, elt))[0]}}
+    for name, nums in numbers.items():
+        nums["launches"] = launches[name]
+        nums["ms"] = {r["name"]: r["ms"] for r in rows
+                      if r["launches_per_call"][name]}
+        log(f"# {name} on the warp-tier path: {json.dumps(nums)}")
+    return numbers
+
+
 def phase_main_path(dev):
     params = init_lssvc(torch.Generator().manual_seed(0))
     model = LSSVC(params, device=dev, od_offset_cap=OD_OFFSET_CAP_SERVING)
@@ -435,9 +638,13 @@ def main():
     calls, launches = phase_main_path(dev)
     kernels = phase_kernels(dev, calls)
     phase_cpu_vs_card(dev)
+    chain_entry = phase_conv_chain(dev)
+    tiers = phase_warp_tiers(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_per_frame"] = launches[k["name"]] / K
+        k["warp_tier_bench"] = tiers[k["name"]]
+    kernels.append(chain_entry)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,7 @@
 
 NHWC activations at every public function; parameters keyed by the
 reference's torch state_dict names, in torch layouts (see convert.py).
-The warps run as hand-written CUDA kernels on the GPU (ops/warp_kernels.py,
-csrc/warp.cu) and as their plain PyTorch versions on the CPU.
+The warps and the fused conv chain run as hand-written CUDA kernels on the
+GPU (ops/warp_kernels.py with csrc/warp.cu, ops/conv_chain.py with
+csrc/conv_chain.cu) and as their plain PyTorch versions on the CPU.
 """

@@ -5,7 +5,8 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
 at first use into `lssvc_tpu_torch/_build/` (listed in .gitignore).  The
 library's file name carries a hash of its source, so an edited source
 rebuilds; a lock file keeps concurrent processes (pytest workers) from
-building the same library at once.  Nothing here runs at import time.
+building the same library at once.  `build_all` runs one nvcc per source,
+all at once.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent
@@ -74,6 +76,13 @@ def build(name: str) -> Path:
             fcntl.flock(lock, fcntl.LOCK_UN)
     BUILD_SECONDS.setdefault(name, 0.0)
     return lib
+
+
+def build_all(names) -> list[Path]:
+    """Compile several sources concurrently, one nvcc process each."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        futures = [pool.submit(build, name) for name in names]
+        return [f.result() for f in futures]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -11,6 +11,8 @@ reference networks (e.g. "mv_encoder.0.weight"), held in torch layouts:
 `params_from_jax` takes the JAX package's parameter dict as numpy arrays
 (HWIO conv kernels, spatially flipped conv-equivalent transposed-conv
 kernels, (1, 1, 1, C) Bitparm tensors) and returns these layouts.
+`chain_specs_from_jax` does the same for a conv-chain spec list
+(`ops/conv_chain.py`).
 """
 
 from __future__ import annotations
@@ -52,6 +54,22 @@ def params_from_jax(np_params: dict) -> dict[str, torch.Tensor]:
             # per-channel Bitparm (1, 1, 1, C) -> (1, C, 1, 1)
             a = a.reshape(1, -1, 1, 1)
         out[key] = torch.from_numpy(a.copy())  # C-contiguous, writable
+    return out
+
+
+def chain_specs_from_jax(specs) -> list[dict]:
+    """A JAX conv-chain spec list (numpy weights) -> the port's: HWIO conv
+    weights become OIHW, a dw3 weight (3, 3, 1, C) becomes (C, 1, 3, 3),
+    biases become f32 tensors (None stays None); other keys are kept."""
+    out = []
+    for s in specs:
+        t = dict(s)
+        if "w" in t:
+            t["w"] = torch.from_numpy(
+                np.asarray(t["w"], np.float32).transpose(3, 2, 0, 1).copy())
+        if t.get("b") is not None:
+            t["b"] = torch.from_numpy(np.asarray(t["b"], np.float32).copy())
+        out.append(t)
     return out
 
 

@@ -1,3 +1,4 @@
+from .conv_chain import ConvChain, conv_chain_plain, conv_chain_specs
 from .nn import (
     OD_OFFSET_CAP_SERVING,
     avg_pool2d,
@@ -18,6 +19,8 @@ from .warp import (
     bilinear_upsample2,
     clamp_flow,
     flow_warp_grouped,
+    flow_warp_shift_sum,
     grouped_warp_plain,
+    grouped_warp_shift_sum,
 )
 from .warp_kernels import flow_warp, flow_warp_pair, grouped_warp

@@ -118,6 +118,62 @@ def grouped_warp_plain(x, flow_x, flow_y, mask, group_num: int):
     return (warped * torch.cat([mask.float()] * cg, dim=-1)).to(x.dtype)
 
 
+def flow_warp_shift_sum(x, flow, bound: int):
+    """`flow_warp` for |flow| <= `bound`, as a gather-free sum over the
+    (2b+2)^2 integer taps: out = sum shift(x, dy, dx) * relu(1-|fy-dy|) *
+    relu(1-|fx-dx|), with the effective (border-clamped) flow.  The JAX
+    package's XLA formulation (`lssvc_tpu/ops/warp.py:320`), which its warp
+    tier bench times; f32."""
+    n, h, w, c = x.shape
+    dev = x.device
+    iy = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+    ix = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
+    fy = (torch.clamp(iy + flow[..., 1], 0.0, h - 1.0) - iy)[..., None]
+    fx = (torch.clamp(ix + flow[..., 0], 0.0, w - 1.0) - ix)[..., None]
+    taps = 2 * bound + 2
+    xp = torch.nn.functional.pad(x, (0, 0, bound, bound + 1, bound, bound + 1))
+    acc = torch.zeros_like(x)
+    for t in range(taps * taps):
+        sy, sx = divmod(t, taps)
+        wy = torch.clamp(1.0 - torch.abs(fy - (sy - bound)), min=0.0)
+        wx = torch.clamp(1.0 - torch.abs(fx - (sx - bound)), min=0.0)
+        acc = acc + xp[:, sy:sy + h, sx:sx + w] * (wy * wx)
+    return acc
+
+
+def grouped_warp_shift_sum(x, flow_x, flow_y, mask, group_num: int,
+                           bound: int):
+    """`grouped_warp_plain` for |flow| <= `bound` as a tap sum (block
+    layout c' = k*go + j, mask applied): every unit shares each tap's
+    shifted source, only the weights differ per unit.  The JAX package's
+    XLA formulation (`lssvc_tpu/ops/warp.py:362`); f32."""
+    n, h, w, c_src = x.shape
+    go = flow_x.shape[-1]
+    offset_num = go // group_num
+    cg = c_src // group_num
+    dev = x.device
+    iy = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None, None]
+    ix = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :, None]
+    fy = torch.clamp(iy + flow_y, 0.0, h - 1.0) - iy  # (N, H, W, go)
+    fx = torch.clamp(ix + flow_x, 0.0, w - 1.0) - ix
+    planes = [x[..., k::cg] for k in range(cg)]  # (N, H, W, group_num) each
+    x_blk = torch.cat([p for plane in planes for p in (plane,) * offset_num],
+                      dim=-1)
+    taps = 2 * bound + 2
+    xp = torch.nn.functional.pad(x_blk,
+                                 (0, 0, bound, bound + 1, bound, bound + 1))
+    accs = [torch.zeros((n, h, w, go), dtype=x.dtype, device=dev)] * cg
+    for t in range(taps * taps):
+        sy, sx = divmod(t, taps)
+        wy = torch.clamp(1.0 - torch.abs(fy - (sy - bound)), min=0.0)
+        wx = torch.clamp(1.0 - torch.abs(fx - (sx - bound)), min=0.0)
+        wgt = wy * wx
+        xs = xp[:, sy:sy + h, sx:sx + w]
+        accs = [accs[k] + xs[..., k * go:(k + 1) * go] * wgt
+                for k in range(cg)]
+    return torch.cat([a * mask for a in accs], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Bilinear resizing (align_corners=False)
 

@@ -11,6 +11,7 @@ import torch
 
 from lssvc_tpu_torch.models import LSSVC
 from lssvc_tpu_torch.models.init import init_lssvc
+from lssvc_tpu_torch.ops import conv_chain as cc
 from lssvc_tpu_torch.ops import warp as plain
 from lssvc_tpu_torch.ops import warp_kernels as wk
 
@@ -82,3 +83,64 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         wk.flow_warp(x.float(), flow[..., :1])
     with pytest.raises(ValueError):
         wk.flow_warp(x.float(), flow.cpu())
+
+
+def _chain_specs(seed, c, c_in=None):
+    """A mixed chain with a nonzero bias on every conv: save, conv3, a conv1
+    branch, dw3, act, conv3, add_saved(tag), add_saved."""
+    g = torch.Generator().manual_seed(seed)
+
+    def w(*shape):
+        return torch.randn(shape, generator=g) * 0.2
+
+    head = [] if c_in is None else [
+        {"kind": "conv3", "w": w(c, c_in, 3, 3), "b": w(c), "slope": 0.1}]
+    return head + [
+        {"kind": "save"},
+        {"kind": "conv3", "w": w(c, c, 3, 3), "b": w(c), "slope": 0.1},
+        {"kind": "conv1", "w": w(c, c, 1, 1), "b": w(c), "branch": "a"},
+        {"kind": "dw3", "w": w(c, 1, 3, 3), "b": w(c), "slope": 0.01},
+        {"kind": "act", "slope": 0.2},
+        {"kind": "conv3", "w": w(c, c, 3, 3), "b": w(c)},
+        {"kind": "add_saved", "tag": "a"},
+        {"kind": "add_saved"},
+    ]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,c_in", [((1, 21, 37, 16), None),
+                                        ((2, 30, 45, 3), 3),
+                                        ((1, 19, 40, 128), None)])
+def test_conv_chain_kernel_matches_plain(dev, dtype, shape, c_in):
+    """One launch per image; f32 max |err| <= 1e-5 max|ref| (summation
+    order), bf16 relative RMS <= 1e-3 and max |err| <= 2^-5 max|ref| (a
+    rounding that lands the other way carries through later layers).  The
+    128-channel f32 chain keeps its slots in global memory."""
+    torch.backends.cudnn.allow_tf32 = False
+    specs = _chain_specs(shape[0] + shape[-1], 16 if c_in else shape[-1],
+                         c_in)
+    x = _uniform(shape, 8, -1, 1, dev, dtype)
+    chain = cc.ConvChain(specs, shape[-1], dtype, dev)
+    n = cc.conv_chain.launches
+    out = chain(x)
+    assert cc.conv_chain.launches == n + shape[0]
+    ref = cc.conv_chain_plain(x, specs, dtype)
+    assert out.shape == ref.shape and out.dtype == ref.dtype == dtype
+    o, r = out.double(), ref.double()
+    err, top = float((o - r).abs().max()), float(r.abs().max())
+    if dtype == torch.float32:
+        assert err <= 1e-5 * top
+    else:
+        rms = float(torch.sqrt(((o - r) ** 2).mean() / (r ** 2).mean()))
+        assert rms <= 1e-3 and err <= 2.0 ** -5 * top
+    if shape[0] == 2:  # a batch equals its images one by one
+        assert torch.equal(out[1:], chain(x[1:]))
+
+
+def test_conv_chain_rejects_what_the_kernel_does_not_take(dev):
+    specs = _chain_specs(0, 4)
+    chain = cc.ConvChain(specs, 4, torch.float32, dev)
+    with pytest.raises(ValueError):
+        chain(torch.zeros((1, 5, 6, 3), device=dev))
+    with pytest.raises(ValueError):
+        cc.ConvChain(specs * 10, 4, torch.float32, dev)  # past 64 layers
