@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. Device: CUDA must be available; prints the card's name and power limit.
 2. Build: compiles the kernels of lssvc_tpu_torch/csrc with nvcc (sm_90a),
-   one nvcc per source, all at once.
+   one nvcc per source, all at once; counts the tensor-core instructions
+   (HGMMA, HMMA) in conv_chain's SASS (cuobjdump), and fails without HGMMA.
 3. Main path: LSSVC from the port's random init, fp32 (TF32 off), offset cap
    10 px, EL 1152x1920 / BL 576x960 from a random decoded-picture buffer.
    A warm-up frame records the shape of every kernel launch; then a chain
@@ -31,9 +32,12 @@ Phases (any failure exits non-zero; nothing is caught):
    one launch per image: a mixed spec chain with biases at 1x576x960x64,
    the bench chain at 1x1150x1918 (unaligned), at 2x576x960 (batch 2, equal
    to its images one by one), and at 128 channels (its f32 slots outgrow
-   shared memory).  f32: max |err| <= 1e-5 max|ref|; bf16: relative RMS
-   <= 1e-3 and max |err| <= 2^-5 max|ref|.  Times the kernel, the plain
-   version and the unfused cuDNN chain.
+   shared memory), and a 3-channel head conv into a 16-channel mixed chain
+   at 1x576x960 (K padded to 16).  f32: max |err| <= 1e-5 max|ref|; bf16:
+   relative RMS <= 1e-3 and max |err| <= 2^-5 max|ref|.  Times the kernel,
+   the plain version and the unfused cuDNN chain; prints each mode's
+   executed-work factor (the kernel's tensor-core products, halo and
+   padding included, over the chain's) and executed TFLOP/s.
 7. Warp-tier path: the port's warp tier bench (tools/warp_tier_bench.py),
    every variant of the JAX one at its shapes, with the warp counts set to
    0 just before and read just after; each variant through flow_warp /
@@ -51,8 +55,10 @@ from __future__ import annotations
 
 import json
 import math
+import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -73,6 +79,7 @@ EL_HW, BL_HW, K = (1152, 1920), (576, 960), 3
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_TENSOR_FLOP_PER_S = 989e12  # dense, tensor cores
+TF32_TENSOR_FLOP_PER_S = 495e12  # dense, tensor cores
 DTYPES = {0: torch.float32, 1: torch.bfloat16}  # the kernels' dtype codes
 FLOW_WARP_REPLACES = (
     "lssvc_tpu/ops/warp_pallas.py:305 (_warp_kernel_cblock), "
@@ -89,9 +96,9 @@ CHAIN_SOURCE = "lssvc_tpu_torch/csrc/conv_chain.cu"
 CHAIN_REPLACES = "lssvc_tpu/ops/conv_chain.py:64 (_chain_kernel)"
 TIME_FLOW_PX = 12.0  # flow amplitude of the timed calls: motion + OD offset
 # conv_chain edge cases: the mixed chain, then the bench chain unaligned,
-# in a batch of 2, and at 128 channels
+# in a batch of 2, and at 128 channels, then a 3-channel head
 CHAIN_EDGES = [(1, 576, 960, 64), (1, 1150, 1918, 48), (2, 576, 960, 48),
-               (1, 576, 960, 128)]
+               (1, 576, 960, 128), (1, 576, 960, 3)]
 
 
 def log(msg):
@@ -191,10 +198,10 @@ def chain_cost(specs, n, h, w, c_in, elt):
 
 
 def chain_peak(dtype):
-    """The unit the best design would use: bf16 tensor cores, or the f32
-    CUDA cores of the parity mode (TF32 off)."""
+    """The rate of the unit the kernel uses: bf16 tensor cores, or for f32
+    the TF32 tensor cores at three TF32 products per f32 product."""
     return BF16_TENSOR_FLOP_PER_S if dtype == torch.bfloat16 \
-        else FP32_FLOP_PER_S
+        else TF32_TENSOR_FLOP_PER_S / 3
 
 
 def check_chain(name, errs, dtype):
@@ -254,6 +261,15 @@ def phase_build():
     log(f"# build: " + ", ".join(
         f"{n}.cu {build.BUILD_SECONDS[n]:.2f} s nvcc" for n in names)
         + f"; {time.perf_counter() - t0:.2f} s to build all and load")
+    # the conv chain's products: tensor-core instructions in its SASS
+    sass = subprocess.run(
+        [str(Path(build.nvcc_path()).with_name("cuobjdump")), "-sass",
+         str(build.library_path("conv_chain"))],
+        capture_output=True, text=True, check=True).stdout
+    hgmma = sass.count("HGMMA")
+    log(f"# conv_chain.cu SASS: {hgmma} HGMMA, {sass.count('HMMA')} HMMA")
+    if hgmma == 0:
+        raise AssertionError("conv_chain.cu has no HGMMA instruction")
 
 
 def phase_kernels(dev, calls):
@@ -448,6 +464,15 @@ def mixed_chain(c, seed):
             {"kind": "add_saved"}]
 
 
+def head_chain(seed):
+    """A 3 -> 16 channel conv3 head (bias, slope) before the mixed chain at
+    16 channels."""
+    gen = torch.Generator().manual_seed(seed)
+    return [{"kind": "conv3", "w": torch.randn((16, 3, 3, 3), generator=gen)
+             * (2.0 / 27) ** .5, "b": torch.randn(16, generator=gen) * 0.1,
+             "slope": 0.1}] + mixed_chain(16, seed)
+
+
 def phase_conv_chain(dev):
     """The conv-chain bench at its defaults (the path, counted), then edge
     chains against the plain version (uncounted)."""
@@ -468,10 +493,12 @@ def phase_conv_chain(dev):
     errs = []
     edges = [(f"mixed {CHAIN_EDGES[0]}", mixed_chain(CHAIN_EDGES[0][-1], 1),
               CHAIN_EDGES[0])]
-    for shape in CHAIN_EDGES[1:]:
+    for shape in CHAIN_EDGES[1:-1]:
         specs = convchain_bench.make_chain(shape[-1], 4, 8, 8,
                                            device="cpu")[1]
         edges.append((f"bench chain {shape}", specs, shape))
+    edges.append((f"3-channel head {CHAIN_EDGES[-1]}", head_chain(2),
+                  CHAIN_EDGES[-1]))
     gen = torch.Generator(device=dev).manual_seed(3)
     for name, specs, shape in edges:
         x = uniform(gen, shape, -1, 1)
@@ -501,20 +528,28 @@ def phase_conv_chain(dev):
     specs = convchain_bench.make_chain(h=8, w=8, device="cpu")[1]
     for mode, run in runs.items():
         dtype = dtypes[mode]
-        b_ms, b_by = bound_ms(*chain_cost(specs, *run["shape"],
-                                          dtype.itemsize), chain_peak(dtype))
-        numbers = {"shape": run["shape"], "dtype": mode,
-                   "ms": run["chain"]["ms"],
+        nbytes, chain_flops = chain_cost(specs, *run["shape"],
+                                         dtype.itemsize)
+        b_ms, b_by = bound_ms(nbytes, chain_flops, chain_peak(dtype))
+        ms = run["chain"]["ms"]
+        numbers = {"shape": run["shape"], "dtype": mode, "ms": ms,
                    "plain_ms": run["plain_version_ms"],
                    "bound_ms": b_ms, "bound_by": b_by,
-                   "library_ms": run["plain"]["ms"], "tile": run["tile"]}
+                   "library_ms": run["plain"]["ms"], "tile": run["tile"],
+                   "executed_factor": run["executed_gflop"] * 1e9
+                   / chain_flops,
+                   "executed_tflops": run["executed_gflop"] / ms}
         if mode == "bf16":  # the bench's default mode heads the entry
             entry.update(numbers)
         else:
             entry[mode] = numbers
         log(f"# conv_chain {mode}: {numbers['ms']:.3f} ms (bound "
             f"{b_ms:.4f} by {b_by}, plain {numbers['plain_ms']:.3f}, cuDNN "
-            f"chain {numbers['library_ms']:.3f})")
+            f"chain {numbers['library_ms']:.3f}); tile {run['tile']}, "
+            f"executed-work factor {numbers['executed_factor']:.3f}, "
+            f"{numbers['executed_tflops']:.1f} TFLOP/s executed"
+            + (f" ({3 * numbers['executed_tflops']:.1f} in TF32 products)"
+               if mode == "fp32" else ""))
     return entry
 
 

@@ -14,8 +14,10 @@ a `torch.Generator` seed (`SEED`).  Variants:
   chain  the fused CUDA kernel of `ops/conv_chain.py`
 
 Each is held against `conv_chain_plain` (the kernel's rounding points) and
-timed with CUDA events (`ITERS` calls); one JSON line gives the errors, the times and the
-card's name and power limit.  The JAX tool's `packed` variant needs the
+timed with CUDA events (`ITERS` calls); one JSON line gives the errors, the
+times, the kernel's tile and executed tensor-core work (`executed_gflop`:
+its products, halo and padding included, f32 products counted once) and
+the card's name and power limit.  The JAX tool's `packed` variant needs the
 width-packed conv domain (`ops/packed.py`, ROADMAP A8) and `nos2b` is an
 XLA compiler flag; neither has a counterpart here.
 """
@@ -98,6 +100,7 @@ def run(mode="bf16", c=48, reps=4):
     result = {"shape": list(x.shape), "reps": reps, "mode": mode,
               "slope": SLOPE, "tile": list(chain.tile),
               "slots_in_shared_memory": chain.in_shared_memory,
+              "executed_gflop": chain.executed_flops(*x.shape[:3]) / 1e9,
               "plain_version_ms": time_ms(
                   lambda: conv_chain_plain(x, specs, cdtype), 5, 1)}
     for name, fn in (("plain", lambda: library_chain(x, specs, cdtype)),

@@ -13,6 +13,7 @@ at the largest value, for a rounding that lands the other way).
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax.numpy as jnp
 
@@ -137,7 +138,9 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
 def test_plan_halo_slots_and_tile():
     """The kernel's plan: halo L = spatial depth (branches count), margins
     shrink by one per spatial layer, an op never writes a slot it reads,
-    and the slots of the tool's chain fit in shared memory."""
+    the last op writes the output (no slot), and the tool's chain gets the
+    tile of least tensor-core work whose chunk-planar slots fit in shared
+    memory."""
     rng = np.random.default_rng(14)
     plan = tchain.ConvChain(chain_specs_from_jax(mixed_chain(rng, c=16)), 16,
                             torch.float32, "cpu")
@@ -147,15 +150,117 @@ def test_plan_halo_slots_and_tile():
     for kind, src, dst, sav, *_ in plan.ops:
         assert plan.slot_of[dst] not in (plan.slot_of[src],
                                          plan.slot_of.get(sav))
+    assert plan.slot_of[plan.out_buf] == -1
     _, specs = convchain_bench.make_chain(48, 4, 8, 8, device="cpu")
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype, tile, taps, pad in ((torch.bfloat16, (16, 32), 3, 72),
+                                   (torch.float32, (12, 16), 1, 0)):
         plan = tchain.ConvChain(specs, 48, dtype, "cpu")
         assert (plan.L, plan.n_slots) == (4, 2)
-        assert plan.in_shared_memory and plan.tile == (16, 16)
+        assert plan.in_shared_memory and (plan.tile, plan.taps) == (tile, taps)
+        # the input region (L = 4 px of halo), one 16-byte chunk plane per
+        # 8 bf16 / 4 f32 channels, bf16 planes padded for the last M tile
+        npix = (tile[0] + 8) * (tile[1] + 8)
+        assert plan.slot_elems == (npix + pad) * 48
+        elt = dtype.itemsize
+        stage = (2 if dtype == torch.float32 else 1) * taps * 48 * 48 * elt
+        assert plan.ring_bytes == stage
+        assert plan.smem_bytes == 2 * stage + 2 * plan.slot_elems * elt
+        assert plan.smem_bytes <= tchain.SMEM_BYTES
     # 128 channels in f32 at depth 4 outgrow shared memory
     wide = [{"kind": "conv3", "w": torch.zeros(128, 128, 3, 3)}] * 4
     assert not tchain.ConvChain(wide, 128, torch.float32,
                                 "cpu").in_shared_memory
+
+
+def _unpack_b(packed, k, n, elt):
+    """The inverse of the plan's packing: (K, N) from wgmma's K-major core
+    matrices."""
+    kel = 16 // elt
+    return packed.reshape(k // kel, n // 8, 8, kel).permute(0, 3, 1, 2) \
+        .reshape(k, n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,co,ci", [("conv3", 20, 3), ("conv3", 80, 16),
+                                        ("conv1", 24, 40)])
+def test_packed_weights_unpack_to_torch_weight(kind, co, ci, dtype):
+    """The packed B of a conv, chunk by chunk of <= 64 output channels
+    (f32: its TF32 hi part, then its lo part), unpacks to the weight in the
+    compute dtype: row (dy*k + dx)*Ci' + ci, column co, zero in the K and N
+    padding; in f32 hi = tf32(w), lo = tf32(w - hi) and hi + lo = w."""
+    k = 3 if kind == "conv3" else 1
+    g = torch.Generator().manual_seed(co + ci)
+    w = (torch.randn((co, ci, k, k), generator=g) * 0.3).to(dtype).float()
+    plan = tchain.ConvChain([{"kind": kind, "w": w}], ci, dtype, "cpu")
+    cin_p, cout_p = -(-ci // 16) * 16, -(-co // 16) * 16
+    kk = k * k * cin_p
+    packed = plan.wmm.float()
+    parts = 2 if dtype == torch.float32 else 1
+    assert packed.numel() == parts * kk * cout_p
+    cols, off = [], 0
+    for n0 in range(0, cout_p, 64):
+        nc = min(64, cout_p - n0)
+        got = [_unpack_b(packed[off + i * kk * nc:off + (i + 1) * kk * nc],
+                         kk, nc, dtype.itemsize) for i in range(parts)]
+        off += parts * kk * nc
+        if dtype == torch.float32:
+            hi, lo = got
+            assert torch.equal(hi, tchain.tf32_round(hi))
+            assert torch.equal(lo, tchain.tf32_round(lo))
+            cols.append(hi + lo)
+        else:
+            cols.append(got[0])
+    b = torch.cat(cols, 1).reshape(k, k, cin_p, cout_p)
+    want = torch.zeros(k, k, cin_p, cout_p)
+    want[:, :, :ci, :co] = w.permute(2, 3, 1, 0)
+    tol = 2.0 ** -21 * float(w.abs().max()) if dtype == torch.float32 else 0
+    assert float((b - want).abs().max()) <= tol
+    assert not b[:, :, ci:].any() and not b[..., co:].any()
+
+
+def _tf32(a):
+    """Round f32 to TF32 as cvt.rna.tf32.f32 does: keep 10 mantissa bits,
+    to nearest, ties away from zero."""
+    bits = a.numpy().view(np.uint32).astype(np.uint64)
+    bits = ((bits + 0x1000) & 0xFFFFE000).astype(np.uint32)
+    return torch.from_numpy(bits.view(np.float32).copy())
+
+
+def _tf32_chain(x, specs, passes):
+    """The kernel's f32 arithmetic on a conv3 chain, emulated: each operand
+    split into hi = tf32(a), lo = tf32(a - hi), the products hi*hi (+ hi*lo
+    + lo*hi with three passes) summed in f64, then bias, leaky ReLU and a
+    rounding to f32."""
+    cur = x.permute(0, 3, 1, 2)
+    for s in specs:
+        w = s["w"].float()
+        a_hi, w_hi = _tf32(cur), _tf32(w)
+        terms = [(a_hi, w_hi)]
+        if passes == 3:
+            terms += [(a_hi, _tf32(w - w_hi)), (_tf32(cur - a_hi), w_hi)]
+        y = sum(F.conv2d(a.double(), b.double(), padding=1) for a, b in terms)
+        if s.get("b") is not None:
+            y = y + s["b"].double()[None, :, None, None]
+        if s.get("slope") is not None:
+            y = torch.where(y >= 0, y, y * s["slope"])
+        cur = y.float()
+    return cur.permute(0, 2, 3, 1)
+
+
+def test_three_tf32_passes_keep_f32_accuracy():
+    """Three TF32 products per product (hi*hi + hi*lo + lo*hi) meet the f32
+    tolerance against conv_chain_plain, max |err| <= 1e-5 max|ref|; one
+    TF32 pass (about 11 bits) does not."""
+    rng = np.random.default_rng(17)
+    specs = chain_specs_from_jax(uniform_chain(rng, c=16, reps=3))
+    x = torch.from_numpy(rng.uniform(-1, 1, (1, 12, 13, 16))
+                         .astype(np.float32))
+    ref = tchain.conv_chain_plain(x, specs)
+    top = float(ref.abs().max())
+    err3 = float((_tf32_chain(x, specs, 3) - ref).abs().max())
+    err1 = float((_tf32_chain(x, specs, 1) - ref).abs().max())
+    assert err3 <= 1e-5 * top, (err3, top)
+    assert err1 > 1e-5 * top, (err1, top)
 
 
 def test_plan_rejects_bad_chains():

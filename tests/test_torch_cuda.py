@@ -107,24 +107,15 @@ def _chain_specs(seed, c, c_in=None):
     ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,c_in", [((1, 21, 37, 16), None),
-                                        ((2, 30, 45, 3), 3),
-                                        ((1, 19, 40, 128), None)])
-def test_conv_chain_kernel_matches_plain(dev, dtype, shape, c_in):
-    """One launch per image; f32 max |err| <= 1e-5 max|ref| (summation
-    order), bf16 relative RMS <= 1e-3 and max |err| <= 2^-5 max|ref| (a
-    rounding that lands the other way carries through later layers).  The
-    128-channel f32 chain keeps its slots in global memory."""
-    torch.backends.cudnn.allow_tf32 = False
-    specs = _chain_specs(shape[0] + shape[-1], 16 if c_in else shape[-1],
-                         c_in)
-    x = _uniform(shape, 8, -1, 1, dev, dtype)
-    chain = cc.ConvChain(specs, shape[-1], dtype, dev)
-    n = cc.conv_chain.launches
-    out = chain(x)
-    assert cc.conv_chain.launches == n + shape[0]
-    ref = cc.conv_chain_plain(x, specs, dtype)
+def _check_chain(out, ref, dtype):
+    """f32: max |err| <= 1e-5 max|ref|.  The kernel's products are three
+    TF32 products of split operands (about 2^-21 relative each), summed in
+    the tensor cores' order with an f32 total every tap, where F.conv2d
+    sums in full f32 in another order.  bf16: relative RMS <= 1e-3 and max
+    |err| <= 2^-5 max|ref|: the products are exact, but the sums run in
+    another order and the tensor cores' accumulation truncates, so a
+    rounding to bf16 can land the other way and carry through later
+    layers."""
     assert out.shape == ref.shape and out.dtype == ref.dtype == dtype
     o, r = out.double(), ref.double()
     err, top = float((o - r).abs().max()), float(r.abs().max())
@@ -133,8 +124,43 @@ def test_conv_chain_kernel_matches_plain(dev, dtype, shape, c_in):
     else:
         rms = float(torch.sqrt(((o - r) ** 2).mean() / (r ** 2).mean()))
         assert rms <= 1e-3 and err <= 2.0 ** -5 * top
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,c_in", [((1, 21, 37, 16), None),
+                                        ((2, 30, 45, 3), 3),
+                                        ((1, 19, 40, 128), None)])
+def test_conv_chain_kernel_matches_plain(dev, dtype, shape, c_in):
+    """One launch per image, within _check_chain's tolerances.  The
+    3-channel head conv pads K to 16; the 128-channel f32 chain keeps its
+    slots in global memory."""
+    torch.backends.cudnn.allow_tf32 = False
+    specs = _chain_specs(shape[0] + shape[-1], 16 if c_in else shape[-1],
+                         c_in)
+    x = _uniform(shape, 8, -1, 1, dev, dtype)
+    chain = cc.ConvChain(specs, shape[-1], dtype, dev)
+    n = cc.conv_chain.launches
+    out = chain(x)
+    assert cc.conv_chain.launches == n + shape[0]
+    _check_chain(out, cc.conv_chain_plain(x, specs, dtype), dtype)
     if shape[0] == 2:  # a batch equals its images one by one
         assert torch.equal(out[1:], chain(x[1:]))
+
+
+def test_conv_chain_plain_ignores_global_tf32(dev):
+    """conv_chain_plain stays the f32 yardstick with TF32 left on
+    globally: its convolutions turn TF32 off themselves."""
+    specs = _chain_specs(5, 48)
+    x = _uniform((1, 40, 72, 48), 9, -1, 1, dev)
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        ref = cc.conv_chain_plain(x, specs, torch.float32)
+        assert torch.backends.cudnn.allow_tf32
+        out = cc.ConvChain(specs, 48, torch.float32, dev)(x)
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+    _check_chain(out, ref, torch.float32)
 
 
 def test_conv_chain_rejects_what_the_kernel_does_not_take(dev):
