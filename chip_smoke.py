@@ -11,15 +11,20 @@ Phases (any failure exits non-zero; nothing is caught):
    (HGMMA, HMMA) in conv_chain's SASS (cuobjdump), and fails without HGMMA.
 3. Main path: LSSVC from the port's random init, fp32 (TF32 off), offset cap
    10 px, EL 1152x1920 / BL 576x960 from a random decoded-picture buffer.
-   A warm-up frame records the shape of every kernel launch; then a chain
-   of K=3 frames runs with the launch counts set to 0 just before it, and
-   they must read 14*K flow_warp and K grouped_warp launches after it.
+   A warm-up frame records the shape of every kernel launch (flow_warp,
+   its pair entry point, grouped_warp); then a chain of K=3 frames runs
+   with the launch counts set to 0 just before it, and they must read 14*K
+   flow_warp (pairs included) and K grouped_warp launches after it.
    Prints s/frame, peak memory and the launch counts.
-4. Kernels: each CUDA kernel against its plain PyTorch version on the card,
-   at every shape the warm-up frame launched it with, plus edge cases
-   (unaligned, batch 2, bf16, flows far past the borders, NaN flows, and a
-   tensor past 2^31 elements, where flow_warp indexes in 64 bits), with
-   times of the kernel, the plain version and the one PyTorch call
+4. Kernels: each CUDA kernel bit for bit against its plain PyTorch version
+   on the card, at every shape the warm-up frame launched it with (which
+   must be tools/warp_bench.py's), plus edge cases (unaligned rows, batch
+   2, bf16, flows and offsets far past the borders, NaN flows, a data
+   pointer one element past alignment, and tensors past 2^31 elements,
+   where the kernels offset in 64 bits).  Then warp_bench's times: each
+   launch of a frame on its own line with its bound, their sum, the EL
+   pair as one whole flow_warp_pair call, grouped_warp on smooth and on
+   random flows, beside the plain versions and the one PyTorch call
    computing the same function where one exists.
 5. Whole path, CPU against card: one two-layer P-frame at EL 128x128 /
    BL 64x64 from the same weights on both devices (plain warps on the CPU,
@@ -71,13 +76,14 @@ from lssvc_tpu_torch.ops import OD_OFFSET_CAP_SERVING
 from lssvc_tpu_torch.ops import conv_chain as cc
 from lssvc_tpu_torch.ops import warp as plain
 from lssvc_tpu_torch.ops import warp_kernels as wk
-from lssvc_tpu_torch.tools import convchain_bench, warp_tier_bench
+from lssvc_tpu_torch.tools import convchain_bench, warp_bench, warp_tier_bench
 from lssvc_tpu_torch.tools.timing import card, time_ms
+from lssvc_tpu_torch.tools.warp_bench import (bound_ms, flow_warp_cost,
+                                              grouped_cost, uniform)
 
 EL_HW, BL_HW, K = (1152, 1920), (576, 960), 3
-# H100 SXM peaks from NVIDIA's data sheet
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
+# H100 SXM tensor-core peaks from NVIDIA's data sheet (the memory and f32
+# rates are tools/warp_bench.py's)
 BF16_TENSOR_FLOP_PER_S = 989e12  # dense, tensor cores
 TF32_TENSOR_FLOP_PER_S = 495e12  # dense, tensor cores
 DTYPES = {0: torch.float32, 1: torch.bfloat16}  # the kernels' dtype codes
@@ -94,7 +100,6 @@ GROUPED_REPLACES = (
 SOURCE = "lssvc_tpu_torch/csrc/warp.cu"
 CHAIN_SOURCE = "lssvc_tpu_torch/csrc/conv_chain.cu"
 CHAIN_REPLACES = "lssvc_tpu/ops/conv_chain.py:64 (_chain_kernel)"
-TIME_FLOW_PX = 12.0  # flow amplitude of the timed calls: motion + OD offset
 # conv_chain edge cases: the mixed chain, then the bench chain unaligned,
 # in a batch of 2, and at 128 channels, then a 3-channel head
 CHAIN_EDGES = [(1, 576, 960, 64), (1, 1150, 1918, 48), (2, 576, 960, 48),
@@ -105,25 +110,10 @@ def log(msg):
     print(msg, flush=True)
 
 
-def uniform(gen, shape, lo, hi):
-    """Uniform [lo, hi) float32 tensor on the generator's device."""
-    return torch.rand(shape, generator=gen, device=gen.device) * (hi - lo) + lo
-
-
-def smooth_field(gen, shape, amp):
-    """An NHWC field with |value| <= amp that varies over ~32 pixels, the
-    way a codec's motion does."""
-    n, h, w, c = shape
-    cell = 32
-    coarse = uniform(gen, (n, c, h // cell + 2, w // cell + 2), -amp, amp)
-    return F.interpolate(coarse, size=(h, w), mode="bilinear",
-                         align_corners=False).permute(0, 2, 3, 1).contiguous()
-
-
 class LaunchRecorder:
     """Stands in for the kernel library and records every launch's shape
-    and dtype code: flow_warp (n, h, w, c); grouped_warp (n, h, w, c_src,
-    go, group_num)."""
+    and dtype code: flow_warp (n, h, w, c); flow_warp_pair (n, h, w, ca,
+    cb); grouped_warp (n, h, w, c_src, go, group_num)."""
 
     def __init__(self, lib):
         self.lib, self.calls = lib, []
@@ -131,6 +121,10 @@ class LaunchRecorder:
     def lssvc_flow_warp(self, *args):
         self.calls.append(("flow_warp", tuple(args[3:7]), args[7]))
         return self.lib.lssvc_flow_warp(*args)
+
+    def lssvc_flow_warp_pair(self, *args):
+        self.calls.append(("flow_warp_pair", tuple(args[5:10]), args[10]))
+        return self.lib.lssvc_flow_warp_pair(*args)
 
     def lssvc_grouped_warp(self, *args):
         self.calls.append(("grouped_warp", tuple(args[5:11]), args[11]))
@@ -149,28 +143,6 @@ def grid_sample_ms(x, flow):
     return time_ms(lambda: F.grid_sample(
         x_nchw, grid, mode="bilinear", padding_mode="border",
         align_corners=True))
-
-
-def bound_ms(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flop_per_s * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def flow_warp_cost(n, h, w, c, elt):
-    """Bytes: x read once, flow read once, output written once.  Operations:
-    11 per output element (the lerp) + 10 per pixel (the coordinates)."""
-    return (n * h * w * (2 * c * elt + 8),
-            n * h * w * (11 * c + 10))
-
-
-def grouped_cost(n, h, w, c_src, go, group_num, elt):
-    """Bytes: x read once, flow_x, flow_y and mask read once, the go*cg
-    output channels written once.  Operations: 12 per output element + 10
-    per (pixel, unit)."""
-    cg = c_src // group_num
-    return (n * h * w * (c_src * elt + 3 * go * 4 + go * cg * elt),
-            n * h * w * go * (12 * cg + 10))
 
 
 def chain_cost(specs, n, h, w, c_in, elt):
@@ -272,142 +244,212 @@ def phase_build():
         raise AssertionError("conv_chain.cu has no HGMMA instruction")
 
 
+def check_bits(name, out, ref):
+    """Bit for bit against the plain version, NaN meeting NaN."""
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        raise AssertionError(f"{name}: {out.shape} {out.dtype} against "
+                             f"{ref.shape} {ref.dtype}")
+    nan_o, nan_r = torch.isnan(out), torch.isnan(ref)
+    o, r = out.masked_fill(nan_o, 0), ref.masked_fill(nan_r, 0)
+    if not (torch.equal(nan_o, nan_r) and torch.equal(o, r)):
+        raise AssertionError(f"{name}: not bit-equal, max |err| "
+                             f"{float((o.float() - r.float()).abs().max())}")
+    log(f"  {name}: bit-equal")
+    return 0.0
+
+
+def misaligned(t):
+    """A copy of t at storage offset 1: its data starts one element past
+    an aligned address, as a view into a larger tensor may."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return view.view(t.shape).copy_(t)
+
+
+def check_flow(name, xs, flow):
+    """flow_warp of xs[0], or flow_warp_pair of xs[0] and xs[1], in one
+    launch, against the plain warp of each tensor."""
+    n0 = wk.flow_warp.launches
+    outs = ([wk.flow_warp(xs[0], flow)] if len(xs) == 1
+            else wk.flow_warp_pair(*xs, flow))
+    if wk.flow_warp.launches != n0 + 1:
+        raise AssertionError(f"{name}: {wk.flow_warp.launches - n0} launches")
+    return max(check_bits(f"{name} [{i}]", out, plain.flow_warp(x, flow))
+               for i, (out, x) in enumerate(zip(outs, xs)))
+
+
+def check_grouped(name, x, fx, fy, m, gn):
+    n0 = wk.grouped_warp.launches
+    out = wk.grouped_warp(x, fx, fy, m, gn)
+    if wk.grouped_warp.launches != n0 + 1:
+        raise AssertionError(f"{name}: {wk.grouped_warp.launches - n0} "
+                             "launches")
+    return check_bits(name, out, plain.grouped_warp_plain(x, fx, fy, m, gn))
+
+
 def phase_kernels(dev, calls):
-    """Each kernel against its plain version at every shape the warm-up
-    frame launched it with (`calls`, from LaunchRecorder) and at edge
-    cases; times at its largest main-path launch."""
+    """Each CUDA kernel bit for bit against its plain version at every
+    shape the warm-up frame launched it with (`calls`, from LaunchRecorder,
+    which must be tools/warp_bench.py's FRAME and GROUPED) and at edge
+    cases; then warp_bench's times at those shapes."""
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def uni(shape, lo, hi):
         return uniform(gen, shape, lo, hi)
 
-    def smooth(shape, amp):
-        return smooth_field(gen, shape, amp)
-
-    flow_calls = [(shape, DTYPES[dt]) for name, shape, dt in calls
-                  if name == "flow_warp"]
-    grouped_calls = [(shape, DTYPES[dt]) for name, shape, dt in calls
+    flow_calls = [(name, shape) for name, shape, _ in calls
+                  if name != "grouped_warp"]
+    grouped_calls = [shape for name, shape, _ in calls
                      if name == "grouped_warp"]
-    if not flow_calls or not grouped_calls:
-        raise AssertionError(f"main path launched {calls}")
+    if (flow_calls != warp_bench.FRAME
+            or grouped_calls != [warp_bench.GROUPED]
+            or {DTYPES[dt] for _, _, dt in calls} != {torch.float32}):
+        raise AssertionError(f"main path launched {calls}; warp_bench times "
+                             f"{warp_bench.FRAME} and {warp_bench.GROUPED}")
+    f32, bf16 = torch.float32, torch.bfloat16
 
-    log("# flow_warp against its plain version")
+    log("# flow_warp and flow_warp_pair against the plain version")
     errs = []
-    # timed at its largest launch of the main path (the EL pair)
-    main_shape, main_dtype = max(flow_calls, key=lambda sd: math.prod(sd[0]))
-    n, h, w, c = main_shape
-    x_main = uni(main_shape, -1, 1).to(main_dtype)
+    for name, shape in warp_bench.FRAME:
+        xs, flow = warp_bench.flow_inputs(gen, shape)
+        errs.append(check_flow(f"{name} {shape} frame launch", xs, flow))
+    n, h, w, ca, cb = warp_bench.EL_PAIR
+    a, b = uni((n, h, w, ca), -1, 1), uni((n, h, w, cb), -1, 1)
     for label, lo in (("|f|<=2", 2.0), ("|f|<=25", 25.0),
                       ("|f|<=300 past borders", 300.0)):
-        flow = uni((n, h, w, 2), -lo, lo)
-        errs.append(check_equal(f"{main_shape} {label}",
-                                wk.flow_warp(x_main, flow),
-                                plain.flow_warp(x_main, flow), x_main))
+        errs.append(check_flow(f"pair {warp_bench.EL_PAIR} {label}", [a, b],
+                               uni((n, h, w, 2), -lo, lo)))
     flow_small = uni((n, h, w, 2), -2, 2)
-    xb = x_main.to(torch.bfloat16)
-    errs.append(check_equal(f"bf16 {main_shape} |f|<=2",
-                            wk.flow_warp(xb, flow_small),
-                            plain.flow_warp(xb, flow_small), xb))
-    for shape, lo in (((1, 1150, 1918, 3), 25.0), ((2, 576, 960, 64), 25.0)):
-        x = uni(shape, -1, 1)
-        flow = uni(shape[:3] + (2,), -lo, lo)
-        errs.append(check_equal(f"f32 {shape} |f|<={lo:g}",
-                                wk.flow_warp(x, flow),
-                                plain.flow_warp(x, flow), x))
+    errs.append(check_flow("bf16 pair |f|<=2", [a.to(bf16), b.to(bf16)],
+                           flow_small))
     flow_nan = flow_small.clone()
     flow_nan[0, 100:110, 200:260, 0] = float("nan")
-    errs.append(check_equal("NaN flows", wk.flow_warp(x_main, flow_nan),
-                            plain.flow_warp(x_main, flow_nan), x_main))
-    # past 2^31 elements the kernel indexes in 64 bits; the warp is per
-    # channel, so the plain version is held against the first and last
-    # channels, which hold the smallest and the largest offsets
+    errs.append(check_flow("pair NaN flows", [a, b], flow_nan))
+    # unaligned rows, batch 2, both dtypes: scalar (3) and vector paths
+    for shape in ((1, 1150, 1918, 3), (1, 1150, 1918, 48), (2, 576, 960, 64)):
+        flow = uni(shape[:3] + (2,), -25, 25)
+        for dtype in (f32, bf16):
+            errs.append(check_flow(f"{str(dtype)[6:]} {shape} |f|<=25",
+                                   [uni(shape, -1, 1).to(dtype)], flow))
+    errs.append(check_flow("pair (2, 575, 957, 3 + 64) |f|<=25",
+                           [uni((2, 575, 957, 3), -1, 1),
+                            uni((2, 575, 957, 64), -1, 1)],
+                           uni((2, 575, 957, 2), -25, 25)))
+    # a data_ptr one element past 16-byte alignment takes the scalar path
+    x = uni((1, 576, 960, 48), -1, 1)
+    flow = uni((1, 576, 960, 2), -25, 25)
+    errs.append(check_flow("(1, 576, 960, 48) at storage offset 1",
+                           [misaligned(x)], flow))
+    errs.append(check_flow("pair 3 + 48, b at storage offset 1",
+                           [x[..., :3].contiguous(), misaligned(x)], flow))
+    # past 2^31 elements the kernel offsets in 64 bits: a pair of a
+    # scalar-path tensor past 2^31 elements and a vector-path one.  The warp
+    # is per channel, so a is held against its first and last channels,
+    # which hold the smallest and the largest offsets
     big = (1, h, w, 2 ** 31 // (h * w) + 1)
-    x_big = torch.empty(big, dtype=torch.bfloat16, device=dev).uniform_(
+    a_big = torch.empty(big, dtype=bf16, device=dev).uniform_(
         -1, 1, generator=gen)
+    b16 = uni((1, h, w, 16), -1, 1).to(bf16)
     flow = uni((1, h, w, 2), -25, 25)
-    out = wk.flow_warp(x_big, flow)
+    out_a, out_b = wk.flow_warp_pair(a_big, b16, flow)
+    errs.append(check_bits(f"bf16 pair with a {big}: b {tuple(b16.shape)}",
+                           out_b, plain.flow_warp(b16, flow)))
     for chans in (slice(0, 4), slice(-4, None)):
-        xs = x_big[..., chans].contiguous()
-        errs.append(check_equal(
-            f"bf16 {big} ({math.prod(big)} elements) channels "
-            f"{chans.start}:{chans.stop or ''}", out[..., chans],
-            plain.flow_warp(xs, flow), xs))
-    del x_big, out, xs
+        xs = a_big[..., chans].contiguous()
+        errs.append(check_bits(
+            f"bf16 pair a {big} ({math.prod(big)} elements) channels "
+            f"{chans.start}:{chans.stop or ''}", out_a[..., chans],
+            plain.flow_warp(xs, flow)))
+    del a_big, out_a, out_b, xs
 
-    # times at the main shape: a smooth flow field (what a codec's motion
-    # looks like), and independent per-pixel flows (the worst locality)
-    flow_smooth = smooth((n, h, w, 2), TIME_FLOW_PX)
-    flow_random = uni((n, h, w, 2), -TIME_FLOW_PX, TIME_FLOW_PX)
-    kernel_ms = time_ms(lambda: wk.flow_warp(x_main, flow_smooth))
-    random_ms = time_ms(lambda: wk.flow_warp(x_main, flow_random))
-    plain_ms = time_ms(lambda: plain.flow_warp(x_main, flow_smooth), 5, 1)
-    library_ms = grid_sample_ms(x_main, flow_smooth)
-    elt = x_main.element_size()
-    b_ms, b_by = bound_ms(*flow_warp_cost(n, h, w, c, elt))
-    # every launch of one frame, each at its own shape
-    frame_ms = frame_bound = 0.0
-    for shape, dtype in flow_calls:
+    log("# grouped_warp against the plain version")
+    g_errs = []
+    n, h, w, c_src, go, gn = warp_bench.GROUPED
+    g_errs.append(check_grouped(f"{warp_bench.GROUPED} frame launch",
+                                *warp_bench.grouped_inputs(gen), gn))
+    # batch 2, unaligned rows, both dtypes, offsets to 300 px past the
+    # borders, NaN offsets, and x at storage offset 1 (one load a channel)
+    shape, units = (2, 290, 478, c_src), (2, 290, 478, go)
+    m = uni(units, 0, 1)
+    for dtype in (f32, bf16):
         x = uni(shape, -1, 1).to(dtype)
-        flow = smooth(shape[:3] + (2,), TIME_FLOW_PX)
-        errs.append(check_equal(f"{shape} frame launch",
-                                wk.flow_warp(x, flow),
-                                plain.flow_warp(x, flow), x))
-        frame_ms += time_ms(lambda: wk.flow_warp(x, flow))
-        frame_bound += bound_ms(*flow_warp_cost(*shape, x.element_size()))[0]
+        for off in (0.4, 12.0, 50.0, 300.0):
+            fx, fy = uni(units, -off, off), uni(units, -off, off)
+            g_errs.append(check_grouped(
+                f"{str(dtype)[6:]} {shape} |off|<={off:g}", x, fx, fy, m, gn))
+        fx[0, 10:20, 30:90, 5] = float("nan")
+        fy[1, 200:210, 0:40, 20] = float("nan")
+        g_errs.append(check_grouped(f"{str(dtype)[6:]} {shape} NaN offsets",
+                                    x, fx, fy, m, gn))
+        g_errs.append(check_grouped(
+            f"{str(dtype)[6:]} {shape} at storage offset 1", misaligned(x),
+            fx, fy, m, gn))
+    # another shape takes the kernel's runtime constants: 8 units, 4 groups
+    u8 = (2, 290, 478, 8)
+    g_errs.append(check_grouped(
+        f"{u8} x 8 units, 4 groups |off|<=12", uni(u8, -1, 1),
+        uni(u8, -12, 12), uni(u8, -12, 12), uni(u8, 0, 1), 4))
+    # past 2^31 output elements (64-bit offsets): images are independent,
+    # so the first and the last are held against the plain version
+    nb = 11
+    xb = uni((nb, h, w, c_src), -1, 1).to(bf16)
+    fxb, fyb = uni((nb, h, w, go), -12, 12), uni((nb, h, w, go), -12, 12)
+    mb = uni((nb, h, w, go), 0, 1)
+    out = wk.grouped_warp(xb, fxb, fyb, mb, gn)
+    for i in (0, nb - 1):
+        im = slice(i, i + 1)
+        g_errs.append(check_bits(
+            f"bf16 {tuple(xb.shape)} x {go} units ({out.numel()} output "
+            f"elements) image {i}", out[im],
+            plain.grouped_warp_plain(xb[im], fxb[im], fyb[im], mb[im], gn)))
+    del xb, fxb, fyb, mb, out
+
+    log("# warp times at the frame's shapes (tools/warp_bench.py)")
+    bench = warp_bench.run(dev)
+    for f in bench["frame"]:
+        log(f"  {f['call']} {tuple(f['shape'])}: {f['ms']:.4f} ms, bound "
+            f"{f['bound_ms']:.4f} ms")
+    n, h, w, ca, cb = warp_bench.EL_PAIR
+    xs, flow = warp_bench.flow_inputs(gen, warp_bench.EL_PAIR)
+    plain_ms = time_ms(lambda: plain.flow_warp(torch.cat(xs, -1), flow), 5, 1)
+    library_ms = grid_sample_ms(torch.cat(xs, -1), flow)
+    b_ms, b_by = bound_ms(*flow_warp_cost(n, h, w, ca + cb, 4))
     fw_entry = {
         "name": "flow_warp", "route": "cuda", "source": SOURCE,
-        "replaces": FLOW_WARP_REPLACES, "shape": list(main_shape),
-        "dtype": str(main_dtype)[6:], "max_abs_err": max(errs),
-        "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "replaces": FLOW_WARP_REPLACES, "call": "flow_warp_pair",
+        "shape": list(warp_bench.EL_PAIR), "dtype": "float32",
+        "max_abs_err": max(errs), "ms": bench["pair_ms"],
+        "pair_ms": bench["pair_ms"], "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-        "library_call": "F.grid_sample(bilinear, border, align_corners=True)",
-        "ms_random_flows": random_ms,
-        "frame_ms": frame_ms, "frame_bound_ms": frame_bound,
+        "library_call": "F.grid_sample(bilinear, border, align_corners=True)"
+                        " on the two tensors' concat",
+        "ms_random_flows": bench["pair_ms_random_flows"],
+        "frame_ms": bench["frame_ms"],
+        "frame_bound_ms": bench["frame_bound_ms"],
     }
-    log(f"# flow_warp {kernel_ms:.4f} ms, {random_ms:.4f} ms on random flows "
-        f"(bound {b_ms:.4f}, plain {plain_ms:.4f}, grid_sample "
-        f"{library_ms:.4f}); the {len(flow_calls)} launches of a frame "
-        f"{frame_ms:.4f} ms (bound {frame_bound:.4f})")
+    log(f"# flow_warp_pair at the EL pair {bench['pair_ms']:.4f} ms, "
+        f"{bench['pair_ms_random_flows']:.4f} ms on random flows (bound "
+        f"{b_ms:.4f}, plain {plain_ms:.4f}, grid_sample {library_ms:.4f}); "
+        f"the {len(bench['frame'])} launches of a frame "
+        f"{bench['frame_ms']:.4f} ms (bound {bench['frame_bound_ms']:.4f})")
+    del xs, flow
 
-    log("# grouped_warp against its plain version")
-    errs = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for off in (12.0, 50.0):
-            x = uni((1, 288, 480, 48), -1, 1).to(dtype)
-            fx, fy = uni((1, 288, 480, 32), -off, off), \
-                uni((1, 288, 480, 32), -off, off)
-            m = uni((1, 288, 480, 32), 0, 1)
-            errs.append(check_equal(
-                f"{str(dtype)[6:]} (1, 288, 480, 48) |off|<={off:g}",
-                wk.grouped_warp(x, fx, fy, m, 16),
-                plain.grouped_warp_plain(x, fx, fy, m, 16), x))
-    for (n, h, w, c_src, go, gn), dtype in grouped_calls:
-        x = uni((n, h, w, c_src), -1, 1).to(dtype)
-        fx, fy = uni((n, h, w, go), -12, 12), uni((n, h, w, go), -12, 12)
-        m = uni((n, h, w, go), 0, 1)
-        errs.append(check_equal(
-            f"{(n, h, w, c_src)} x {go} units |off|<=12 frame launch",
-            wk.grouped_warp(x, fx, fy, m, gn),
-            plain.grouped_warp_plain(x, fx, fy, m, gn), x))
-    # timed at the main path's launch (OffsetDiversity, once a frame)
-    (n, h, w, c_src, go, gn), dtype = grouped_calls[-1]
-    random_ms = time_ms(lambda: wk.grouped_warp(x, fx, fy, m, gn))
-    fx, fy = (smooth((n, h, w, go), TIME_FLOW_PX) for _ in range(2))
-    kernel_ms = time_ms(lambda: wk.grouped_warp(x, fx, fy, m, gn))
+    x, fx, fy, m = warp_bench.grouped_inputs(gen)
     plain_ms = time_ms(lambda: plain.grouped_warp_plain(x, fx, fy, m, gn),
                        3, 1)
-    b_ms, b_by = bound_ms(*grouped_cost(n, h, w, c_src, go, gn,
-                                        x.element_size()))
+    del x, fx, fy, m
+    grouped = bench["grouped"]
+    b_ms, b_by = bound_ms(*grouped_cost(*warp_bench.GROUPED, 4))
     gw_entry = {
         "name": "grouped_warp", "route": "cuda", "source": SOURCE,
         "replaces": GROUPED_REPLACES, "shape": [n, h, w, c_src],
-        "units": go, "dtype": str(dtype)[6:], "max_abs_err": max(errs),
-        "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "units": go, "dtype": "float32", "max_abs_err": max(g_errs),
+        "ms": grouped["ms"], "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "ms_random_flows": random_ms,
+        "ms_random_flows": grouped["ms_random_flows"],
     }
-    log(f"# grouped_warp {kernel_ms:.4f} ms, {random_ms:.4f} ms on random "
-        f"flows (bound {b_ms:.4f}, plain {plain_ms:.4f})")
+    log(f"# grouped_warp {grouped['ms']:.4f} ms, "
+        f"{grouped['ms_random_flows']:.4f} ms on random flows (bound "
+        f"{b_ms:.4f}, plain {plain_ms:.4f})")
     return [fw_entry, gw_entry]
 
 

@@ -30,26 +30,97 @@ def _uniform(shape, seed, lo, hi, dev, dtype=torch.float32):
     return torch.from_numpy(a).to(dev, dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernels_equal_plain_versions(dev, dtype):
+def _bits(out, ref):
     """Bit-equal: the kernels repeat the plain arithmetic with explicit
-    round-to-nearest operations."""
-    x = _uniform((2, 33, 70, 11), 1, -1, 1, dev, dtype)
-    flow = _uniform((2, 33, 70, 2), 2, -40, 40, dev)
-    flow[1, 3, 5, 0] = float("nan")
+    round-to-nearest operations and round a bf16 result once."""
+    torch.testing.assert_close(out, ref, rtol=0, atol=0, equal_nan=True)
+
+
+def _misaligned(t):
+    """A copy of t at storage offset 1 (one element past alignment)."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return view.view(t.shape).copy_(t)
+
+
+def _flow(shape, seed, amp, dev):
+    flow = _uniform(shape[:3] + (2,), seed, -amp, amp, dev)
+    flow[-1, 3, 5, 0] = float("nan")
+    return flow
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 3, 11, 48, 51, 64, 96])
+def test_flow_warp_equals_plain(dev, dtype, c):
+    """Batch 2, a row length that is no multiple of the column tile, flows
+    past the borders and a NaN; C*elt a multiple of 16 takes the vector
+    path, other C the scalar path.  One launch a call."""
+    x = _uniform((2, 21, 70, c), c, -1, 1, dev, dtype)
+    flow = _flow(x.shape, c + 1, 40, dev)
     n = wk.flow_warp.launches
     out = wk.flow_warp(x, flow)
     assert wk.flow_warp.launches == n + 1
-    torch.testing.assert_close(out, plain.flow_warp(x, flow), rtol=0, atol=0,
-                               equal_nan=True)
-    xg = _uniform((1, 21, 37, 48), 3, -1, 1, dev, dtype)
-    fx, fy = (_uniform((1, 21, 37, 32), s, -15, 15, dev) for s in (4, 5))
-    m = _uniform((1, 21, 37, 32), 6, 0, 1, dev)
+    _bits(out, plain.flow_warp(x, flow))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ca,cb", [(3, 48), (3, 64), (48, 3), (11, 5),
+                                   (48, 96), (1, 8)])
+def test_flow_warp_pair_equals_two_plain_warps(dev, dtype, ca, cb):
+    """One launch for both tensors, each bit-equal to its own plain warp,
+    whichever path each takes."""
+    a = _uniform((2, 19, 45, ca), ca, -1, 1, dev, dtype)
+    b = _uniform((2, 19, 45, cb), cb + 50, -1, 1, dev, dtype)
+    flow = _flow(a.shape, ca + cb, 30, dev)
+    n = wk.flow_warp.launches
+    out_a, out_b = wk.flow_warp_pair(a, b, flow)
+    assert wk.flow_warp.launches == n + 1
+    _bits(out_a, plain.flow_warp(a, flow))
+    _bits(out_b, plain.flow_warp(b, flow))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warps_of_misaligned_tensors(dev, dtype):
+    """A data pointer one element past alignment takes the scalar path of
+    flow_warp and the per-channel loads of grouped_warp."""
+    x = _misaligned(_uniform((1, 17, 40, 48), 7, -1, 1, dev, dtype))
+    assert x.data_ptr() % 16
+    flow = _flow(x.shape, 8, 20, dev)
+    _bits(wk.flow_warp(x, flow), plain.flow_warp(x, flow))
+    out_a, out_b = wk.flow_warp_pair(x[..., :3].contiguous(), x, flow)
+    _bits(out_a, plain.flow_warp(x[..., :3], flow))
+    _bits(out_b, plain.flow_warp(x, flow))
+    fx, fy = (_uniform((1, 17, 40, 32), s, -12, 12, dev) for s in (9, 10))
+    m = _uniform((1, 17, 40, 32), 11, 0, 1, dev)
+    _bits(wk.grouped_warp(x, fx, fy, m, 16),
+          plain.grouped_warp_plain(x, fx, fy, m, 16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("off", [0.4, 12.0, 50.0, 300.0])
+def test_grouped_warp_equals_plain(dev, dtype, off):
+    """OffsetDiversity's shape (48 channels, 32 units, 16 groups): batch 2,
+    a row length that is no multiple of the tile, offsets to 300 px past
+    the borders and NaN offsets.  One launch a call."""
+    xg = _uniform((2, 21, 37, 48), 3, -1, 1, dev, dtype)
+    fx, fy = (_uniform((2, 21, 37, 32), s, -off, off, dev) for s in (4, 5))
+    fx[1, 2, 3, 7] = float("nan")
+    fy[0, 20, 36, 30] = float("nan")
+    m = _uniform((2, 21, 37, 32), 6, 0, 1, dev)
     n = wk.grouped_warp.launches
-    torch.testing.assert_close(wk.grouped_warp(xg, fx, fy, m, 16),
-                               plain.grouped_warp_plain(xg, fx, fy, m, 16),
-                               rtol=0, atol=0)
+    out = wk.grouped_warp(xg, fx, fy, m, 16)
     assert wk.grouped_warp.launches == n + 1
+    _bits(out, plain.grouped_warp_plain(xg, fx, fy, m, 16))
+
+
+@pytest.mark.parametrize("c_src,go,gn", [(8, 8, 4), (48, 16, 16),
+                                         (6, 12, 3)])
+def test_grouped_warp_other_shapes(dev, c_src, go, gn):
+    """Shapes other than the model's take the kernel's runtime constants."""
+    x = _uniform((2, 13, 29, c_src), 12, -1, 1, dev)
+    fx, fy = (_uniform((2, 13, 29, go), s, -9, 9, dev) for s in (13, 14))
+    m = _uniform((2, 13, 29, go), 15, 0, 1, dev)
+    _bits(wk.grouped_warp(x, fx, fy, m, gn),
+          plain.grouped_warp_plain(x, fx, fy, m, gn))
 
 
 def test_frame_launches_each_kernel(dev):

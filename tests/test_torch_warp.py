@@ -199,3 +199,69 @@ def test_cpu_tensors_take_the_plain_versions():
         *(torch.from_numpy(t) for t in (x, fx, fy, m)), 2))
     assert (wk.flow_warp.launches, wk.grouped_warp.launches) == (n_fw, n_gw)
 
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ca,cb", [(3, 48), (48, 3), (11, 5)])
+def test_flow_warp_pair_matches_jax_and_two_warps(dtype, ca, cb):
+    """The pair against the JAX package's flow_warp_pair (XLA on JAX-CPU;
+    fp32 within ATOL, bf16 within one bf16 ulp) and bit for bit against two
+    plain warps; on the CPU it launches no kernel."""
+    shape = (2, 9, 40)
+    a = torch.from_numpy(_rand(shape + (ca,), 40 + ca)).to(dtype)
+    b = torch.from_numpy(_rand(shape + (cb,), 41 + cb)).to(dtype)
+    flow = _uniform(shape + (2,), 42, -12, 12)
+    flow[1, 4, 7, 1] = 60.0  # far past the bottom border
+    tflow = torch.from_numpy(flow)
+    n = wk.flow_warp.launches
+    out_a, out_b = wk.flow_warp_pair(a, b, tflow)
+    assert wk.flow_warp.launches == n
+    assert out_a.dtype == out_b.dtype == dtype
+    assert torch.equal(out_a, twarp.flow_warp(a, tflow))
+    assert torch.equal(out_b, twarp.flow_warp(b, tflow))
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    ref_a, ref_b = jwp.flow_warp_pair(jnp.asarray(a.float().numpy(), jdt),
+                                      jnp.asarray(b.float().numpy(), jdt),
+                                      jnp.asarray(flow))
+    for out, ref in ((out_a, ref_a), (out_b, ref_b)):
+        if dtype == torch.float32:
+            _close(out, ref)
+        else:
+            ref = np.asarray(ref, np.float32)
+            assert out.shape == ref.shape
+            assert (np.abs(out.float().numpy() - ref)
+                    <= np.abs(ref) * 2.0 ** -7 + 1e-30).all()
+
+
+def test_warp_bench_frame_is_the_models(monkeypatch):
+    """tools/warp_bench.py times the warp calls of one 1080p P-frame from a
+    fixed list; a frame at EL 128x128 / BL 64x64 makes the same calls at
+    the shapes scaled by 1/9 in height and 1/15 in width."""
+    from lssvc_tpu_torch.models import LSSVC
+    from lssvc_tpu_torch.models import components, dmc, lssvc
+    from lssvc_tpu_torch.models.init import init_lssvc
+    from lssvc_tpu_torch.tools import warp_bench
+
+    calls = []
+
+    def single(x, flow):
+        calls.append(("flow_warp", tuple(x.shape)))
+        return wk.flow_warp(x, flow)
+
+    def pair(a, b, flow):
+        calls.append(("flow_warp_pair", tuple(a.shape) + (b.shape[-1],)))
+        return wk.flow_warp_pair(a, b, flow)
+
+    for mod in (components, dmc, lssvc):
+        monkeypatch.setattr(mod, "flow_warp", single)
+        if hasattr(mod, "flow_warp_pair"):
+            monkeypatch.setattr(mod, "flow_warp_pair", pair)
+    rng = np.random.default_rng(3)
+    shapes = [(1, 64, 64, 3), (1, 128, 128, 3), (1, 64, 64, 3),
+              (1, 128, 128, 3), (1, 64, 64, 64), (1, 128, 128, 48)]
+    model = LSSVC(init_lssvc(torch.Generator().manual_seed(0)),
+                  device="cpu", od_offset_cap=10.0)
+    model.set_scale_information(2.0, (128, 128), (0, 0, 0, 0))
+    model.forward_one_frame(*(torch.from_numpy(rng.random(s, np.float32))
+                              for s in shapes))
+    assert calls == [(name, (n, h // 9, w // 15, *c))
+                     for name, (n, h, w, *c) in warp_bench.FRAME]
