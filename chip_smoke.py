@@ -49,11 +49,29 @@ Phases (any failure exits non-zero; nothing is caught):
    grouped_warp launches its kernel once and equals the plain version
    within check_equal's tolerance; then each kernel's plain version,
    library call and bound at those shapes.
+8. GOP path: the port's CLI, `lssvc_tpu_torch.test.main(argv)` called
+   in-process with `--ratios x2` on its default device, codes a synthetic
+   1080p sequence (1920x1080 8-bit 4:2:0, 6 frames of a smooth texture
+   moving 2x4 px a frame, gop 4: I P P P I P; EL padded to 1152x1920, BL
+   540x960 padded to 576x960) from `.pth` checkpoints of the port's init,
+   with estimated bits.  The warp counts are set to 0 just before and
+   must read 56 flow_warp and 4 grouped_warp after; the three result
+   JSONs must carry the published keys, 2 I- and 4 P-frames, finite bits
+   and PSNRs.  Prints device seconds per I- and P-frame (CUDA events
+   around the models' calls), wall seconds per frame (run_test, host
+   metrics included), the card's idle share over run_test (1 - the
+   models' device spans / its wall time), the host seconds per frame of
+   the metrics and of the YUV -> RGB conversion, peak memory and the
+   I-frame's FLOPs counted from its conv shapes.
+9. I-frame, CPU against card: one IntraSS frame at EL 128x128 / BL 64x64
+   from the same weights on both devices; bits within 3e-3 relative,
+   reconstructions within 5% relative RMS.
 
 Then one JSON line {"kernels": [...]}: each kernel's launches counted on its
-path (the warps on the P-frame chain of phase 3, with their warp-tier path
-counts beside them; conv_chain on the conv-chain path of phase 6), its
-times, bound and errors.  The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
+path (the warps on the P-frame chain of phase 3, with their GOP path and
+warp-tier path counts beside them; conv_chain on the conv-chain path of
+phase 6), its times, bound and errors.  The last line is
+{"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -62,6 +80,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -70,18 +89,31 @@ import torch
 import torch.nn.functional as F
 
 from lssvc_tpu_torch import build
-from lssvc_tpu_torch.models import LSSVC
-from lssvc_tpu_torch.models.init import init_lssvc
+from lssvc_tpu_torch import test as cli
+from lssvc_tpu_torch.harness import runner
+from lssvc_tpu_torch.harness.results import RESULT_KEYS
+from lssvc_tpu_torch.models import LSSVC, IntraSS
+from lssvc_tpu_torch.models.init import init_intra_ss, init_lssvc
 from lssvc_tpu_torch.ops import OD_OFFSET_CAP_SERVING
 from lssvc_tpu_torch.ops import conv_chain as cc
 from lssvc_tpu_torch.ops import warp as plain
 from lssvc_tpu_torch.ops import warp_kernels as wk
-from lssvc_tpu_torch.tools import convchain_bench, warp_bench, warp_tier_bench
+from lssvc_tpu_torch.parallel import scheduler
+from lssvc_tpu_torch.tools import (convchain_bench, synthetic, warp_bench,
+                                   warp_tier_bench)
+from lssvc_tpu_torch.tools.profile_frame import iframe_flops
 from lssvc_tpu_torch.tools.timing import card, time_ms
 from lssvc_tpu_torch.tools.warp_bench import (bound_ms, flow_warp_cost,
                                               grouped_cost, uniform)
 
 EL_HW, BL_HW, K = (1152, 1920), (576, 960), 3
+# the GOP path: a 1080p source (h, w) coded at x2, EL padded to 1152x1920,
+# BL 540x960 padded to 576x960; 6 frames at gop 4 are I P P P I P
+GOP_HW, GOP_EL_HW, GOP_BL_HW, GOP_FRAMES, GOP = (
+    (1080, 1920), (1152, 1920), (576, 960), 6, 4)
+# the FL result carries no per-plane PSNR lists
+YUV_KEYS = {"ave_i_frame_YUV_psnr", "ave_p_frame_YUV_psnr",
+            "ave_all_frame_YUV_psnr"}
 # H100 SXM tensor-core peaks from NVIDIA's data sheet (the memory and f32
 # rates are tools/warp_bench.py's)
 BF16_TENSOR_FLOP_PER_S = 989e12  # dense, tensor cores
@@ -708,6 +740,187 @@ def phase_main_path(dev):
     return recorder.calls, launches
 
 
+class FrameTimer:
+    """While installed: CUDA events around every call of the two models'
+    frame methods (IntraSS.forward for an I-frame, LSSVC.forward_one_frame
+    for a P-frame), the wall time of each run_test, and the host seconds
+    of the runner's two heaviest host steps, the per-layer metrics and the
+    YUV -> RGB conversion."""
+
+    METHODS = ((IntraSS, "forward", "I"), (LSSVC, "forward_one_frame", "P"))
+    HOST_STEPS = ("_layer_metrics", "ycbcr420_to_rgb")
+
+    def __init__(self):
+        self.spans, self.walls, self.real = [], [], {}
+        self.host = {name: [] for name in self.HOST_STEPS}
+
+    def __enter__(self):
+        for cls, name, kind in self.METHODS:
+            self.real[cls] = real = getattr(cls, name)
+            setattr(cls, name, self._timed(real, kind))
+        self.real_run_test = scheduler.run_test
+        scheduler.run_test = self._walled(self.real_run_test, self.walls)
+        for name in self.HOST_STEPS:
+            self.real[name] = real = getattr(runner, name)
+            setattr(runner, name, self._walled(real, self.host[name], False))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, _ in self.METHODS:
+            setattr(cls, name, self.real[cls])
+        scheduler.run_test = self.real_run_test
+        for name in self.HOST_STEPS:
+            setattr(runner, name, self.real[name])
+
+    def _timed(self, real, kind):
+        def timed(model, *args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(model, *args, **kwargs)
+            end.record()
+            self.spans.append((kind, start, end))
+            return out
+        return timed
+
+    @staticmethod
+    def _walled(real, into, sync=True):
+        def walled(*args, **kwargs):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            into.append(time.perf_counter() - t0)
+            return out
+        return walled
+
+    def seconds(self, kind):
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) / 1e3 for k, s, e in self.spans
+                if k == kind]
+
+
+def phase_gop(flops):
+    """The GOP path: the port's CLI (`python -m lssvc_tpu_torch.test`,
+    called in-process as `main(argv)`) codes a synthetic 1080p sequence
+    with estimated bits from `.pth` checkpoints of the port's init."""
+    log(f"# GOP path: {GOP_FRAMES} frames of {GOP_HW[1]}x{GOP_HW[0]} 8-bit "
+        f"4:2:0, gop {GOP}, x2, fp32, through lssvc_tpu_torch.test")
+    with tempfile.TemporaryDirectory(prefix="gop_", dir=build.BUILD_DIR) as d:
+        d = Path(d)
+        t0 = time.perf_counter()
+        cfg = synthetic.write_dataset(d / "ds", *GOP_HW, frames=GOP_FRAMES,
+                                      gop=GOP, seed=0)
+        intra, video = d / "intra.pth", d / "video.pth"
+        torch.save(init_intra_ss(torch.Generator().manual_seed(1), 192), intra)
+        torch.save(init_lssvc(torch.Generator().manual_seed(2)), video)
+        log(f"  sequence and checkpoints written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        argv = ["--test_config", str(cfg), "--i_frame_model_path", str(intra),
+                "--model_path", str(video), "--output_path", str(d / "out"),
+                "--ratios", "x2"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wk.flow_warp.launches = 0
+        wk.grouped_warp.launches = 0
+        t0 = time.perf_counter()
+        with FrameTimer() as timer:
+            results = cli.main(argv)
+        torch.cuda.synchronize()
+        cli_seconds = time.perf_counter() - t0
+        launches = {"flow_warp": wk.flow_warp.launches,
+                    "grouped_warp": wk.grouped_warp.launches}
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        written = {layer: json.loads((d / "out" / f"x2_{layer}.json")
+                                     .read_text())["synthetic"]["seq1"]
+                   ["video.pth"] for layer in ("BL", "EL", "FL")}
+
+    n_p = GOP_FRAMES - -(-GOP_FRAMES // GOP)
+    want = {"flow_warp": 14 * n_p, "grouped_warp": n_p}
+    if launches != want:
+        raise AssertionError(f"GOP launch counts {launches}, expected {want}")
+    types = [int(i % GOP != 0) for i in range(GOP_FRAMES)]
+    if len(results) != 1 or any(r["frame_type"] != types
+                                for r in results[0]):
+        raise AssertionError(f"frame types {[r['frame_type'] for r in results[0]]}")
+    for layer, res in written.items():
+        keys = set(RESULT_KEYS) - (YUV_KEYS if layer == "FL" else set())
+        if set(res) != keys:
+            raise AssertionError(f"x2_{layer}.json keys {sorted(res)}")
+        if (res["i_frame_num"], res["p_frame_num"]) != (GOP_FRAMES - n_p, n_p):
+            raise AssertionError(f"x2_{layer}.json frame counts {res}")
+        for k in ("ave_all_frame_bpp", "ave_i_frame_bpp", "ave_p_frame_bpp",
+                  "ave_all_frame_psnr", "ave_i_frame_psnr",
+                  "ave_p_frame_psnr", "ave_all_frame_rgb_psnr"):
+            if not math.isfinite(res[k]):
+                raise AssertionError(f"x2_{layer}.json {k} = {res[k]}")
+    for r in results[0]:
+        if not all(math.isfinite(b) and b > 0 for b in r["frame_bpp"]):
+            raise AssertionError(f"frame bpp {r['frame_bpp']}")
+
+    i_s, p_s = timer.seconds("I"), timer.seconds("P")
+    wall = timer.walls[0]
+    busy = sum(i_s) + sum(p_s)
+    out = {
+        "main_path": "lssvc_tpu_torch.test main(argv) -> run_test",
+        "el": list(GOP_EL_HW), "bl": list(GOP_BL_HW),
+        "source": f"{GOP_HW[1]}x{GOP_HW[0]}", "frames": GOP_FRAMES,
+        "gop": GOP, "frame_types": types, "precision": "fp32",
+        "device_s_iframe": i_s, "device_s_pframe": p_s,
+        "device_s_per_iframe": sum(i_s) / len(i_s),
+        "device_s_per_pframe": sum(p_s) / len(p_s),
+        # the first frame of each type also pays first-call costs
+        "device_s_per_iframe_after_first": sum(i_s[1:]) / len(i_s[1:]),
+        "device_s_per_pframe_after_first": sum(p_s[1:]) / len(p_s[1:]),
+        "run_test_wall_s": wall, "wall_s_per_frame": wall / GOP_FRAMES,
+        "cli_wall_s": cli_seconds,
+        # host seconds per frame of the runner's heaviest host steps
+        "host_metrics_s_per_frame": sum(timer.host["_layer_metrics"])
+        / GOP_FRAMES,
+        "host_yuv_to_rgb_s_per_frame": sum(timer.host["ycbcr420_to_rgb"])
+        / GOP_FRAMES,
+        "idle_share": 1 - busy / wall, "peak_mem_gib": peak_gib,
+        "launches": launches, "iframe_flop": flops,
+        "iframe_tflops": flops["total"] / 1e12 / (sum(i_s) / len(i_s)),
+        "frame_bpp": {layer: r["frame_bpp"]
+                      for layer, r in zip(("BL", "EL", "FL"), results[0])},
+        "psnr": {layer: [res["ave_i_frame_psnr"], res["ave_p_frame_psnr"]]
+                 for layer, res in written.items()},
+        "msssim_all": {layer: res["ave_all_frame_msssim"]
+                       for layer, res in written.items()}}
+    log(json.dumps(out))
+    return launches
+
+
+def phase_iframe_cpu_vs_card(dev):
+    """One IntraSS frame at EL 128x128 / BL 64x64 from the same weights
+    on both devices: bits within 3e-3 relative, reconstructions within 5%
+    relative RMS."""
+    params = init_intra_ss(torch.Generator().manual_seed(0), 192)
+    rng = np.random.default_rng(2)
+    x_bl = torch.from_numpy(rng.random((1, 64, 64, 3), np.float32))
+    x_el = torch.from_numpy(rng.random((1, 128, 128, 3), np.float32))
+    outs = []
+    for device in ("cpu", dev):
+        model = IntraSS(params, device=device)
+        model.set_scale_information(2.0, (128, 128), (0, 0, 0, 0))
+        outs.append(model.forward(x_bl.to(device), x_el.to(device)))
+    cpu, card = outs
+    for k in ("bit_bl", "bit_el"):
+        a, b = float(card[k]), float(cpu[k])
+        if not abs(a - b) <= 3e-3 * max(abs(b), 1.0):
+            raise AssertionError(f"I-frame {k}: card {a} vs cpu {b}")
+    rms = {k: _rel_rms(card[k], cpu[k]) for k in ("x_hat_bl", "x_hat_el")}
+    if max(rms.values()) > 0.05:
+        raise AssertionError(f"I-frame recon relative RMS {rms}")
+    log(f"# I-frame cpu vs card at 128x128: bits card "
+        f"{float(card['bit_bl']):.3f}/{float(card['bit_el']):.3f} cpu "
+        f"{float(cpu['bit_bl']):.3f}/{float(cpu['bit_el']):.3f}, recon rel "
+        f"RMS {rms}")
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
@@ -717,9 +930,12 @@ def main():
     phase_cpu_vs_card(dev)
     chain_entry = phase_conv_chain(dev)
     tiers = phase_warp_tiers(dev)
+    gop_launches = phase_gop(iframe_flops(GOP_EL_HW, GOP_BL_HW))
+    phase_iframe_cpu_vs_card(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_per_frame"] = launches[k["name"]] / K
+        k["gop_launches"] = gop_launches[k["name"]]
         k["warp_tier_bench"] = tiers[k["name"]]
     kernels.append(chain_entry)
     log(json.dumps({"kernels": kernels}))

@@ -22,7 +22,9 @@ import torch
 
 # ConvTranspose2d weights of the base-layer DMC (the reference's
 # `dmc_net.py` hyper decoders and MV decoder).  Their layout cannot be told
-# from a regular conv's by shape alone.
+# from a regular conv's by shape alone, and some of the names recur in
+# other models as regular convs (the LSSVC enhancement layer's
+# `res_prior_decoder.0`), so each model names its own set.
 DMC_TRANSPOSED_KEYS = frozenset(
     [f"mv_prior_decoder.{i}.weight" for i in (0, 2, 4)]
     + [f"mv_decoder.{i}.weight" for i in (0, 4, 6, 8)]
@@ -32,15 +34,17 @@ DMC_TRANSPOSED_KEYS = frozenset(
 # enhancement-layer decoders are sub-pixel convs, not transposed convs.
 LSSVC_TRANSPOSED_KEYS = frozenset(
     "base_layer_model." + k for k in DMC_TRANSPOSED_KEYS)
+# The transposed-conv keys of each model.  The I-frame models have none
+# (IntraSS's `base_layer_model.` is an IntraNoAR).
+TRANSPOSED_KEYS = {"dmc": DMC_TRANSPOSED_KEYS, "lssvc": LSSVC_TRANSPOSED_KEYS,
+                   "intra_noar": frozenset(), "intra_ss": frozenset()}
 
 
-def params_from_jax(np_params: dict) -> dict[str, torch.Tensor]:
-    """JAX-layout parameters (numpy arrays) -> torch-layout CPU tensors.
-
-    A dict with `base_layer_model.` keys is an LSSVC dict, any other a DMC
-    dict; that picks the set of transposed-conv keys."""
-    lssvc = any(k.startswith("base_layer_model.") for k in np_params)
-    transposed = LSSVC_TRANSPOSED_KEYS if lssvc else DMC_TRANSPOSED_KEYS
+def params_from_jax(np_params: dict, model: str) -> dict[str, torch.Tensor]:
+    """JAX-layout parameters (numpy arrays) of `model` (a key of
+    TRANSPOSED_KEYS: "dmc", "lssvc", "intra_noar", "intra_ss") ->
+    torch-layout CPU tensors."""
+    transposed = TRANSPOSED_KEYS[model]
     out = {}
     for key, val in np_params.items():
         a = np.asarray(val)

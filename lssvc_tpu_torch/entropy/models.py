@@ -1,7 +1,14 @@
-"""Video-side bit estimation (the JAX package's `entropy/models.py:34-78`).
+"""Bit estimation (the JAX package's `entropy/models.py:34-150`).
+
+Video side:
 
   * factorized "Bitparm" density (4-layer monotone MLP per channel);
   * Laplace-CDF interval likelihood for the conditional latents.
+
+Image side (the I-frame models):
+
+  * erfc Gaussian conditional likelihood;
+  * Ballé factorized EntropyBottleneck (`_logits_cumulative`).
 
 Bits use the reference's clamp conventions (probs + 1e-5, bits clipped to
 [0, 50] per element).  Activations are NHWC; Bitparm parameters are held in
@@ -14,6 +21,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from ..ops.nn import fp32_matmul, ste_round
 
 LOG2 = math.log(2.0)
 
@@ -59,3 +68,66 @@ def laplace_bits(y, sigma):
     sigma = torch.clamp(sigma, 1e-5, 1e10)
     probs = laplace_cdf(y + 0.5, sigma) - laplace_cdf(y - 0.5, sigma)
     return likelihood_to_bits(probs), probs
+
+
+# ---------------------------------------------------------------------------
+# Gaussian conditional (image side)
+
+def _std_cumulative(x):
+    """0.5 * erfc(-x / sqrt(2)): the standard normal CDF, robust in the tails."""
+    return 0.5 * torch.special.erfc(-(2.0 ** -0.5) * x)
+
+
+def gaussian_conditional_likelihood(inputs, scales, means=None,
+                                    scale_bound: float = 0.11,
+                                    likelihood_bound: float = 1e-9):
+    """P(round(x) | N(means, scales^2)) by half-interval integration."""
+    values = inputs - means if means is not None else inputs
+    scales = torch.clamp(scales, min=scale_bound)
+    values = torch.abs(values)
+    upper = _std_cumulative((0.5 - values) / scales)
+    lower = _std_cumulative((-0.5 - values) / scales)
+    likelihood = upper - lower
+    if likelihood_bound > 0:
+        likelihood = torch.clamp(likelihood, min=likelihood_bound)
+    return likelihood
+
+
+# ---------------------------------------------------------------------------
+# EntropyBottleneck (Ballé factorized prior)
+
+def entropy_bottleneck_logits(p, inputs, filters=(3, 3, 3, 3)):
+    """_logits_cumulative: inputs (C, 1, N); matrices (C, fo, fi).  The
+    products run in full f32 (the JAX package's `Precision.HIGHEST`)."""
+    logits = inputs
+    with fp32_matmul():
+        for i in range(len(filters) + 1):
+            logits = torch.bmm(F.softplus(p(f"_matrices.{i}")), logits)
+            logits = logits + p(f"_biases.{i}")
+            if i < len(filters):
+                logits = logits + (torch.tanh(p(f"_factors.{i}"))
+                                   * torch.tanh(logits))
+    return logits
+
+
+def entropy_bottleneck_forward(p, x, filters=(3, 3, 3, 3),
+                               likelihood_bound: float = 1e-9):
+    """Eval-mode forward: quantise around the medians, interval likelihood.
+
+    x: NHWC.  Returns (x_hat NHWC, likelihood NHWC)."""
+    n, h, w, c = x.shape
+    med = p("quantiles")[:, 0, 1][:, None, None]  # (C, 1, 1)
+    values = x.permute(3, 0, 1, 2).reshape(c, 1, -1)
+    outputs = ste_round(values - med) + med
+
+    lower = entropy_bottleneck_logits(p, outputs - 0.5, filters)
+    upper = entropy_bottleneck_logits(p, outputs + 0.5, filters)
+    sign = -torch.sign(lower + upper)
+    likelihood = torch.abs(torch.sigmoid(sign * upper)
+                           - torch.sigmoid(sign * lower))
+    if likelihood_bound > 0:
+        likelihood = torch.clamp(likelihood, min=likelihood_bound)
+
+    x_hat = outputs.reshape(c, n, h, w).permute(1, 2, 3, 0).contiguous()
+    like = likelihood.reshape(c, n, h, w).permute(1, 2, 3, 0)
+    return x_hat, like

@@ -1,0 +1,207 @@
+"""The per-sequence evaluation loop over GOPs (the JAX package's
+`harness/runner.py:29-242`), with estimated bits.
+
+Per frame: read the EL YUV -> RGB -> pad -> MATLAB-bicubic downsample to
+the BL -> I- or P-frame coding on the device -> metrics on the host.  The
+decoded-picture buffer (DPB) stays on the device between frames.
+
+Host metrics run one frame behind the device: right after frame i is
+enqueued, its reconstructions and bit counts are copied to pinned host
+buffers (non-blocking, behind a CUDA event), so that frame i's metrics,
+computed after frame i+1 is enqueued, wait for that event only and overlap
+frame i+1's device work.  (A plain `.cpu()` of frame i's output at that
+point would wait for frame i+1 too: one stream runs in order.)  The BL
+reference's `.cpu()` each frame, needed for its YUV planes, is a sync
+point, as it is in the JAX package.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..ops import pad_nhwc
+from ..utils.color import rgb_to_ycbcr420, ycbcr420_to_rgb
+from ..utils.io import YUVReader
+from ..utils.metrics import calc_msssim, mse_to_psnr
+from ..utils.msssim_rgb import ms_ssim_rgb
+from ..utils.padding import get_interlayer_padding, inverse_padding_size
+from ..utils.resize import imresize
+from .results import FrameMetrics, aggregate_layer_log
+
+RATIO_FACTORS = {"x1": 1.0, "x1_5": 1.5, "x2": 2.0, "x3": 3.0, "x4": 4.0}
+# task keys of paths that are not ported yet (bitstreams, PNG artifacts,
+# decode profiling, latent RDO); run_test raises when one is set
+UNPORTED_TASK_KEYS = ("write_stream", "save_decoded_frame", "save_decoded_mv",
+                      "save_warp_frame", "save_decoded_context",
+                      "decoding_profiling", "intra_rdo")
+
+
+def _to_device_nhwc(rgb_chw: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(
+        np.ascontiguousarray(rgb_chw[None].transpose(0, 2, 3, 1))).to(device)
+
+
+def _psnr_rgb(a: np.ndarray, b: np.ndarray) -> float:
+    return mse_to_psnr(float(np.mean((a - b) ** 2)), 1)
+
+
+def _layer_metrics(bit, rgb_ref, y_ref, u_ref, v_ref, x_hat_chw, win_size):
+    rgb_psnr = _psnr_rgb(rgb_ref, x_hat_chw)
+    rgb_ms = ms_ssim_rgb(rgb_ref, x_hat_chw, win_size=win_size, data_range=1)
+    y_rec, uv_rec = rgb_to_ycbcr420(x_hat_chw)
+    y_rec = y_rec[0]
+    u_rec, v_rec = uv_rec[0], uv_rec[1]
+    y_psnr = mse_to_psnr(float(np.mean((y_rec - y_ref) ** 2)), 1)
+    u_psnr = mse_to_psnr(float(np.mean((u_rec - u_ref) ** 2)), 1)
+    v_psnr = mse_to_psnr(float(np.mean((v_rec - v_ref) ** 2)), 1)
+    yuv_psnr = (6 * y_psnr + u_psnr + v_psnr) / 8
+    msssim = (6 * calc_msssim(y_ref, y_rec, data_range=1)
+              + calc_msssim(u_ref, u_rec, data_range=1)
+              + calc_msssim(v_ref, v_rec, data_range=1)) / 8
+    return FrameMetrics(bit, yuv_psnr, rgb_psnr, y_psnr, u_psnr, v_psnr,
+                        msssim, rgb_ms)
+
+
+class HostCopy:
+    """One frame's outputs on their way to the host.  On a CUDA device the
+    copies into pinned buffers are enqueued at once, behind an event;
+    `get()` waits for that event only.  On the CPU the tensors are kept."""
+
+    def __init__(self, tensors: dict):
+        first = next(iter(tensors.values()))
+        self.event = None
+        if first.device.type != "cuda":
+            self.host = tensors
+            return
+        self.host = {k: torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     for k, t in tensors.items()}
+        for k, t in tensors.items():
+            self.host[k].copy_(t, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record()
+
+    def get(self) -> dict:
+        """name -> numpy array; images as CHW (batch 0)."""
+        if self.event is not None:
+            self.event.synchronize()
+        return {k: (v.numpy()[0].transpose(2, 0, 1) if v.dim() == 4
+                    else v.numpy()) for k, v in self.host.items()}
+
+
+def run_test(video_net, i_frame_net, args_dict):
+    """Code one (sequence, ratio) task with estimated bits.  Returns
+    (log_BL, log_EL, log_FL) dicts in the reference's schema.  The models
+    run on their own device (`i_frame_net.device`); `video_net` is None
+    for an all-intra run."""
+    unported = [k for k in UNPORTED_TASK_KEYS if args_dict.get(k)]
+    if unported:
+        raise NotImplementedError(f"not ported yet: {unported}")
+    device = i_frame_net.device
+    frame_num = args_dict["frame_num"]
+    gop_size = args_dict["gop_size"]
+    verbose = int(args_dict.get("verbose", 0))
+    ratio = args_dict["ratio"]
+    scale_factor = RATIO_FACTORS[ratio]
+
+    height_el = args_dict["x1"]["height"]
+    width_el = args_dict["x1"]["width"]
+    pad_info = get_interlayer_padding(H_HR=height_el, W_HR=width_el,
+                                      ratio=scale_factor)
+    p_size_el = pad_info["P_HR"]
+    p_size_bl = pad_info["P_LR"]
+    hb_pad, wb_pad = pad_info["LR_padded_size"]
+    he_pad, we_pad = pad_info["HR_padded_size"]
+    hb, wb = pad_info["LR_size"]
+    he, we = pad_info["HR_size"]
+    # the reference derives one window size from the BL height and applies
+    # it to both layers' RGB MS-SSIM (`test.py:255-259`)
+    win_size = 7 if hb <= 160 else 11
+
+    reader = YUVReader(args_dict["yuv_path_el"], we, he)
+    frames_bl, frames_el, frame_types = [], [], []
+    dpb = None
+    pending = None  # the previous frame, whose metrics are still to do
+    start_time = time.time()
+
+    def process_metrics(copy, rgb_bl, rgb_el, planes_bl, planes_el):
+        out = copy.get()
+        frames_bl.append(_layer_metrics(float(out["bit_bl"]), rgb_bl,
+                                        *planes_bl, out["x_hat_bl"], win_size))
+        frames_el.append(_layer_metrics(float(out["bit_el"]), rgb_el,
+                                        *planes_el, out["x_hat_el"], win_size))
+        if "warp_frame" in out:
+            print("warp psnr:", _psnr_rgb(out["warp_frame"], rgb_el))
+
+    for frame_idx in range(frame_num):
+        y_el, uv_el = reader.read_one_frame()
+        rgb_el = ycbcr420_to_rgb(y_el, uv_el)
+
+        x_el_padded = pad_nhwc(_to_device_nhwc(rgb_el, device), p_size_el)
+        x_bl_padded = torch.clamp(
+            imresize(x_el_padded.permute(0, 3, 1, 2), sizes=(hb_pad, wb_pad)),
+            0, 1).permute(0, 2, 3, 1).contiguous()
+        # the frame's one sync point: the BL reference's YUV planes
+        rgb_bl = pad_nhwc(x_bl_padded, inverse_padding_size(p_size_bl)) \
+            .cpu().numpy()[0].transpose(2, 0, 1)
+        y_bl, uv_bl = rgb_to_ycbcr420(rgb_bl)
+
+        i_frame_net.set_scale_information(scale_factor, (he_pad, we_pad),
+                                          (0, 0, 0, 0))
+        if video_net is not None:
+            video_net.set_scale_information(scale_factor, (he_pad, we_pad),
+                                            (0, 0, 0, 0))
+
+        warp_frame = None
+        if frame_idx % gop_size == 0:
+            result = i_frame_net.forward(x_bl_padded, x_el_padded)
+            dpb = {
+                "ref_frame_bl": result["x_hat_bl"],
+                "ref_frame_el": result["x_hat_el"],
+                "ref_feature_bl": None,
+                "ref_feature_el": result["feature_el"],
+            }
+            frame_types.append(0)
+        else:
+            result = video_net.forward_one_frame(
+                x_bl_padded, x_el_padded, dpb["ref_frame_bl"],
+                dpb["ref_frame_el"], dpb["ref_feature_bl"],
+                dpb["ref_feature_el"])
+            dpb = result["dpb"]
+            warp_frame = result.get("warp_frame")
+            frame_types.append(1)
+
+        # the reference clamps the DPB frames in place (`test.py:249-250`),
+        # so later frames reference the clamped frames
+        ref_bl = dpb["ref_frame_bl"].clamp_(0, 1)
+        ref_el = dpb["ref_frame_el"].clamp_(0, 1)
+        outputs = {
+            "bit_bl": result["bit_bl"], "bit_el": result["bit_el"],
+            "x_hat_bl": pad_nhwc(ref_bl, inverse_padding_size(p_size_bl)),
+            "x_hat_el": pad_nhwc(ref_el, inverse_padding_size(p_size_el))}
+        if verbose and warp_frame is not None:
+            outputs["warp_frame"] = pad_nhwc(torch.clamp(warp_frame, 0, 1),
+                                             inverse_padding_size(p_size_el))
+        this = (HostCopy(outputs), rgb_bl, rgb_el,
+                (y_bl[0], uv_bl[0], uv_bl[1]), (y_el[0], uv_el[0], uv_el[1]))
+        if pending is not None:
+            process_metrics(*pending)
+        pending = this
+
+    if pending is not None:
+        process_metrics(*pending)
+    reader.close()
+    test_time = time.time() - start_time
+
+    pixel_bl, pixel_el = hb * wb, he * we
+    log_bl = aggregate_layer_log(frames_bl, frame_types, pixel_bl, test_time,
+                                 0.0, 0.0)
+    log_el = aggregate_layer_log(frames_el, frame_types, pixel_el, test_time,
+                                 0.0, 0.0)
+    bits_fl = [b.bit + e.bit for b, e in zip(frames_bl, frames_el)]
+    log_fl = aggregate_layer_log(frames_el, frame_types, pixel_el, test_time,
+                                 0.0, 0.0, include_yuv_list=False,
+                                 bits_override=bits_fl)
+    return log_bl, log_el, log_fl

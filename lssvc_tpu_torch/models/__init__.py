@@ -1,4 +1,6 @@
 from .dmc import DMC
+from .intra_noar import IntraNoAR
+from .intra_ss import IntraSS
 from .lssvc import LSSVC
 
-__all__ = ["DMC", "LSSVC"]
+__all__ = ["DMC", "IntraNoAR", "IntraSS", "LSSVC"]

@@ -64,6 +64,38 @@ def res_block(p, x, slope=0.01, start_from_relu=True, end_with_relu=False):
     return x + out
 
 
+def residual_block(p, x, slope=0.01):
+    """Two 3x3 convs with leaky relu after each (`layers.py:122-145`)."""
+    out = conv(p.sub("conv1"), x)
+    out = leaky_relu(out, slope)
+    out = conv(p.sub("conv2"), out)
+    out = leaky_relu(out, slope)
+    return out + x
+
+
+def residual_block_with_stride(p, x, stride=2):
+    """conv(s) -> leaky -> conv -> GDN, 1x1-strided shortcut when the block
+    has one (`layers.py:60-91`)."""
+    out = conv(p.sub("conv1"), x, stride=stride)
+    out = leaky_relu(out, 0.01)
+    out = conv(p.sub("conv2"), out)
+    out = gdn_p(p.sub("gdn"), out)
+    identity = (conv(p.sub("downsample"), x, stride=stride)
+                if "downsample.weight" in p else x)
+    return out + identity
+
+
+def residual_block_upsample(p, x, r=2):
+    """subpel -> leaky -> conv -> IGDN with a subpel shortcut
+    (`layers.py:94-119`)."""
+    out = subpel_conv(p.sub("subpel_conv"), x, r)
+    out = leaky_relu(out, 0.01)
+    out = conv(p.sub("conv"), out)
+    out = gdn_p(p.sub("igdn"), out, inverse=True)
+    identity = subpel_conv(p.sub("upsample"), x, r)
+    return out + identity
+
+
 # ---------------------------------------------------------------------------
 # Depthwise conv blocks
 

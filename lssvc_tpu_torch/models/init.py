@@ -1,9 +1,12 @@
-"""From-scratch parameters for the DMC and LSSVC P-frame codecs.
+"""From-scratch parameters for the P-frame codecs (DMC, LSSVC) and the
+I-frame codecs (IntraNoAR, IntraSS).
 
 The same shapes and distributions as the JAX package's `models/init.py`
-(`init_dmc`, `init_lssvc`): unit-gain xavier normal conv weights with bias
-0.01, a zero OffsetDiversity offset/mask head, GDN at identity (sqrt
-reparameterisation), Bitparm N(0, 0.01).  Draws come from an explicit
+(`init_dmc`, `init_lssvc`, `init_intra_noar`, `init_intra_ss`): unit-gain
+xavier normal conv weights with bias 0.01, a zero OffsetDiversity
+offset/mask head, GDN at identity (sqrt reparameterisation), Bitparm
+N(0, 0.01), the Ballé EntropyBottleneck init (init_scale 10, biases
+uniform in [-0.5, 0.5], zero factors).  Draws come from an explicit
 `torch.Generator` (they are not the JAX package's numbers) and land in
 torch layouts on the CPU: conv weights OIHW, transposed-conv weights
 (I, O, kH, kW), Bitparm (1, C, 1, 1).
@@ -64,12 +67,44 @@ class ParamSet:
         self.bitparm(f"{name}.f3", ch)
         self.bitparm(f"{name}.f4", ch, final=True)
 
+    def entropy_bottleneck(self, name, ch, filters=(3, 3, 3, 3),
+                           init_scale=10.0):
+        fs = (1,) + tuple(filters) + (1,)
+        scale = init_scale ** (1 / (len(filters) + 1))
+        for i in range(len(filters) + 1):
+            init = math.log(math.expm1(1 / scale / fs[i + 1]))
+            self.d[f"{name}._matrices.{i}"] = torch.full(
+                (ch, fs[i + 1], fs[i]), init)
+            self.d[f"{name}._biases.{i}"] = torch.rand(
+                (ch, fs[i + 1], 1), generator=self.gen) - 0.5
+            if i < len(filters):
+                self.d[f"{name}._factors.{i}"] = torch.zeros((ch, fs[i + 1], 1))
+        self.d[f"{name}.quantiles"] = torch.tensor(
+            [-init_scale, 0.0, init_scale]).repeat(ch, 1, 1)
+
     # -- composite blocks -----------------------------------------------------
 
     def res_block(self, name, ch, bottleneck=False):
         inner = ch // 2 if bottleneck else ch
         self.conv(f"{name}.conv1", ch, inner, 3)
         self.conv(f"{name}.conv2", inner, ch, 3)
+
+    def residual_block(self, name, cin, cout):
+        self.conv(f"{name}.conv1", cin, cout, 3)
+        self.conv(f"{name}.conv2", cout, cout, 3)
+
+    def residual_block_with_stride(self, name, cin, cout, stride=2):
+        self.conv(f"{name}.conv1", cin, cout, 3)
+        self.conv(f"{name}.conv2", cout, cout, 3)
+        self.gdn(f"{name}.gdn", cout)
+        if stride != 1:
+            self.conv(f"{name}.downsample", cin, cout, 1)
+
+    def residual_block_upsample(self, name, cin, cout, r=2):
+        self.conv(f"{name}.subpel_conv.0", cin, cout * r * r, 3)
+        self.conv(f"{name}.conv", cout, cout, 3)
+        self.gdn(f"{name}.igdn", cout)
+        self.conv(f"{name}.upsample.0", cin, cout * r * r, 3)
 
     def subpel(self, name, cin, cout, r=2, k=3):
         self.conv(f"{name}.0", cin, cout * r * r, k)
@@ -383,4 +418,75 @@ def init_lssvc(generator: torch.Generator) -> dict:
 
     params = b.d
     params.update(init_dmc(generator, prefix="base_layer_model."))
+    return params
+
+
+# ---------------------------------------------------------------------------
+# IntraNoAR — shapes per `priors.py:112-162`
+
+def init_intra_noar(generator: torch.Generator, N: int = 192,
+                    prefix: str = "") -> dict:
+    b = ParamSet(generator)
+    b.residual_block_with_stride("g_a.0", 3, N)
+    b.residual_block("g_a.1", N, N)
+    b.residual_block_with_stride("g_a.2", N, N)
+    b.residual_block("g_a.3", N, N)
+    b.residual_block_with_stride("g_a.4", N, N)
+    b.residual_block("g_a.5", N, N)
+    b.conv("g_a.6", N, N, 3)
+
+    for i in range(5):
+        b.conv(f"h_a.{2 * i}", N, N, 3)
+    b.conv("h_s.0", N, N, 3)
+    b.subpel("h_s.2", N, N, 2)
+    b.conv("h_s.4", N, N * 3 // 2, 3)
+    b.subpel("h_s.6", N * 3 // 2, N * 3 // 2, 2)
+    b.conv("h_s.8", N * 3 // 2, N * 2, 3)
+
+    for i in (0, 2, 4, 6):
+        b.residual_block(f"g_s.{i}", N, N)
+        if i < 6:
+            b.residual_block_upsample(f"g_s.{i + 1}", N, N)
+    b.subpel("g_s.7", N, 3, 2)
+
+    b.entropy_bottleneck("entropy_bottleneck", N)
+    return {prefix + k: v for k, v in b.d.items()}
+
+
+# ---------------------------------------------------------------------------
+# IntraSS — shapes per `IntraSS.py:74-113` (+ intra blocks `layers.py`)
+
+def init_intra_ss(generator: torch.Generator, channel_BL: int = 192) -> dict:
+    cn, cm = 64, 96
+    b = ParamSet(generator)
+
+    b.conv("texture_resampler.conv_adaptor.0", 3, 64, 3)
+    b.conv("texture_resampler.conv_adaptor.2", 64, 64, 3)
+    b.conv("layer_prior_resampler.conv_adaptor.0", channel_BL, cm, 3)
+    b.conv("layer_prior_resampler.conv_adaptor.2", cm, cm, 3)
+
+    b.feature_extractor_3scale("texture_extractor", ((64, 64), 64, 64))
+    b.multi_scale_context_fusion("context_fusion_net", 64, 64, 64)
+
+    b.gdn_res_encoder("g_a", cn, cm)
+    b.conv("h_a.0", cm, cn, 3)
+    b.conv("h_a.2", cn, cn, 3)
+    b.conv("h_a.4", cn, cn, 3)
+    b.subpel("h_s.0", cn, cm, 2)
+    b.subpel("h_s.2", cm, cm * 3 // 2, 2)
+    b.conv("h_s.4", cm * 3 // 2, cm * 2, 3)
+    b.gdn_res_decoder("g_s", cn, cm)
+    b.recon_generation_simple("recon_net")
+
+    # intra PriorFusion (`layers.py:473-492`)
+    b.conv("prior_fusion_net.context_parameters.0", cn, cm * 3 // 2, 3)
+    b.conv("prior_fusion_net.context_parameters.2", cm * 3 // 2, cm * 2, 3)
+    b.conv("prior_fusion_net.params_net.0", cm * 5, cm * 4, 3)
+    b.conv("prior_fusion_net.params_net.2", cm * 4, cm * 3, 3)
+    b.conv("prior_fusion_net.params_net.4", cm * 3, cm * 2, 3)
+
+    b.entropy_bottleneck("entropy_bottleneck", cn)
+    params = b.d
+    params.update(init_intra_noar(generator, channel_BL,
+                                  prefix="base_layer_model."))
     return params

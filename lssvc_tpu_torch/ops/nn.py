@@ -9,6 +9,8 @@ result permuted back is contiguous NHWC again.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -20,6 +22,19 @@ def set_fp32_parity():
     digits); the JAX package runs them at `Precision.HIGHEST`."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def fp32_matmul():
+    """Full-f32 matrix products inside the block, whatever the global TF32
+    setting (the JAX package's `Precision.HIGHEST` einsums); the setting is
+    restored on exit."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 # Serving cap on OffsetDiversity's diversity offsets, in pixels (the JAX

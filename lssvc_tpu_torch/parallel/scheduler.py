@@ -1,0 +1,122 @@
+"""Task runner for evaluation sweeps (the JAX package's
+`parallel/scheduler.py:27-112`, one worker).
+
+Models are cached per checkpoint path, so a sweep over
+(dataset x ratio x sequence) loads each network once.  Tasks run one after
+another on one device; a pool of workers (one a GPU) is a later step.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+
+import numpy as np
+import torch
+
+from ..convert import params_from_jax
+from ..harness.runner import run_test
+from ..models import LSSVC, IntraSS
+from ..models.init import init_intra_ss, init_lssvc
+from ..ops import OD_OFFSET_CAP_SERVING
+
+BL_CHANNEL_KEY = "base_layer_model.g_s.0.conv1.weight"
+
+
+def _state_dict(path: str, kind: str) -> dict:
+    """A reference checkpoint (.pth, already in the port's layout) or a JAX
+    package checkpoint (.npz, bridged as `kind`, a model name of
+    `convert.params_from_jax`) as name -> CPU tensor; `module.`
+    prefixes stripped, the Gaussian conditionals' scale tables dropped (the
+    JAX loaders drop them too: `intra_noar.py:143`, `intra_ss.py:188`)."""
+    if path.endswith(".npz"):
+        with np.load(path, allow_pickle=False) as data:
+            arrays = {k: data[k] for k in data.files
+                      if not k.startswith(("__meta__", "__opt__"))}
+        sd = params_from_jax(arrays, kind)
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        sd = sd.get("state_dict", sd)
+    sd = {k[7:] if k.startswith("module.") else k: v for k, v in sd.items()}
+    return {k: v for k, v in sd.items()
+            if not k.endswith("gaussian_conditional.scale_table")}
+
+
+@functools.lru_cache(maxsize=None)
+def _shapes(init, *args) -> dict:
+    """Key -> shape of the port's own `init(generator, *args)`, drawn once
+    a process."""
+    params = init(torch.Generator().manual_seed(0), *args)
+    return {k: tuple(v.shape) for k, v in params.items()}
+
+
+def _checked(sd: dict, shapes: dict, path: str) -> dict:
+    """`sd` held to the model's key `shapes`: a missing key or another
+    shape is an error; a key the model never reads (such as the reference's
+    `ms_ssim_loss.*`) is dropped with a printed note."""
+    missing = sorted(set(shapes) - set(sd))
+    if missing:
+        raise KeyError(f"{path}: {len(missing)} missing keys, e.g. "
+                       f"{missing[:5]}")
+    unused = sorted(set(sd) - set(shapes))
+    if unused:
+        print(f"note: {path}: dropped {len(unused)} keys the model does not "
+              f"read, e.g. {unused[:5]}")
+    wrong = [k for k, s in shapes.items() if tuple(sd[k].shape) != s]
+    if wrong:
+        raise ValueError(f"{path}: shapes differ from the model's at {wrong[:5]}")
+    return {k: sd[k].float() for k in shapes}
+
+
+def load_intra(path: str, device) -> IntraSS:
+    sd = _state_dict(path, "intra_ss")
+    shapes = _shapes(init_intra_ss, int(sd[BL_CHANNEL_KEY].shape[0]))
+    return IntraSS(_checked(sd, shapes, path), device=device)
+
+
+def load_video(path: str, device) -> LSSVC:
+    """LSSVC with the serving offset cap (the JAX CLI's preset)."""
+    params = _checked(_state_dict(path, "lssvc"), _shapes(init_lssvc), path)
+    return LSSVC(params, device=device, od_offset_cap=OD_OFFSET_CAP_SERVING)
+
+
+class Runner:
+    """Runs tasks on one device, loading each checkpoint once."""
+
+    def __init__(self, device):
+        self.device = device
+        self.models = {}
+
+    def _models(self, task):
+        key = (task["i_frame_model_path"],
+               None if task.get("force_intra") else task["video_model_path"])
+        if key not in self.models:
+            intra = load_intra(task["i_frame_model_path"], self.device)
+            video = (None if task.get("force_intra")
+                     else load_video(task["video_model_path"], self.device))
+            self.models[key] = (intra, video)
+        return self.models[key]
+
+    def run_one(self, task: dict):
+        i_frame_net, video_net = self._models(task)
+        sub_dir = task["video_path"]
+        task = dict(task, gop_size=task["gop"], yuv_path_el=os.path.join(
+            task["dataset_path"], sub_dir, "x1.yuv"))
+        res_bl, res_el, res_fl = run_test(video_net, i_frame_net, task)
+        name = (f"{os.path.basename(task.get('video_model_path', 'intra'))}"
+                f"_{sub_dir}")
+        for res in (res_bl, res_el, res_fl):
+            res["name"] = name
+            res["ds_name"] = task["ds_name"]
+            res["video_path"] = task["video_path"]
+            res["ratio"] = task["ratio"]
+            res["model_idx"] = task.get("model_idx", 0)
+        return res_bl, res_el, res_fl
+
+    def run_tasks(self, tasks):
+        results = []
+        for i, task in enumerate(tasks):
+            print(f"[{i + 1}/{len(tasks)}] {task['ds_name']}/"
+                  f"{task['video_path']} {task['ratio']}")
+            results.append(self.run_one(task))
+        return results

@@ -1,0 +1,212 @@
+"""Evaluation CLI of the port (the JAX package's `test.py`): the same flags,
+the same test-config JSON schema and the same `{ratio}_{BL,EL,FL}.json`
+results, with estimated bits.
+
+    python -m lssvc_tpu_torch.test --test_config cfg.json \\
+        --i_frame_model_path intra.pth --model_path video.pth \\
+        --output_path out --ratios x2 [--device cpu]
+
+Runs on `cuda` unless `--device` says otherwise.  Flags of paths that are
+not ported yet (real bitstreams, latent RDO, other precisions, PNG
+artifacts, decode profiling, more than one worker) raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+from .harness.results import filter_dict
+from .parallel.scheduler import Runner
+from .utils.platform import resolve_device
+
+
+def str2bool(v):
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if v.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError("Boolean value expected.")
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description="lssvc_tpu_torch testing script")
+    parser.add_argument("--i_frame_model_name", type=str, default="IntraNoAR")
+    parser.add_argument("--i_frame_model_path", type=str, nargs="+")
+    parser.add_argument("--force_intra", type=str2bool, nargs="?", const=True,
+                        default=False)
+    parser.add_argument("--force_frame_num", type=int, default=-1)
+    parser.add_argument("--force_intra_period", type=int, default=-1)
+    parser.add_argument("--intra_rdo", type=str2bool, nargs="?", const=True,
+                        default=False)
+    parser.add_argument("--intra_lmbda", type=float, nargs="+")
+    parser.add_argument("--intra_rdo_iter_to_exit", type=int, default=60)
+    parser.add_argument("--intra_rdo_iter_to_reduce", type=int, default=20)
+    parser.add_argument("--model_path", type=str, nargs="+")
+    parser.add_argument("--inter_mv_rdo", type=str2bool, nargs="?",
+                        const=True, default=False)
+    parser.add_argument("--inter_feature_rdo", type=str2bool, nargs="?",
+                        const=True, default=False)
+    parser.add_argument("--inter_lmbda", type=float, nargs="+")
+    parser.add_argument("--inter_mv_rdo_iter_to_exit", type=int, default=60)
+    parser.add_argument("--inter_mv_rdo_iter_to_reduce", type=int, default=20)
+    parser.add_argument("--inter_feature_rdo_iter_to_exit", type=int,
+                        default=60)
+    parser.add_argument("--inter_feature_rdo_iter_to_reduce", type=int,
+                        default=20)
+    parser.add_argument("--test_config", type=str, required=True)
+    parser.add_argument("--worker", "-w", type=int, default=1)
+    parser.add_argument("--cuda", type=str2bool, nargs="?", const=True,
+                        default=False, help="accepted for CLI compatibility; "
+                        "--device selects the device")
+    parser.add_argument("--cuda_device", default=None)
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device of the models (default cuda)")
+    parser.add_argument("--write_stream", type=str2bool, nargs="?",
+                        const=True, default=False)
+    parser.add_argument("--stream_path", type=str, default="out_bin")
+    parser.add_argument("--save_decoded_frame", type=str2bool, default=False)
+    parser.add_argument("--save_decoded_mv", type=str2bool, default=False)
+    parser.add_argument("--save_warp_frame", type=str2bool, default=False)
+    parser.add_argument("--save_decoded_context", type=str2bool, default=False)
+    parser.add_argument("--decoded_frame_path", type=str,
+                        default="decoded_frames")
+    parser.add_argument("--decoded_mv_path", type=str, default="decoded_mv")
+    parser.add_argument("--warp_frame_path", type=str, default="warp_frame")
+    parser.add_argument("--decoded_context_path", type=str,
+                        default="decoded_context")
+    parser.add_argument("--output_path", type=str, required=True)
+    parser.add_argument("--decoding_profiling", type=str2bool, default=False)
+    parser.add_argument("--verbose", type=int, default=0)
+    parser.add_argument("--model_name", type=str, default="LSSVC_net")
+    parser.add_argument("--precision", type=str, default="fp32",
+                        choices=["fp32", "high", "bf16", "int8"])
+    parser.add_argument("--int8_calib", type=str, default=None)
+    parser.add_argument("--ratios", type=str, nargs="+",
+                        default=["x2", "x1_5"],
+                        help="BL downscale ratios to evaluate")
+    return parser.parse_args(argv)
+
+
+def refuse_unported(args):
+    """Raise on a flag whose path is not ported yet."""
+    unported = [flag for flag, on in (
+        ("--write_stream", args.write_stream),
+        ("--intra_rdo", args.intra_rdo),
+        ("--precision " + args.precision, args.precision != "fp32"),
+        ("--int8_calib", args.int8_calib is not None),
+        ("--save_decoded_frame", args.save_decoded_frame),
+        ("--save_decoded_mv", args.save_decoded_mv),
+        ("--save_warp_frame", args.save_warp_frame),
+        ("--save_decoded_context", args.save_decoded_context),
+        ("--decoding_profiling", args.decoding_profiling),
+        (f"--worker {args.worker}", args.worker > 1)) if on]
+    if unported:
+        raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
+
+
+def build_tasks(args, config):
+    """One task per (dataset, ratio, sequence, model), as the JAX CLI
+    builds them (estimated bits only)."""
+    tasks = []
+    for ds_name in config:
+        if config[ds_name]["test"] == 0:
+            continue
+        for ratio in args.ratios:
+            for seq_name in config[ds_name]["sequences"]:
+                for model_idx in range(len(args.model_path)):
+                    seq_cfg = config[ds_name]["sequences"][seq_name]
+                    tasks.append({
+                        "ratio": ratio,
+                        "x1": config[ds_name]["x1"],
+                        ratio: config[ds_name].get(ratio),
+                        "model_idx": model_idx,
+                        "i_frame_model_path": args.i_frame_model_path[model_idx],
+                        "i_frame_model_name": args.i_frame_model_name,
+                        "video_model_path": args.model_path[model_idx],
+                        "video_model_name": args.model_name,
+                        "force_intra": args.force_intra,
+                        "video_path": seq_name,
+                        "gop": (1 if args.force_intra
+                                else (args.force_intra_period
+                                      if args.force_intra_period > 0
+                                      else seq_cfg["gop"])),
+                        "frame_num": (args.force_frame_num
+                                      if args.force_frame_num > 0
+                                      else seq_cfg["frames"]),
+                        "dataset_path": config[ds_name]["base_path"],
+                        "ds_name": ds_name,
+                        "verbose": args.verbose,
+                    })
+    return tasks
+
+
+def write_results(args, config, results):
+    """`{ratio}_{BL,EL,FL}.json` under --output_path: dataset -> sequence
+    -> checkpoint basename -> the published keys."""
+    os.makedirs(args.output_path, exist_ok=True)
+    # checkpoint basenames, told apart by index when a sweep reuses a name
+    basenames = [os.path.basename(m) for m in args.model_path]
+    ckpt_keys = [b if basenames.count(b) == 1 else f"{i}_{b}"
+                 for i, b in enumerate(basenames)]
+    for ratio in args.ratios:
+        logs = {"BL": {}, "EL": {}, "FL": {}}
+        for ds_name in config:
+            if config[ds_name]["test"] == 0:
+                continue
+            for seq in config[ds_name]["sequences"]:
+                for layer in logs:
+                    logs[layer].setdefault(ds_name, {}).setdefault(seq, {})
+                for res_bl, res_el, res_fl in results:
+                    # matched on the model index, not the basename
+                    if (ds_name == res_bl["ds_name"]
+                            and seq == res_bl["video_path"]
+                            and res_bl["ratio"] == ratio):
+                        ckpt = ckpt_keys[res_bl["model_idx"]]
+                        for layer, res in zip(logs, (res_bl, res_el, res_fl)):
+                            logs[layer][ds_name][seq][ckpt] = filter_dict(res)
+        for layer, log in logs.items():
+            with open(os.path.join(args.output_path,
+                                   f"{ratio}_{layer}.json"), "w") as fp:
+                json.dump(log, fp, indent=2)
+
+
+def main(argv=None):
+    """Run the CLI on `argv` (default sys.argv); returns the tasks' results,
+    (log_BL, log_EL, log_FL) per task."""
+    begin_time = time.time()
+    args = parse_args(argv)
+    refuse_unported(args)
+    device = resolve_device(args.device)
+    if args.force_intra:
+        args.model_path = args.i_frame_model_path
+    if args.inter_mv_rdo or args.inter_feature_rdo:
+        print("note: --inter_mv_rdo/--inter_feature_rdo are accepted for "
+              "reference CLI compatibility but not implemented (they are "
+              "dead flags in the reference too)")
+    if args.cuda or args.cuda_device is not None:
+        print("note: --cuda/--cuda_device ignored; --device selects the "
+              "device")
+
+    with open(args.test_config) as f:
+        config = json.load(f)
+    tasks = build_tasks(args, config)
+    results = Runner(device).run_tasks(tasks)
+    write_results(args, config, results)
+
+    count_frames = sum({(t["ds_name"], t["video_path"]): t["frame_num"]
+                        for t in tasks}.values())
+    count_sequences = len({(t["ds_name"], t["video_path"]) for t in tasks})
+    print("Test finished")
+    print(f"Tested {len(args.model_path)} models on {count_frames} frames "
+          f"from {count_sequences} sequences")
+    print(f"Total elapsed time: {(time.time() - begin_time) / 60:.1f} min")
+    return results
+
+
+if __name__ == "__main__":
+    main()

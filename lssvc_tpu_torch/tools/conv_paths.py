@@ -1,0 +1,131 @@
+"""Which path the I-frame's fp32 3x3 convolutions can take on the GPU.
+
+    python -m lssvc_tpu_torch.tools.conv_paths
+
+Times the 3x3 conv shapes of a 1080p IntraSS I-frame (IntraNoAR's
+192-channel layers at 144x240, 288x480 and 72x120, and the EL's
+64-channel layers) through five PyTorch paths, all fp32 with TF32 off:
+
+  port       `ops.conv2d`: F.conv2d on the NHWC tensor's channels_last
+             view, the algorithm cuDNN's heuristic picks
+  nchw       F.conv2d on a contiguous NCHW copy of the input
+  benchmark  the port's call with `cudnn.benchmark` on (cuDNN times its
+             algorithms on the first call and keeps the fastest)
+  no_cudnn   the port's call with cuDNN off (ATen's own convolution)
+  im2col     F.unfold, then one torch.matmul
+
+Each path's output is held to a float64 conv of the same inputs (max
+|err| over max |ref|).  Then one 1080p IntraSS I-frame (BL 192 channels,
+random init, seed 0) runs under `port`, `benchmark` and `no_cudnn`: its
+device span (CUDA events, after one warm-up frame), its bits and the
+relative RMS of its EL reconstruction against the `port` frame.  Prints one
+JSON line.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+
+import torch
+import torch.nn.functional as F
+
+from ..models import IntraSS
+from ..models.init import init_intra_ss
+from ..ops import conv2d
+from ..ops.nn import set_fp32_parity
+from .timing import card, require_cuda, time_ms
+
+EL_HW, BL_HW = (1152, 1920), (576, 960)
+# (c_in, c_out, h, w) of the I-frame's 3x3 stride-1 convs at 1080p
+SHAPES = [(192, 192, 144, 240), (192, 192, 288, 480), (192, 192, 72, 120),
+          (192, 768, 144, 240), (64, 64, 576, 960), (64, 64, 1152, 1920)]
+
+
+def _cudnn(enabled=True, benchmark=False):
+    return torch.backends.cudnn.flags(enabled=enabled, benchmark=benchmark,
+                                      deterministic=False, allow_tf32=False)
+
+
+MODES = {"port": lambda: _cudnn(),
+         "benchmark": lambda: _cudnn(benchmark=True),
+         "no_cudnn": lambda: _cudnn(enabled=False)}
+
+
+def _im2col(x, w, b):
+    n, h, wd, _ = x.shape
+    cols = F.unfold(x.permute(0, 3, 1, 2), w.shape[2], padding=1)
+    y = torch.matmul(w.reshape(w.shape[0], -1), cols) + b[:, None]
+    return y.reshape(n, w.shape[0], h, wd).permute(0, 2, 3, 1)
+
+
+def conv_paths(dev, c_in, c_out, h, w) -> dict:
+    """ms and relative max error of each path at one shape."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((1, h, w, c_in), generator=gen, device=dev)
+    wt = torch.randn((c_out, c_in, 3, 3), generator=gen, device=dev) / 40
+    b = torch.randn((c_out,), generator=gen, device=dev)
+    ref = conv2d(x.double(), wt.double(), b.double())
+    x_nchw = x.permute(0, 3, 1, 2).contiguous()
+    paths = {
+        "port": (MODES["port"], lambda: conv2d(x, wt, b)),
+        "nchw": (MODES["port"],
+                 lambda: F.conv2d(x_nchw, wt, b, padding=1).permute(0, 2, 3, 1)),
+        "benchmark": (MODES["benchmark"], lambda: conv2d(x, wt, b)),
+        "no_cudnn": (MODES["no_cudnn"], lambda: conv2d(x, wt, b)),
+        "im2col": (contextlib.nullcontext, lambda: _im2col(x, wt, b)),
+    }
+    out = {}
+    for name, (mode, fn) in paths.items():
+        with mode():
+            err = float((fn().double() - ref).abs().max() / ref.abs().max())
+            once = time_ms(fn, iters=1, warmup=1)
+            ms = time_ms(fn, iters=max(3, min(30, int(300 / once))), warmup=0)
+        out[name] = {"ms": ms, "rel_max_err": err}
+    return out
+
+
+def iframe_modes(dev) -> dict:
+    """One 1080p IntraSS frame under each cuDNN mode."""
+    model = IntraSS(init_intra_ss(torch.Generator().manual_seed(0), 192),
+                    device=dev)
+    model.set_scale_information(2.0, EL_HW, (0, 0, 0, 0))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x_bl = torch.rand((1, *BL_HW, 3), generator=gen, device=dev)
+    x_el = torch.rand((1, *EL_HW, 3), generator=gen, device=dev)
+    out, base = {}, None
+    for name, mode in MODES.items():
+        with mode():
+            model.forward(x_bl, x_el)  # warm-up (and cuDNN's own timing)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = model.forward(x_bl, x_el)
+            end.record()
+            torch.cuda.synchronize()
+        base = base or res
+        diff = res["x_hat_el"] - base["x_hat_el"]
+        out[name] = {
+            "device_s": start.elapsed_time(end) / 1e3,
+            "bits": [float(res["bit_bl"]), float(res["bit_el"])],
+            "x_hat_el_rel_rms_vs_port": float(
+                diff.square().mean().sqrt()
+                / base["x_hat_el"].square().mean().sqrt())}
+    return out
+
+
+def main():
+    dev = require_cuda()
+    set_fp32_parity()
+    convs = [{"c_in": ci, "c_out": co, "hw": [h, w],
+              **conv_paths(dev, ci, co, h, w)} for ci, co, h, w in SHAPES]
+    print(json.dumps({"card": card(), "precision": "fp32, TF32 off",
+                      "torch": torch.__version__,
+                      "cudnn": torch.backends.cudnn.version(),
+                      "convs": convs, "iframe": iframe_modes(dev)}),
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()

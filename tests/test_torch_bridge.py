@@ -26,7 +26,7 @@ def test_bridge_layouts():
     bp = rng.normal(size=(1, 1, 1, 4)).astype(np.float32)
     # a DMC dict: `res_prior_decoder.0` is a transposed conv
     d = params_from_jax({"res_prior_decoder.0.weight": w, "dw.weight": dw,
-                         "be.f1.h": bp})
+                         "be.f1.h": bp}, "dmc")
     np.testing.assert_array_equal(d["res_prior_decoder.0.weight"].numpy(),
                                   w.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
     np.testing.assert_array_equal(d["dw.weight"].numpy(),
@@ -34,14 +34,21 @@ def test_bridge_layouts():
     np.testing.assert_array_equal(d["be.f1.h"].numpy(), bp.reshape(1, 4, 1, 1))
     # an LSSVC dict: the EL's `res_prior_decoder.0` is a plain conv, the
     # BL's is transposed
-    d = params_from_jax({"res_prior_decoder.0.weight": w,
-                         "base_layer_model.res_prior_decoder.0.weight": w})
+    both = {"res_prior_decoder.0.weight": w,
+            "base_layer_model.res_prior_decoder.0.weight": w}
+    d = params_from_jax(both, "lssvc")
     np.testing.assert_array_equal(d["res_prior_decoder.0.weight"].numpy(),
                                   w.transpose(3, 2, 0, 1))
     assert tuple(d["base_layer_model.res_prior_decoder.0.weight"].shape) == \
         (5, 7, 3, 3)
     assert LSSVC_TRANSPOSED_KEYS == {"base_layer_model." + k
                                      for k in DMC_TRANSPOSED_KEYS}
+    # the I-frame models have no transposed conv, whatever the names
+    for model in ("intra_noar", "intra_ss"):
+        d = params_from_jax(both, model)
+        for key in both:
+            np.testing.assert_array_equal(d[key].numpy(),
+                                          w.transpose(3, 2, 0, 1))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from lssvc_tpu_torch.models import LSSVC
-from lssvc_tpu_torch.models.init import init_lssvc
+from lssvc_tpu_torch.models import LSSVC, IntraSS
+from lssvc_tpu_torch.models.init import init_intra_ss, init_lssvc
 from lssvc_tpu_torch.ops import conv_chain as cc
 from lssvc_tpu_torch.ops import warp as plain
 from lssvc_tpu_torch.ops import warp_kernels as wk
@@ -143,6 +143,34 @@ def test_frame_launches_each_kernel(dev):
     cpu, card = outs
     for k in ("bit_bl", "bit_el"):
         assert abs(float(card[k]) - float(cpu[k])) <= 3e-3 * abs(float(cpu[k]))
+
+
+def _rel_rms(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(torch.sqrt(torch.mean((a - b) ** 2))
+                 / torch.sqrt(torch.mean(b ** 2)).clamp_min(1e-12))
+
+
+def test_iframe_card_agrees_with_cpu(dev):
+    """One IntraSS frame (EL 128x128 / BL 64x64) from the same weights on
+    both devices: bits within 3e-3 relative, reconstructions within 5%
+    relative RMS.  The I-frame pair launches no warp kernel."""
+    params = init_intra_ss(torch.Generator().manual_seed(0), 192)
+    rng = np.random.default_rng(8)
+    x_bl = torch.from_numpy(rng.random((1, 64, 64, 3), np.float32))
+    x_el = torch.from_numpy(rng.random((1, 128, 128, 3), np.float32))
+    outs = []
+    for device in ("cpu", dev):
+        model = IntraSS(params, device=device)
+        model.set_scale_information(2.0, (128, 128), (0, 0, 0, 0))
+        counts = (wk.flow_warp.launches, wk.grouped_warp.launches)
+        outs.append(model.forward(x_bl.to(device), x_el.to(device)))
+        assert counts == (wk.flow_warp.launches, wk.grouped_warp.launches)
+    cpu, card = outs
+    for k in ("bit_bl", "bit_el"):
+        assert abs(float(card[k]) - float(cpu[k])) <= 3e-3 * abs(float(cpu[k]))
+    for k in ("x_hat_bl", "x_hat_el"):
+        assert _rel_rms(card[k], cpu[k]) <= 0.05
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

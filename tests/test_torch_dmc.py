@@ -31,9 +31,17 @@ from lssvc_tpu_torch.models.lssvc_blocks import offset_diversity as t_od
 @pytest.fixture(scope="module")
 def dmc_pair():
     jparams = init_dmc(0)
-    model = DMC(params_from_jax({k: np.asarray(v) for k, v in jparams.items()}),
+    model = DMC(params_from_jax({k: np.asarray(v) for k, v in jparams.items()},
+                                "dmc"),
                 device="cpu")
     return jparams, model
+
+
+def test_bridged_init_loads_strict(dmc_pair):
+    jparams, model = dmc_pair
+    np_params = {k: np.asarray(v) for k, v in jparams.items()}
+    assert set(model.state_dict()) == set(np_params)
+    model.load_state_dict(params_from_jax(np_params, "dmc"), strict=True)
 
 
 def _bits_close(port, ref, rel=3e-3):
@@ -92,7 +100,7 @@ def test_offset_diversity_matches_jax(cap):
     finally:
         set_od_offset_cap(None)
         jax.clear_caches()
-    tp = TP(params_from_jax(jp))
+    tp = TP(params_from_jax(jp, "lssvc"))
     out = t_od(tp, torch.from_numpy(x), torch.from_numpy(aux),
                torch.from_numpy(flow), offset_cap=cap).numpy()
     assert_close_mostly(out, ref)

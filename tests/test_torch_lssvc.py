@@ -33,7 +33,7 @@ DPB_KEYS = ("ref_frame_bl", "ref_frame_el", "ref_feature_bl",
 def pair():
     jparams = j_init_lssvc(0)
     np_params = {k: np.asarray(v) for k, v in jparams.items()}
-    model = LSSVC(params_from_jax(np_params), device="cpu",
+    model = LSSVC(params_from_jax(np_params, "lssvc"), device="cpu",
                   od_offset_cap=OD_OFFSET_CAP_SERVING)
     model.set_scale_information(2.0, EL, (0, 0, 0, 0))
     set_od_offset_cap(OD_OFFSET_CAP_SERVING)  # read when JAX traces
@@ -83,7 +83,7 @@ def test_bridged_init_loads_strict(pair):
     _, np_params, model = pair
     sd = model.state_dict()
     assert set(sd) == set(np_params)
-    model.load_state_dict(params_from_jax(np_params), strict=True)
+    model.load_state_dict(params_from_jax(np_params, "lssvc"), strict=True)
     assert all(sd[k].numel() == np_params[k].size for k in sd)
 
 

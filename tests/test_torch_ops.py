@@ -51,7 +51,7 @@ def test_conv2d(k, stride, groups, padding):
     b = _r(rng, (cout,))
     ref = jops.conv2d(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
                       stride=stride, padding=padding, groups=groups)
-    tw = params_from_jax({"c.weight": w})["c.weight"]
+    tw = params_from_jax({"c.weight": w}, "dmc")["c.weight"]
     out = tops.conv2d(torch.from_numpy(x), tw, torch.from_numpy(b),
                       stride=stride, padding=padding, groups=groups)
     _close(out, ref)
@@ -68,7 +68,7 @@ def test_conv_transpose2d(stride, padding, output_padding):
                                 jnp.asarray(b), stride=stride,
                                 padding=padding, output_padding=output_padding)
     # DMC key: the bridge un-flips it into torch's (I, O, kH, kW)
-    tw = params_from_jax({"mv_decoder.0.weight": w})["mv_decoder.0.weight"]
+    tw = params_from_jax({"mv_decoder.0.weight": w}, "dmc")["mv_decoder.0.weight"]
     assert tuple(tw.shape) == (6, 10, 3, 3)
     out = tops.conv_transpose2d(torch.from_numpy(x), tw, torch.from_numpy(b),
                                 stride=stride, padding=padding,
@@ -160,7 +160,7 @@ def test_factorized_bits():
     bj, pj = jent.factorized_bits(
         JP({k: jnp.asarray(v) for k, v in jparams.items()}).sub("be"),
         jnp.asarray(z))
-    tparams = params_from_jax(jparams)
+    tparams = params_from_jax(jparams, "dmc")
     assert tuple(tparams["be.f1.h"].shape) == (1, c, 1, 1)
     bt, pt = tent.factorized_bits(TP(tparams).sub("be"), torch.from_numpy(z))
     _close(pt, pj)
