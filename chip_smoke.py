@@ -6,9 +6,10 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. Device: CUDA must be available; prints the card's name and power limit.
-2. Build: compiles the kernels of lssvc_tpu_torch/csrc with nvcc (sm_90a),
-   one nvcc per source, all at once; counts the tensor-core instructions
-   (HGMMA, HMMA) in conv_chain's SASS (cuobjdump), and fails without HGMMA.
+2. Build: compiles the kernels of lssvc_tpu_torch/csrc with nvcc (sm_90a)
+   and its rANS coder with g++, one compiler per source, all at once;
+   counts the tensor-core instructions (HGMMA, HMMA) in conv_chain's SASS
+   (cuobjdump), and fails without HGMMA.
 3. Main path: LSSVC from the port's random init, fp32 (TF32 off), offset cap
    10 px, EL 1152x1920 / BL 576x960 from a random decoded-picture buffer.
    A warm-up frame records the shape of every kernel launch (flow_warp,
@@ -66,11 +67,30 @@ Phases (any failure exits non-zero; nothing is caught):
 9. I-frame, CPU against card: one IntraSS frame at EL 128x128 / BL 64x64
    from the same weights on both devices; bits within 3e-3 relative,
    reconstructions within 5% relative RMS.
+10. Stream path, on phase 8's sequence and checkpoints (cap 10 px):
+   (a) the CLI in a subprocess, `python -m lssvc_tpu_torch.test ...
+   --write_stream 1 --decoding_profiling 1`: a BL and an EL .bin per
+   frame, each layer's bits in its JSON 8 x the sum of its files, encode
+   and decode seconds > 0, both layers' decode-profiling keys the JAX
+   package's stage names; (b) the same frames in this process through the
+   models (`run_test`, which calls `encode_decode`), with the warp counts
+   set to 0 just before and read just after (20 flow_warp and 2
+   grouped_warp launches per P-frame: the encoder's and the decoder's),
+   its bins byte-equal to the CLI's, its clamped DPB pictures kept as
+   8-bit 4:2:0 frames (`decode.yuv_frame`); (c) `python -m
+   lssvc_tpu_torch.decode` in a fresh subprocess on the CLI's bins, its EL
+   and BL YUV byte-equal to (b)'s frames; (d) at 1080p, for one I-frame
+   and the P-frame after it, the encoder's closed-loop DPB (`compress`)
+   equal to the decoder's (`decompress`), bit for bit.  Prints encode and
+   decode seconds per I- and P-frame, each split into host rANS seconds
+   (the C coder's calls) and the rest (device work, its launches and the
+   host copies), symbols per frame, real against phase 8's estimated bits,
+   peak memory and the launches per P-frame.
 
 Then one JSON line {"kernels": [...]}: each kernel's launches counted on its
-path (the warps on the P-frame chain of phase 3, with their GOP path and
-warp-tier path counts beside them; conv_chain on the conv-chain path of
-phase 6), its times, bound and errors.  The last line is
+path (the warps on the P-frame chain of phase 3, with their GOP path,
+stream path and warp-tier path counts beside them; conv_chain on the
+conv-chain path of phase 6), its times, bound and errors.  The last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -90,10 +110,14 @@ import torch.nn.functional as F
 
 from lssvc_tpu_torch import build
 from lssvc_tpu_torch import test as cli
+from lssvc_tpu_torch.decode import yuv_frame
 from lssvc_tpu_torch.harness import runner
 from lssvc_tpu_torch.harness.results import RESULT_KEYS
-from lssvc_tpu_torch.models import LSSVC, IntraSS
+from lssvc_tpu_torch.models import LSSVC, IntraSS, intra_ss_stream
+from lssvc_tpu_torch.models.dmc_stream import DMCExtend
 from lssvc_tpu_torch.models.init import init_intra_ss, init_lssvc
+from lssvc_tpu_torch.models.lssvc_stream import LSSVCExtend
+from lssvc_tpu_torch.native import rans
 from lssvc_tpu_torch.ops import OD_OFFSET_CAP_SERVING
 from lssvc_tpu_torch.ops import conv_chain as cc
 from lssvc_tpu_torch.ops import warp as plain
@@ -111,6 +135,15 @@ EL_HW, BL_HW, K = (1152, 1920), (576, 960), 3
 # BL 540x960 padded to 576x960; 6 frames at gop 4 are I P P P I P
 GOP_HW, GOP_EL_HW, GOP_BL_HW, GOP_FRAMES, GOP = (
     (1080, 1920), (1152, 1920), (576, 960), 6, 4)
+# the decode-profiling stages the JAX package names
+# (lssvc_tpu/models/dmc.py:262-265, lssvc_tpu/models/lssvc.py:518-521)
+JAX_STAGES = {
+    "BL": ("entropy_dec_mv_z", "mv_y_prior_dec", "entropy_dec_mv_y",
+           "mv_dec", "motion_compensation_ctx_refine", "entropy_dec_z",
+           "y_prior", "entropy_dec_y", "res_dec"),
+    "EL": ("mv_setup", "entropy_dec_mv_z", "mv_prior_dec", "entropy_dec_mv_y",
+           "mv_dec_ctx", "entropy_dec_z", "y_prior", "entropy_dec_y",
+           "spatial_prior_update", "res_dec")}
 # the FL result carries no per-plane PSNR lists
 YUV_KEYS = {"ave_i_frame_YUV_psnr", "ave_p_frame_YUV_psnr",
             "ave_all_frame_YUV_psnr"}
@@ -258,12 +291,14 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    names = ("warp", "conv_chain")
+    # the two kernel sources with nvcc, the rANS coder with g++, at once
+    names = ("warp", "conv_chain", "lssvc_rans")
     build.build_all(names)
     for name in names:
         build.load(name)
     log(f"# build: " + ", ".join(
-        f"{n}.cu {build.BUILD_SECONDS[n]:.2f} s nvcc" for n in names)
+        f"{build.library_path(n).name} {build.BUILD_SECONDS[n]:.2f} s"
+        for n in names)
         + f"; {time.perf_counter() - t0:.2f} s to build all and load")
     # the conv chain's products: tensor-core instructions in its SASS
     sass = subprocess.run(
@@ -802,40 +837,45 @@ class FrameTimer:
                 if k == kind]
 
 
-def phase_gop(flops):
+def gop_inputs(d: Path):
+    """Phase 8's sequence and checkpoints, which phase 10 codes again:
+    (config, intra checkpoint, video checkpoint) under `d`."""
+    t0 = time.perf_counter()
+    cfg = synthetic.write_dataset(d / "ds", *GOP_HW, frames=GOP_FRAMES,
+                                  gop=GOP, seed=0)
+    intra, video = d / "intra.pth", d / "video.pth"
+    torch.save(init_intra_ss(torch.Generator().manual_seed(1), 192), intra)
+    torch.save(init_lssvc(torch.Generator().manual_seed(2)), video)
+    log(f"  sequence and checkpoints written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return cfg, intra, video
+
+
+def phase_gop(flops, d, cfg, intra, video):
     """The GOP path: the port's CLI (`python -m lssvc_tpu_torch.test`,
     called in-process as `main(argv)`) codes a synthetic 1080p sequence
-    with estimated bits from `.pth` checkpoints of the port's init."""
+    with estimated bits from `.pth` checkpoints of the port's init.
+    Returns its launch counts and each layer's frame bpp."""
     log(f"# GOP path: {GOP_FRAMES} frames of {GOP_HW[1]}x{GOP_HW[0]} 8-bit "
         f"4:2:0, gop {GOP}, x2, fp32, through lssvc_tpu_torch.test")
-    with tempfile.TemporaryDirectory(prefix="gop_", dir=build.BUILD_DIR) as d:
-        d = Path(d)
-        t0 = time.perf_counter()
-        cfg = synthetic.write_dataset(d / "ds", *GOP_HW, frames=GOP_FRAMES,
-                                      gop=GOP, seed=0)
-        intra, video = d / "intra.pth", d / "video.pth"
-        torch.save(init_intra_ss(torch.Generator().manual_seed(1), 192), intra)
-        torch.save(init_lssvc(torch.Generator().manual_seed(2)), video)
-        log(f"  sequence and checkpoints written in "
-            f"{time.perf_counter() - t0:.2f} s")
-        argv = ["--test_config", str(cfg), "--i_frame_model_path", str(intra),
-                "--model_path", str(video), "--output_path", str(d / "out"),
-                "--ratios", "x2"]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        wk.flow_warp.launches = 0
-        wk.grouped_warp.launches = 0
-        t0 = time.perf_counter()
-        with FrameTimer() as timer:
-            results = cli.main(argv)
-        torch.cuda.synchronize()
-        cli_seconds = time.perf_counter() - t0
-        launches = {"flow_warp": wk.flow_warp.launches,
-                    "grouped_warp": wk.grouped_warp.launches}
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        written = {layer: json.loads((d / "out" / f"x2_{layer}.json")
-                                     .read_text())["synthetic"]["seq1"]
-                   ["video.pth"] for layer in ("BL", "EL", "FL")}
+    argv = ["--test_config", str(cfg), "--i_frame_model_path", str(intra),
+            "--model_path", str(video), "--output_path", str(d / "out"),
+            "--ratios", "x2"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wk.flow_warp.launches = 0
+    wk.grouped_warp.launches = 0
+    t0 = time.perf_counter()
+    with FrameTimer() as timer:
+        results = cli.main(argv)
+    torch.cuda.synchronize()
+    cli_seconds = time.perf_counter() - t0
+    launches = {"flow_warp": wk.flow_warp.launches,
+                "grouped_warp": wk.grouped_warp.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    written = {layer: json.loads((d / "out" / f"x2_{layer}.json")
+                                 .read_text())["synthetic"]["seq1"]
+               ["video.pth"] for layer in ("BL", "EL", "FL")}
 
     n_p = GOP_FRAMES - -(-GOP_FRAMES // GOP)
     want = {"flow_warp": 14 * n_p, "grouped_warp": n_p}
@@ -891,6 +931,285 @@ def phase_gop(flops):
         "msssim_all": {layer: res["ave_all_frame_msssim"]
                        for layer, res in written.items()}}
     log(json.dumps(out))
+    return launches, out["frame_bpp"]
+
+
+class StreamTimer:
+    """While installed: per coded frame, the wall seconds of its encode
+    and decode halves (IntraSS: `compress_stream` / `decompress_stream`;
+    a P-frame: both layers' `compress` / `decompress`), each ended by a
+    synchronize, and inside each half the seconds and symbols of the host
+    rANS calls (the C coder's encode, flush and decode)."""
+
+    def __init__(self):
+        self.frames, self.half, self.real = [], None, []
+
+    def _patch(self, owner, name, wrap):
+        self.real.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, wrap(getattr(owner, name)))
+
+    def __enter__(self):
+        for owner, name, kind in ((IntraSS, "encode_decode", "I"),
+                                  (LSSVCExtend, "encode_decode", "P")):
+            self._patch(owner, name, self._frame(kind))
+        for owner, name, half in (
+                (intra_ss_stream, "compress_stream", "enc"),
+                (intra_ss_stream, "decompress_stream", "dec"),
+                (DMCExtend, "compress", "enc"),
+                (DMCExtend, "decompress", "dec"),
+                (LSSVCExtend, "compress", "enc"),
+                (LSSVCExtend, "decompress", "dec")):
+            self._patch(owner, name, self._half(half))
+        for owner, name, counts in (
+                (rans.BufferedRansEncoder, "encode_with_indexes", True),
+                (rans.BufferedRansEncoder, "flush", False),
+                (rans.RansDecoder, "decode_stream", False)):
+            self._patch(owner, name, self._rans(counts))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real in reversed(self.real):
+            setattr(owner, name, real)
+
+    def _frame(self, kind):
+        def wrap(real):
+            def frame(*args, **kwargs):
+                self.frames.append({"type": kind, "enc_s": 0.0, "dec_s": 0.0,
+                                    "enc_rans_s": 0.0, "dec_rans_s": 0.0,
+                                    "symbols": 0})
+                return real(*args, **kwargs)
+            return frame
+        return wrap
+
+    def _half(self, half):
+        def wrap(real):
+            def timed(*args, **kwargs):
+                torch.cuda.synchronize()
+                self.half, t0 = half, time.perf_counter()
+                out = real(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.frames[-1][f"{half}_s"] += time.perf_counter() - t0
+                self.half = None
+                return out
+            return timed
+        return wrap
+
+    def _rans(self, counts):
+        def wrap(real):
+            def timed(coder, *args):
+                t0 = time.perf_counter()
+                out = real(coder, *args)
+                if self.half is not None:
+                    frame = self.frames[-1]
+                    frame[f"{self.half}_rans_s"] += time.perf_counter() - t0
+                    if counts:  # the symbols the encoder writes
+                        frame["symbols"] += np.asarray(args[0]).size
+                return out
+            return timed
+        return wrap
+
+    def summary(self, kind):
+        """Seconds per frame of `kind`, each half split into host rANS and
+        the rest; symbols per frame."""
+        frames = [f for f in self.frames if f["type"] == kind]
+        out = {}
+        for half in ("enc", "dec"):
+            total = [f[f"{half}_s"] for f in frames]
+            coder = [f[f"{half}_rans_s"] for f in frames]
+            name = "encode" if half == "enc" else "decode"
+            out[f"{name}_s"] = total
+            out[f"{name}_s_per_frame"] = sum(total) / len(frames)
+            out[f"{name}_rans_s_per_frame"] = sum(coder) / len(frames)
+            out[f"{name}_device_and_copies_s_per_frame"] = \
+                (sum(total) - sum(coder)) / len(frames)
+        out["symbols"] = [f["symbols"] for f in frames]
+        return out
+
+
+def _bins(folder):
+    """{"BL/0.bin": bytes, ...} under `folder`."""
+    return {p.relative_to(folder).as_posix(): p.read_bytes()
+            for p in sorted(folder.rglob("*.bin"))}
+
+
+def _subprocess(cmd, what):
+    torch.cuda.empty_cache()  # the child gets the card's free memory
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
+                         capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        raise AssertionError(f"{what} exited {res.returncode}:\n"
+                             f"{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
+    return time.perf_counter() - t0
+
+
+def _equal(a, b, what):
+    if a.shape != b.shape or not torch.equal(a, b):
+        raise AssertionError(f"closed loop: {what} differs between the "
+                             "encoder and the decoder")
+
+
+def phase_stream(dev, d, cfg, intra, video, estimated_bpp):
+    """Phase 10: real bitstreams of phase 8's sequence, through the CLI in
+    a subprocess, through the models in this process, decoded by the
+    decode CLI in a fresh subprocess; the closed loop at 1080p.  Returns
+    the warp launches of the in-process run."""
+    log(f"# stream path: {GOP_FRAMES} frames of {GOP_HW[1]}x{GOP_HW[0]}, "
+        f"gop {GOP}, x2, fp32, cap 10 px, --write_stream 1")
+    n_p = GOP_FRAMES - -(-GOP_FRAMES // GOP)
+    pixels = {"BL": (GOP_HW[0] // 2) * (GOP_HW[1] // 2),
+              "EL": GOP_HW[0] * GOP_HW[1]}
+
+    # (a) the CLI, in a subprocess
+    cli_bins, out = d / "bins_cli", d / "out_stream"
+    cli_s = _subprocess(
+        [sys.executable, "-m", "lssvc_tpu_torch.test", "--test_config",
+         str(cfg), "--i_frame_model_path", str(intra), "--model_path",
+         str(video), "--output_path", str(out), "--ratios", "x2",
+         "--write_stream", "1", "--decoding_profiling", "1",
+         "--stream_path", str(cli_bins)], "the stream CLI")
+    cli_bins = cli_bins / "seq1" / "0" / "x2"
+    files = _bins(cli_bins)
+    want = {f"{layer}/{i}.bin" for layer in ("BL", "EL")
+            for i in range(GOP_FRAMES)}
+    if set(files) != want:
+        raise AssertionError(f"the CLI wrote {sorted(files)}")
+    written = {layer: json.loads((out / f"x2_{layer}.json").read_text())
+               ["synthetic"]["seq1"]["video.pth"] for layer in ("BL", "EL")}
+    profiling = {}
+    for layer, res in written.items():
+        bits = 8 * sum(len(b) for k, b in files.items()
+                       if k.startswith(layer))
+        json_bits = res["ave_all_frame_bpp"] * GOP_FRAMES * pixels[layer]
+        if abs(json_bits - bits) > 1e-6 * bits:
+            raise AssertionError(f"{layer}: JSON bits {json_bits}, files "
+                                 f"{bits}")
+        if not (res["encoding_time"] > 0 and res["decoding_time"] > 0):
+            raise AssertionError(f"{layer}: encode/decode seconds {res}")
+        profiling[layer] = res["decoding_profiling"]
+        if list(profiling[layer]) != ["frames", "overall",
+                                      *JAX_STAGES[layer]]:
+            raise AssertionError(f"{layer} decode-profiling keys "
+                                 f"{list(profiling[layer])}")
+    log(f"  CLI subprocess {cli_s:.2f} s: {len(files)} bins, bits = 8 x "
+        f"file sizes, profiling keys the JAX stage names")
+
+    # (b) the same frames through the models, in this process
+    i_net = scheduler.load_intra(str(intra), dev)
+    v_net = scheduler.load_video(str(video), dev, OD_OFFSET_CAP_SERVING)
+    for net in (i_net, v_net):
+        net.update(force=True)
+    pictures = {"x_hat_bl": [], "x_hat_el": []}
+    real_copy = runner.HostCopy
+
+    def recording(tensors):  # the run's clamped DPB pictures, cropped
+        for k in pictures:
+            pictures[k].append(yuv_frame(tensors[k], (0, 0, 0, 0)))
+        return real_copy(tensors)
+
+    task = {"frame_num": GOP_FRAMES, "gop_size": GOP, "ratio": "x2",
+            "yuv_path_el": str(d / "ds" / "seq1" / "x1.yuv"),
+            "x1": {"height": GOP_HW[0], "width": GOP_HW[1]},
+            "write_stream": True, "bin_folder": str(d / "bins_api")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wk.flow_warp.launches = 0
+    wk.grouped_warp.launches = 0
+    runner.HostCopy = recording
+    t0 = time.perf_counter()
+    try:
+        with StreamTimer() as timer:
+            logs = runner.run_test(v_net, i_net, task)
+    finally:
+        runner.HostCopy = real_copy
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"flow_warp": wk.flow_warp.launches,
+                "grouped_warp": wk.grouped_warp.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"flow_warp": 20 * n_p, "grouped_warp": 2 * n_p}
+    if launches != want:
+        raise AssertionError(f"stream launch counts {launches}, expected "
+                             f"{want}")
+    api = _bins(d / "bins_api" / "x2")
+    differ = sorted(k for k in files if api.get(k) != files[k])
+    if set(api) != set(files) or differ:
+        raise AssertionError(f"in-process bins differ from the CLI's: "
+                             f"{differ or sorted(api)}")
+    log(f"  in-process run {run_s:.2f} s: {len(api)} bins byte-equal to "
+        "the CLI's")
+
+    # (c) the decode CLI, in a fresh subprocess, on the CLI's bins
+    yuv = {layer: d / f"decoded_{layer}.yuv" for layer in ("el", "bl")}
+    decode_s = _subprocess(
+        [sys.executable, "-m", "lssvc_tpu_torch.decode", "--bin_dir",
+         str(cli_bins), "--i_frame_model_path", str(intra), "--model_path",
+         str(video), "--height", str(GOP_HW[0]), "--width", str(GOP_HW[1]),
+         "--ratio", "x2", "--gop", str(GOP), "--frame_num", str(GOP_FRAMES),
+         "--yuv_out", str(yuv["el"]), "--yuv_out_bl", str(yuv["bl"])],
+        "the decode CLI")
+    for layer, path in yuv.items():
+        if path.read_bytes() != b"".join(pictures[f"x_hat_{layer}"]):
+            raise AssertionError(f"decoded {layer.upper()} YUV differs from "
+                                 "the encoder's pictures")
+    log(f"  decode subprocess {decode_s:.2f} s: EL and BL YUV byte-equal "
+        f"to the encoder's {GOP_FRAMES} frames")
+
+    # (d) the closed loop at 1080p: one I-frame, then the P-frame after it
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def uni(*shape):
+        return torch.rand((1, *shape), generator=gen, device=dev)
+
+    for net in (i_net, v_net):
+        net.set_scale_information(2.0, GOP_EL_HW, (0, 0, 0, 0))
+    x_bl, x_el = uni(*GOP_BL_HW, 3), uni(*GOP_EL_HW, 3)
+    paths = [d / "loop_bl.bin", d / "loop_el.bin"]
+    enc = intra_ss_stream.compress_stream(i_net, x_bl, x_el, *paths,
+                                          *GOP_BL_HW, *GOP_EL_HW)
+    dec = intra_ss_stream.decompress_stream(i_net, *paths)
+    for k in ("x_hat_bl", "x_hat_el", "feature_el"):
+        _equal(enc[k], dec[k], f"I-frame {k}")
+    dpb = {"ref_frame_bl": dec["x_hat_bl"].clamp(0, 1),
+           "ref_feature_bl": None,
+           "ref_frame_el": dec["x_hat_el"].clamp(0, 1),
+           "ref_feature_el": dec["feature_el"]}
+    x_bl, x_el = uni(*GOP_BL_HW, 3), uni(*GOP_EL_HW, 3)
+    bl = v_net.base_layer_model
+    enc = bl.compress(x_bl, dpb)
+    dec = bl.decompress(enc["string"], *GOP_BL_HW, dpb)
+    for k in ("ref_frame_bl", "ref_feature_bl"):
+        _equal(enc["dpb"][k], dec["dpb"][k], f"P-frame {k}")
+    dpb_el = dict(dpb, texture=dec["dpb"]["ref_feature_bl"],
+                  y_hat_bl=dec["dpb"]["y_hat_bl"],
+                  mv_hat_bl=dec["dpb"]["mv_hat_bl"])
+    enc = v_net.compress(x_el, dpb_el)
+    dec = v_net.decompress(enc["string"], *GOP_EL_HW, dpb_el)
+    for k in ("ref_frame_el", "ref_feature_el"):
+        _equal(enc["dpb"][k], dec["dpb"][k], f"P-frame {k}")
+    log("  closed loop at 1080p: I-frame and P-frame DPB of both layers "
+        "bit-equal between encoder and decoder")
+
+    real = {layer: logs[i]["frame_bpp"] for i, layer in
+            enumerate(("BL", "EL", "FL"))}
+    out = {
+        "stream_path": "lssvc_tpu_torch.test --write_stream 1 (subprocess),"
+                       " run_test -> encode_decode (in process), "
+                       "lssvc_tpu_torch.decode (fresh subprocess)",
+        "el": list(GOP_EL_HW), "bl": list(GOP_BL_HW), "frames": GOP_FRAMES,
+        "gop": GOP, "precision": "fp32", "od_offset_cap": 10.0,
+        "iframe": timer.summary("I"), "pframe": timer.summary("P"),
+        "run_test_wall_s": run_s, "wall_s_per_frame": run_s / GOP_FRAMES,
+        "cli_subprocess_s": cli_s, "decode_subprocess_s": decode_s,
+        "decode_subprocess_s_per_frame": decode_s / GOP_FRAMES,
+        "real_bpp": real, "estimated_bpp": estimated_bpp,
+        "real_over_estimated": {
+            layer: sum(real[layer]) / sum(estimated_bpp[layer])
+            for layer in real},
+        "peak_mem_gib": peak_gib, "launches": launches,
+        "launches_per_p_frame": {k: v / n_p for k, v in launches.items()},
+        "decoding_profiling_cli": profiling}
+    log(json.dumps(out))
     return launches
 
 
@@ -930,12 +1249,20 @@ def main():
     phase_cpu_vs_card(dev)
     chain_entry = phase_conv_chain(dev)
     tiers = phase_warp_tiers(dev)
-    gop_launches = phase_gop(iframe_flops(GOP_EL_HW, GOP_BL_HW))
-    phase_iframe_cpu_vs_card(dev)
+    with tempfile.TemporaryDirectory(prefix="gop_", dir=build.BUILD_DIR) as d:
+        d = Path(d)
+        gop = gop_inputs(d)
+        gop_launches, estimated_bpp = phase_gop(
+            iframe_flops(GOP_EL_HW, GOP_BL_HW), d, *gop)
+        phase_iframe_cpu_vs_card(dev)
+        stream_launches = phase_stream(dev, d, *gop, estimated_bpp)
+    n_p = GOP_FRAMES - -(-GOP_FRAMES // GOP)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_per_frame"] = launches[k["name"]] / K
         k["gop_launches"] = gop_launches[k["name"]]
+        k["stream_launches"] = stream_launches[k["name"]]
+        k["stream_launches_per_p_frame"] = stream_launches[k["name"]] / n_p
         k["warp_tier_bench"] = tiers[k["name"]]
     kernels.append(chain_entry)
     log(json.dumps({"kernels": kernels}))

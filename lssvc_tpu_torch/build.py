@@ -1,12 +1,14 @@
-"""Build the CUDA sources of `csrc/` into shared libraries, loaded with ctypes.
+"""Build the native sources of `csrc/` into shared libraries, loaded with ctypes.
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
-`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`
-at first use into `lssvc_tpu_torch/_build/` (listed in .gitignore).  The
-library's file name carries a hash of its source, so an edited source
-rebuilds; a lock file keeps concurrent processes (pytest workers) from
-building the same library at once.  `build_all` runs one nvcc per source,
-all at once.  Nothing here runs at import time.
+`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`;
+each `csrc/<name>.cpp` (host code: the rANS coder) by
+`g++ -O3 -std=c++17 -shared -fPIC`.  Both build at first use into
+`lssvc_tpu_torch/_build/` (listed in .gitignore).  The library's file name
+carries a hash of its source and flags, so an edited source rebuilds; a
+lock file keeps concurrent processes (pytest workers) from building the
+same library at once.  `build_all` runs one compiler per source, all at
+once.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 # seconds each library took to build in this process (0.0 when a built
@@ -43,15 +46,25 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _source(name: str) -> tuple[Path, tuple]:
+    """(source, flags): `csrc/<name>.cu` for nvcc, else `csrc/<name>.cpp`
+    for g++."""
+    cu = CSRC_DIR / f"{name}.cu"
+    if cu.exists():
+        return cu, NVCC_FLAGS
+    return CSRC_DIR / f"{name}.cpp", GXX_FLAGS
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
+    src, flags = _source(name)
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def build(name: str) -> Path:
-    """Compile `csrc/<name>.cu` unless a library of the same source exists."""
+    """Compile `csrc/<name>.cu` or `.cpp` unless a library of the same
+    source exists."""
     lib = library_path(name)
     if lib.exists():
         BUILD_SECONDS.setdefault(name, 0.0)
@@ -63,13 +76,14 @@ def build(name: str) -> Path:
             if not lib.exists():
                 t0 = time.perf_counter()
                 tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-                cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                       str(CSRC_DIR / f"{name}.cu")]
+                src, flags = _source(name)
+                compiler = nvcc_path() if src.suffix == ".cu" else "g++"
+                cmd = [compiler, *flags, "-o", str(tmp), str(src)]
                 proc = subprocess.run(cmd, capture_output=True, text=True)
                 if proc.returncode != 0:
                     raise RuntimeError(
-                        f"nvcc failed ({proc.returncode}) on {name}.cu:\n"
-                        f"{proc.stdout}\n{proc.stderr}")
+                        f"{Path(cmd[0]).name} failed ({proc.returncode}) on "
+                        f"{src.name}:\n{proc.stdout}\n{proc.stderr}")
                 os.replace(tmp, lib)
                 BUILD_SECONDS[name] = time.perf_counter() - t0
         finally:
@@ -79,14 +93,14 @@ def build(name: str) -> Path:
 
 
 def build_all(names) -> list[Path]:
-    """Compile several sources concurrently, one nvcc process each."""
+    """Compile several sources concurrently, one compiler process each."""
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         futures = [pool.submit(build, name) for name in names]
         return [f.result() for f in futures]
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library of `csrc/<name>.cu`, built on first use."""
+    """The built library of `csrc/<name>.cu` or `.cpp`, built on first use."""
     if name not in _LOADED:
         _LOADED[name] = ctypes.CDLL(str(build(name)))
     return _LOADED[name]

@@ -1,4 +1,5 @@
-"""Bit estimation (the JAX package's `entropy/models.py:34-150`).
+"""Bit estimation and the stream path's scale tables (the JAX package's
+`entropy/models.py:34-150,231-256`).
 
 Video side:
 
@@ -10,6 +11,10 @@ Image side (the I-frame models):
   * erfc Gaussian conditional likelihood;
   * Ballé factorized EntropyBottleneck (`_logits_cumulative`).
 
+The real-bitstream path maps each predicted scale to a row of a CDF table
+(`build_indexes_video` / `build_indexes_img`; the tables themselves are
+built in `entropy/coder.py`).
+
 Bits use the reference's clamp conventions (probs + 1e-5, bits clipped to
 [0, 50] per element).  Activations are NHWC; Bitparm parameters are held in
 the torch layout (1, C, 1, 1) and viewed as (1, 1, 1, C) here.
@@ -19,6 +24,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -131,3 +137,35 @@ def entropy_bottleneck_forward(p, x, filters=(3, 3, 3, 3),
     x_hat = outputs.reshape(c, n, h, w).permute(1, 2, 3, 0).contiguous()
     like = likelihood.reshape(c, n, h, w).permute(1, 2, 3, 0)
     return x_hat, like
+
+
+# ---------------------------------------------------------------------------
+# Scale tables and index maps (the real-bitstream path)
+
+def _log_scale_table(smin, smax, levels):
+    return np.exp(np.linspace(math.log(smin), math.log(smax),
+                              levels)).astype(np.float32)
+
+
+# video side: 256 Laplace scales in [0.01, 64] (`video_entropy_models.py:247-258`)
+GAUSSIAN_SCALE_TABLE_VIDEO = _log_scale_table(0.01, 64.0, 256)
+# image side: 64 Gaussian scales in [0.11, 256] (`img_entropy_models.py:586-596`)
+GAUSSIAN_SCALE_TABLE_IMG = _log_scale_table(0.11, 256.0, 64)
+
+
+def build_indexes_video(scales):
+    """Video-side scale -> table row (no +1 shift), int32 on the scales'
+    device."""
+    log_min = math.log(0.01)
+    step = (math.log(64.0) - log_min) / (256 - 1)
+    idx = (torch.log(torch.clamp(scales, min=1e-5)) - log_min) / step
+    return torch.clamp(idx, 0, 255).to(torch.int32)
+
+
+def build_indexes_img(scales):
+    """Image-side map, with the reference's +1 bias
+    (`img_entropy_models.py:689`)."""
+    log_min = math.log(0.11)
+    step = (math.log(256.0) - log_min) / (64 - 1)
+    idx = (torch.log(torch.clamp(scales, min=1e-5)) - log_min) / step + 1
+    return torch.clamp(idx, 0, 63).to(torch.int32)

@@ -23,10 +23,13 @@ RESULT_KEYS = [
 
 
 def filter_dict(result: dict) -> dict:
-    """Keep only the published result keys (`common.py:25-37`).  (The JAX
-    package also passes `decoding_profiling` through; the port does not
-    profile decoding yet.)"""
-    return {k: v for k, v in result.items() if k in RESULT_KEYS}
+    """Keep only the published result keys (`common.py:25-37`), and
+    `decoding_profiling` (per-stage decode seconds, under
+    `--decoding_profiling`) where present, as the JAX package does."""
+    keep = {k: v for k, v in result.items() if k in RESULT_KEYS}
+    if "decoding_profiling" in result:
+        keep["decoding_profiling"] = result["decoding_profiling"]
+    return keep
 
 
 class FrameMetrics:

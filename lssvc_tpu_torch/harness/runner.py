@@ -1,9 +1,13 @@
 """The per-sequence evaluation loop over GOPs (the JAX package's
-`harness/runner.py:29-242`), with estimated bits.
+`harness/runner.py:29-242`), with estimated bits or, under `write_stream`,
+real bitstreams.
 
 Per frame: read the EL YUV -> RGB -> pad -> MATLAB-bicubic downsample to
 the BL -> I- or P-frame coding on the device -> metrics on the host.  The
-decoded-picture buffer (DPB) stays on the device between frames.
+decoded-picture buffer (DPB) stays on the device between frames.  With
+`write_stream`, each frame writes `<bin_folder>/<ratio>/{BL,EL}/<i>.bin`
+through the models' `encode_decode`, which decodes the files again: the
+bits are the files' sizes and the DPB is the decoder's.
 
 Host metrics run one frame behind the device: right after frame i is
 enqueued, its reconstructions and bit counts are copied to pinned host
@@ -17,6 +21,7 @@ point, as it is in the JAX package.
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -32,11 +37,10 @@ from ..utils.resize import imresize
 from .results import FrameMetrics, aggregate_layer_log
 
 RATIO_FACTORS = {"x1": 1.0, "x1_5": 1.5, "x2": 2.0, "x3": 3.0, "x4": 4.0}
-# task keys of paths that are not ported yet (bitstreams, PNG artifacts,
-# decode profiling, latent RDO); run_test raises when one is set
-UNPORTED_TASK_KEYS = ("write_stream", "save_decoded_frame", "save_decoded_mv",
-                      "save_warp_frame", "save_decoded_context",
-                      "decoding_profiling", "intra_rdo")
+# task keys of paths that are not ported yet (PNG artifacts, latent RDO);
+# run_test raises when one is set
+UNPORTED_TASK_KEYS = ("save_decoded_frame", "save_decoded_mv",
+                      "save_warp_frame", "save_decoded_context", "intra_rdo")
 
 
 def _to_device_nhwc(rgb_chw: np.ndarray, device) -> torch.Tensor:
@@ -66,22 +70,21 @@ def _layer_metrics(bit, rgb_ref, y_ref, u_ref, v_ref, x_hat_chw, win_size):
 
 
 class HostCopy:
-    """One frame's outputs on their way to the host.  On a CUDA device the
-    copies into pinned buffers are enqueued at once, behind an event;
-    `get()` waits for that event only.  On the CPU the tensors are kept."""
+    """One frame's outputs on their way to the host.  The copies of CUDA
+    tensors into pinned buffers are enqueued at once, behind an event;
+    `get()` waits for that event only.  CPU tensors are kept."""
 
     def __init__(self, tensors: dict):
-        first = next(iter(tensors.values()))
+        self.host = dict(tensors)
+        on_card = [k for k, t in tensors.items() if t.device.type == "cuda"]
+        for k in on_card:
+            self.host[k] = torch.empty(tensors[k].shape,
+                                       dtype=tensors[k].dtype, pin_memory=True)
+            self.host[k].copy_(tensors[k], non_blocking=True)
         self.event = None
-        if first.device.type != "cuda":
-            self.host = tensors
-            return
-        self.host = {k: torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                     for k, t in tensors.items()}
-        for k, t in tensors.items():
-            self.host[k].copy_(t, non_blocking=True)
-        self.event = torch.cuda.Event()
-        self.event.record()
+        if on_card:
+            self.event = torch.cuda.Event()
+            self.event.record()
 
     def get(self) -> dict:
         """name -> numpy array; images as CHW (batch 0)."""
@@ -92,10 +95,11 @@ class HostCopy:
 
 
 def run_test(video_net, i_frame_net, args_dict):
-    """Code one (sequence, ratio) task with estimated bits.  Returns
-    (log_BL, log_EL, log_FL) dicts in the reference's schema.  The models
-    run on their own device (`i_frame_net.device`); `video_net` is None
-    for an all-intra run."""
+    """Code one (sequence, ratio) task.  Returns (log_BL, log_EL, log_FL)
+    dicts in the reference's schema.  The models run on their own device
+    (`i_frame_net.device`); `video_net` is None for an all-intra run.  With
+    `write_stream`, the models are `IntraSS` and `LSSVCExtend` with their
+    tables built (`update`), and `bin_folder` names where the bins go."""
     unported = [k for k in UNPORTED_TASK_KEYS if args_dict.get(k)]
     if unported:
         raise NotImplementedError(f"not ported yet: {unported}")
@@ -103,6 +107,7 @@ def run_test(video_net, i_frame_net, args_dict):
     frame_num = args_dict["frame_num"]
     gop_size = args_dict["gop_size"]
     verbose = int(args_dict.get("verbose", 0))
+    write_stream = bool(args_dict.get("write_stream"))
     ratio = args_dict["ratio"]
     scale_factor = RATIO_FACTORS[ratio]
 
@@ -119,9 +124,15 @@ def run_test(video_net, i_frame_net, args_dict):
     # the reference derives one window size from the BL height and applies
     # it to both layers' RGB MS-SSIM (`test.py:255-259`)
     win_size = 7 if hb <= 160 else 11
+    if write_stream:
+        bin_dirs = {layer: os.path.join(args_dict["bin_folder"], ratio, layer)
+                    for layer in ("BL", "EL")}
+        for folder in bin_dirs.values():
+            os.makedirs(folder, exist_ok=True)
 
     reader = YUVReader(args_dict["yuv_path_el"], we, he)
     frames_bl, frames_el, frame_types = [], [], []
+    enc_bl = dec_bl = enc_el = dec_el = 0.0
     dpb = None
     pending = None  # the previous frame, whose metrics are still to do
     start_time = time.time()
@@ -154,9 +165,17 @@ def run_test(video_net, i_frame_net, args_dict):
             video_net.set_scale_information(scale_factor, (he_pad, we_pad),
                                             (0, 0, 0, 0))
 
+        if write_stream:
+            bin_bl, bin_el = (os.path.join(bin_dirs[layer], f"{frame_idx}.bin")
+                              for layer in ("BL", "EL"))
         warp_frame = None
         if frame_idx % gop_size == 0:
-            result = i_frame_net.forward(x_bl_padded, x_el_padded)
+            if write_stream:
+                result = i_frame_net.encode_decode(
+                    x_bl_padded, x_el_padded, bin_bl, bin_el,
+                    hb_pad, wb_pad, he_pad, we_pad)
+            else:
+                result = i_frame_net.forward(x_bl_padded, x_el_padded)
             dpb = {
                 "ref_frame_bl": result["x_hat_bl"],
                 "ref_frame_el": result["x_hat_el"],
@@ -165,10 +184,19 @@ def run_test(video_net, i_frame_net, args_dict):
             }
             frame_types.append(0)
         else:
-            result = video_net.forward_one_frame(
-                x_bl_padded, x_el_padded, dpb["ref_frame_bl"],
-                dpb["ref_frame_el"], dpb["ref_feature_bl"],
-                dpb["ref_feature_el"])
+            if write_stream:
+                result = video_net.encode_decode(
+                    x_bl_padded, x_el_padded, dpb, bin_bl, bin_el,
+                    we_pad, he_pad, wb_pad, hb_pad)
+                enc_bl += result["encoding_time_BL"]
+                dec_bl += result["decoding_time_BL"]
+                enc_el += result["encoding_time_EL"]
+                dec_el += result["decoding_time_EL"]
+            else:
+                result = video_net.forward_one_frame(
+                    x_bl_padded, x_el_padded, dpb["ref_frame_bl"],
+                    dpb["ref_frame_el"], dpb["ref_feature_bl"],
+                    dpb["ref_feature_el"])
             dpb = result["dpb"]
             warp_frame = result.get("warp_frame")
             frame_types.append(1)
@@ -178,7 +206,9 @@ def run_test(video_net, i_frame_net, args_dict):
         ref_bl = dpb["ref_frame_bl"].clamp_(0, 1)
         ref_el = dpb["ref_frame_el"].clamp_(0, 1)
         outputs = {
-            "bit_bl": result["bit_bl"], "bit_el": result["bit_el"],
+            # a stream's bits are ints (file sizes), estimated ones tensors
+            "bit_bl": torch.as_tensor(result["bit_bl"]),
+            "bit_el": torch.as_tensor(result["bit_el"]),
             "x_hat_bl": pad_nhwc(ref_bl, inverse_padding_size(p_size_bl)),
             "x_hat_el": pad_nhwc(ref_el, inverse_padding_size(p_size_el))}
         if verbose and warp_frame is not None:
@@ -197,11 +227,12 @@ def run_test(video_net, i_frame_net, args_dict):
 
     pixel_bl, pixel_el = hb * wb, he * we
     log_bl = aggregate_layer_log(frames_bl, frame_types, pixel_bl, test_time,
-                                 0.0, 0.0)
+                                 enc_bl, dec_bl)
     log_el = aggregate_layer_log(frames_el, frame_types, pixel_el, test_time,
-                                 0.0, 0.0)
+                                 enc_el, dec_el)
     bits_fl = [b.bit + e.bit for b, e in zip(frames_bl, frames_el)]
     log_fl = aggregate_layer_log(frames_el, frame_types, pixel_el, test_time,
-                                 0.0, 0.0, include_yuv_list=False,
+                                 enc_bl + enc_el, dec_bl + dec_el,
+                                 include_yuv_list=False,
                                  bits_override=bits_fl)
     return log_bl, log_el, log_fl

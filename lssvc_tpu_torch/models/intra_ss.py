@@ -1,12 +1,14 @@
 """IntraSS — the spatially scalable intra codec (the JAX package's
-`models/intra_ss.py:41-213`, estimated bits): the base layer is IntraNoAR,
+`models/intra_ss.py`): the base layer is IntraNoAR,
 and the enhancement layer codes the high-resolution frame conditioned on
 
   (a) multi-scale texture contexts mined from the decoded BL image, and
   (b) a layer prior resampled from the BL latent, fused with the EL
       hyperprior (reference `IntraSS.py:74-336`).
 
-Plain PyTorch: the JAX package runs it as XLA and reaches no Pallas kernel.
+Estimated bits here (`forward`); real bitstreams in `intra_ss_stream.py`
+(`update`, `encode_decode`).  Plain PyTorch: the JAX package runs it as
+XLA and reaches no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import math
 import torch
 
 from ..convert import P
+from ..entropy.coder import IntraCoder
 from ..entropy.models import (
     entropy_bottleneck_forward,
     gaussian_conditional_likelihood,
@@ -160,6 +163,7 @@ class IntraSS(Model):
              if k.startswith(BL_PREFIX)}, device=device)
         self.shape_hr = (256, 256)
         self.pad_size = (0, 0, 0, 0)
+        self._coder = None  # the EL's, built by update()
 
     def set_scale_information(self, scale, shape_hr, pad_size):
         """The video model's signature; the EL's grid is `shape_hr`, so
@@ -167,12 +171,33 @@ class IntraSS(Model):
         self.shape_hr = tuple(int(v) for v in shape_hr)
         self.pad_size = tuple(int(v) for v in pad_size)
 
+    def el_params(self) -> dict:
+        return {k: v for k, v in self.named_parameters()
+                if not k.startswith(BL_PREFIX)}
+
     @torch.no_grad()
     def forward(self, x_bl, x_el, rdo=False):
         if rdo:
             raise NotImplementedError(
                 "latent RDO on the base layer (models/rdo.py) is not ported")
-        el_params = {k: v for k, v in self.named_parameters()
-                     if not k.startswith(BL_PREFIX)}
-        return forward(el_params, self.base_layer_model.flat_params(), x_bl,
-                       x_el, self.shape_hr, self.pad_size)
+        return forward(self.el_params(), self.base_layer_model.flat_params(),
+                       x_bl, x_el, self.shape_hr, self.pad_size)
+
+    def update(self, force=False):
+        """Build both layers' CDF tables (once, or again with `force`)."""
+        if self._coder is None or force:
+            self._coder = IntraCoder(self.el_params())
+            self.base_layer_model.update(force=force)
+
+    def encode_decode(self, x_bl, x_el, bin_path_bl, bin_path_el,
+                      pic_height_bl, pic_width_bl, pic_height_el,
+                      pic_width_el):
+        """Write the BL and EL streams, then decode both files: bits from
+        the file sizes, and the decoded pictures."""
+        from .intra_ss_stream import compress_stream, decompress_stream
+
+        enc = compress_stream(self, x_bl, x_el, bin_path_bl, bin_path_el,
+                              pic_height_bl, pic_width_bl, pic_height_el,
+                              pic_width_el)
+        dec = decompress_stream(self, bin_path_bl, bin_path_el)
+        return dict(dec, bit_bl=enc["bit_bl"], bit_el=enc["bit_el"])

@@ -58,6 +58,8 @@ from .lssvc_blocks import (
     texture_resampler,
 )
 
+BL_PREFIX = "base_layer_model."
+
 
 def mv_ctx_prior_encoder(p, mv_upsample):
     """4x stride-2 conv+GDN on the upsampled BL motion (`LSSVC_net.py:108-116`)."""
@@ -233,8 +235,8 @@ def forward_one_frame(params, x_bl, x_el, ref_frame_bl, ref_frame_el,
                       ref_feature_bl, ref_feature_el, shape_hr, scale_factor,
                       pad_size, od_offset_cap=None):
     """Two-layer P-frame forward (`LSSVC_net.py:445-528`)."""
-    bl_params = {k[len("base_layer_model."):]: v for k, v in params.items()
-                 if k.startswith("base_layer_model.")}
+    bl_params = {k[len(BL_PREFIX):]: v for k, v in params.items()
+                 if k.startswith(BL_PREFIX)}
     bl = dmc.forward_inter(bl_params, x_bl, ref_frame_bl, ref_feature_bl)
 
     texture = pad_nhwc(bl["feature"], pad_size)
@@ -263,14 +265,22 @@ def forward_one_frame(params, x_bl, x_el, ref_frame_bl, ref_frame_el,
 
 class LSSVC(Model):
     """Two-layer P-frame codec on `device` (default "cuda"; raises without
-    CUDA unless "cpu" is asked for).
+    CUDA unless "cpu" is asked for).  The `base_layer_model.` keys form
+    the submodule `base_layer_model`, a `BASE_LAYER` (DMC), so
+    `state_dict()` has the reference's keys.
 
     `od_offset_cap` clips OffsetDiversity's diversity offsets (px): None
     leaves them uncapped, `ops.nn.OD_OFFSET_CAP_SERVING` is the serving
     preset."""
 
+    BASE_LAYER = dmc.DMC
+
     def __init__(self, params: dict, device="cuda", od_offset_cap=None):
-        super().__init__(params, device=device)
+        super().__init__({k: v for k, v in params.items()
+                          if not k.startswith(BL_PREFIX)}, device=device)
+        self.base_layer_model = self.BASE_LAYER(
+            {k[len(BL_PREFIX):]: v for k, v in params.items()
+             if k.startswith(BL_PREFIX)}, device=device)
         self.od_offset_cap = od_offset_cap
         self.shape_hr = (256, 256)
         self.scale_factor = 2.0

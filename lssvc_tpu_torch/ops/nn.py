@@ -10,18 +10,28 @@ result permuted back is contiguous NHWC again.
 from __future__ import annotations
 
 import contextlib
+import functools
+import os
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 
 def set_fp32_parity():
-    """The fp32 parity mode: full-fp32 convolutions and matmuls.
+    """The fp32 parity mode: full-fp32, deterministic convolutions and
+    matmuls.
 
     cuDNN runs fp32 convolutions in TF32 by default (about three decimal
     digits); the JAX package runs them at `Precision.HIGHEST`."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # A stream's encoder and decoder (another process) must compute each
+    # conv bit for bit alike: cuDNN's heuristic, never its timed choice,
+    # and only algorithms that sum in a fixed order (`conv_transpose2d`
+    # takes forward convs for the same reason)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
 
 
 @contextlib.contextmanager
@@ -43,6 +53,14 @@ def fp32_matmul():
 # Here it is an explicit attribute of the model (`LSSVC.od_offset_cap`);
 # None leaves the offsets uncapped, as training does.
 OD_OFFSET_CAP_SERVING = 10.0
+
+
+def od_offset_cap_from_env():
+    """The CLIs' cap: `LSSVC_OD_OFFSET_CAP` px, read as the JAX package's
+    CLI reads it (`ops/nn.py:106,123`): 10 by default, no cap for 0 or an
+    empty value."""
+    value = os.environ.get("LSSVC_OD_OFFSET_CAP", "10")
+    return float(value) if value and float(value) else None
 
 
 def _nchw(x):
@@ -73,12 +91,47 @@ def conv2d(x, w, b=None, stride=1, padding=None, groups=1):
                           groups=groups))
 
 
+# A stride-2 3x3 transposed conv (padding 1, output padding 1) as one 2x2
+# conv to 4x the channels and a pixel shuffle: output row 2m takes input
+# row m through kernel row 1; output row 2m+1 takes rows m and m+1 through
+# kernel rows 2 and 0 (and the same along columns).  Keys (phase, input
+# offset) -> kernel index; the other pairs are zero taps.
+_DECONV_TAPS = {(0, 0): 1, (1, 0): 2, (1, 1): 0}
+
+
+@functools.lru_cache(maxsize=None)
+def _deconv_gather(device) -> torch.Tensor:
+    """(a, b, di, dj) flattened -> the 3x3 tap feeding it (9: zero), on
+    `device`."""
+    gather = np.full((2, 2, 2, 2), 9, np.int64)
+    for (a, di), ti in _DECONV_TAPS.items():
+        for (b, dj), tj in _DECONV_TAPS.items():
+            gather[a, b, di, dj] = 3 * ti + tj
+    return torch.from_numpy(gather.reshape(-1)).to(device)
+
+
 def conv_transpose2d(x, w, b=None, stride=2, padding=1, output_padding=1):
-    """torch ConvTranspose2d on NHWC `x`; w is the un-flipped (I, O, kH, kW)
-    weight."""
-    return _nhwc(F.conv_transpose2d(_nchw(x), w, b, stride=stride,
-                                    padding=padding,
-                                    output_padding=output_padding))
+    """torch ConvTranspose2d on NHWC `x`; w is the un-flipped (I, O, 3, 3)
+    weight.  Computed as forward convolutions (stride 1: the flipped,
+    transposed kernel; stride 2: `_DECONV_TAPS`), whose cuDNN algorithms
+    all sum in a fixed order: its transposed-conv algorithm 0 adds with
+    atomics, so a stream's encoder and decoder could disagree in the last
+    bit.  Only the models' two configurations are taken."""
+    cin, cout, kh, kw = w.shape
+    if (kh, kw, padding) == (3, 3, 1) and (stride, output_padding) == (1, 0):
+        return conv2d(x, w.permute(1, 0, 2, 3).flip(2, 3), b)
+    if (kh, kw, padding) != (3, 3, 1) or (stride, output_padding) != (2, 1):
+        raise ValueError(f"conv_transpose2d of a {kh}x{kw} kernel, stride "
+                         f"{stride}, padding {padding}, output padding "
+                         f"{output_padding}: not a configuration of the models")
+    taps = torch.cat([w.reshape(cin, cout, 9), w.new_zeros(cin, cout, 1)], -1)
+    # (I, O, a, b, di, dj) -> (O, a, b, I, di, dj): out channel o*4 + 2a + b,
+    # pixel_shuffle's order
+    w2 = taps[:, :, _deconv_gather(w.device)].reshape(cin, cout, 2, 2, 2, 2) \
+        .permute(1, 2, 3, 0, 4, 5).reshape(4 * cout, cin, 2, 2)
+    b2 = None if b is None else b.repeat_interleave(4)
+    return pixel_shuffle(conv2d(pad_nhwc(x, (0, 1, 0, 1)), w2, b2,
+                                padding=0), 2)
 
 
 def pixel_shuffle(x, r: int):

@@ -2,8 +2,10 @@
 `parallel/scheduler.py:27-112`, one worker).
 
 Models are cached per checkpoint path, so a sweep over
-(dataset x ratio x sequence) loads each network once.  Tasks run one after
-another on one device; a pool of workers (one a GPU) is a later step.
+(dataset x ratio x sequence) loads each network once.  Under
+`write_stream` a model builds its CDF tables on load, and its bins go to
+`<stream_path>/<sequence>/<model_idx>/<ratio>/{BL,EL}/`.  Tasks run one
+after another on one device; a pool of workers (one a GPU) is a later step.
 """
 
 from __future__ import annotations
@@ -16,9 +18,9 @@ import torch
 
 from ..convert import params_from_jax
 from ..harness.runner import run_test
-from ..models import LSSVC, IntraSS
+from ..models import IntraSS
 from ..models.init import init_intra_ss, init_lssvc
-from ..ops import OD_OFFSET_CAP_SERVING
+from ..models.lssvc_stream import LSSVCExtend
 
 BL_CHANNEL_KEY = "base_layer_model.g_s.0.conv1.weight"
 
@@ -74,17 +76,20 @@ def load_intra(path: str, device) -> IntraSS:
     return IntraSS(_checked(sd, shapes, path), device=device)
 
 
-def load_video(path: str, device) -> LSSVC:
-    """LSSVC with the serving offset cap (the JAX CLI's preset)."""
+def load_video(path: str, device, od_offset_cap) -> LSSVCExtend:
+    """LSSVCExtend with OffsetDiversity's cap `od_offset_cap` (px, None for
+    no cap)."""
     params = _checked(_state_dict(path, "lssvc"), _shapes(init_lssvc), path)
-    return LSSVC(params, device=device, od_offset_cap=OD_OFFSET_CAP_SERVING)
+    return LSSVCExtend(params, device=device, od_offset_cap=od_offset_cap)
 
 
 class Runner:
-    """Runs tasks on one device, loading each checkpoint once."""
+    """Runs tasks on one device, loading each checkpoint once; the video
+    models take OffsetDiversity's cap `od_offset_cap`."""
 
-    def __init__(self, device):
+    def __init__(self, device, od_offset_cap):
         self.device = device
+        self.od_offset_cap = od_offset_cap
         self.models = {}
 
     def _models(self, task):
@@ -93,7 +98,12 @@ class Runner:
         if key not in self.models:
             intra = load_intra(task["i_frame_model_path"], self.device)
             video = (None if task.get("force_intra")
-                     else load_video(task["video_model_path"], self.device))
+                     else load_video(task["video_model_path"], self.device,
+                                     self.od_offset_cap))
+            if task.get("write_stream"):
+                for model in (intra, video):
+                    if model is not None:
+                        model.update(force=True)
             self.models[key] = (intra, video)
         return self.models[key]
 
@@ -101,8 +111,22 @@ class Runner:
         i_frame_net, video_net = self._models(task)
         sub_dir = task["video_path"]
         task = dict(task, gop_size=task["gop"], yuv_path_el=os.path.join(
-            task["dataset_path"], sub_dir, "x1.yuv"))
+            task["dataset_path"], sub_dir, "x1.yuv"),
+            bin_folder=os.path.join(task.get("stream_path", "out_bin"),
+                                    sub_dir, str(task.get("model_idx", 0))))
+        # per-stage decode seconds of both layers, streams only
+        profiling = (task.get("decoding_profiling") and video_net is not None
+                     and task.get("write_stream"))
+        if profiling:
+            for model in (video_net.base_layer_model, video_net):
+                model.profile_decoding = True
+                model.reset_decoding_profiling()
         res_bl, res_el, res_fl = run_test(video_net, i_frame_net, task)
+        if profiling:
+            res_bl["decoding_profiling"] = \
+                video_net.base_layer_model.get_average_decoding_profiling()
+            res_el["decoding_profiling"] = \
+                video_net.get_average_decoding_profiling()
         name = (f"{os.path.basename(task.get('video_model_path', 'intra'))}"
                 f"_{sub_dir}")
         for res in (res_bl, res_el, res_fl):

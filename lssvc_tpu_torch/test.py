@@ -1,14 +1,18 @@
 """Evaluation CLI of the port (the JAX package's `test.py`): the same flags,
 the same test-config JSON schema and the same `{ratio}_{BL,EL,FL}.json`
-results, with estimated bits.
+results, with estimated bits or, with `--write_stream 1`, real bitstreams.
 
     python -m lssvc_tpu_torch.test --test_config cfg.json \\
         --i_frame_model_path intra.pth --model_path video.pth \\
-        --output_path out --ratios x2 [--device cpu]
+        --output_path out --ratios x2 [--device cpu] \\
+        [--write_stream 1 --stream_path bins [--decoding_profiling 1]]
 
-Runs on `cuda` unless `--device` says otherwise.  Flags of paths that are
-not ported yet (real bitstreams, latent RDO, other precisions, PNG
-artifacts, decode profiling, more than one worker) raise.
+Runs on `cuda` unless `--device` says otherwise.  Streams go to
+`<stream_path>/<sequence>/<model_idx>/<ratio>/{BL,EL}/<frame>.bin`, and
+`python -m lssvc_tpu_torch.decode` decodes them.  OffsetDiversity's
+offset cap is `LSSVC_OD_OFFSET_CAP` px (10 unless set; 0 or empty: no
+cap).  Flags of paths that are not ported yet (latent RDO, other
+precisions, PNG artifacts, more than one worker) raise.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import os
 import time
 
 from .harness.results import filter_dict
+from .ops.nn import od_offset_cap_from_env
 from .parallel.scheduler import Runner
 from .utils.platform import resolve_device
 
@@ -95,7 +100,6 @@ def parse_args(argv=None):
 def refuse_unported(args):
     """Raise on a flag whose path is not ported yet."""
     unported = [flag for flag, on in (
-        ("--write_stream", args.write_stream),
         ("--intra_rdo", args.intra_rdo),
         ("--precision " + args.precision, args.precision != "fp32"),
         ("--int8_calib", args.int8_calib is not None),
@@ -103,7 +107,6 @@ def refuse_unported(args):
         ("--save_decoded_mv", args.save_decoded_mv),
         ("--save_warp_frame", args.save_warp_frame),
         ("--save_decoded_context", args.save_decoded_context),
-        ("--decoding_profiling", args.decoding_profiling),
         (f"--worker {args.worker}", args.worker > 1)) if on]
     if unported:
         raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
@@ -111,7 +114,7 @@ def refuse_unported(args):
 
 def build_tasks(args, config):
     """One task per (dataset, ratio, sequence, model), as the JAX CLI
-    builds them (estimated bits only)."""
+    builds them."""
     tasks = []
     for ds_name in config:
         if config[ds_name]["test"] == 0:
@@ -139,8 +142,11 @@ def build_tasks(args, config):
                                       if args.force_frame_num > 0
                                       else seq_cfg["frames"]),
                         "dataset_path": config[ds_name]["base_path"],
+                        "write_stream": args.write_stream,
+                        "stream_path": args.stream_path,
                         "ds_name": ds_name,
                         "verbose": args.verbose,
+                        "decoding_profiling": args.decoding_profiling,
                     })
     return tasks
 
@@ -195,7 +201,7 @@ def main(argv=None):
     with open(args.test_config) as f:
         config = json.load(f)
     tasks = build_tasks(args, config)
-    results = Runner(device).run_tasks(tasks)
+    results = Runner(device, od_offset_cap_from_env()).run_tasks(tasks)
     write_results(args, config, results)
 
     count_frames = sum({(t["ds_name"], t["video_path"]): t["frame_num"]

@@ -1,4 +1,4 @@
-"""Which path the I-frame's fp32 3x3 convolutions can take on the GPU.
+"""Which path the codec's fp32 convolutions can take on the GPU.
 
     python -m lssvc_tpu_torch.tools.conv_paths
 
@@ -18,8 +18,15 @@ Each path's output is held to a float64 conv of the same inputs (max
 |err| over max |ref|).  Then one 1080p IntraSS I-frame (BL 192 channels,
 random init, seed 0) runs under `port`, `benchmark` and `no_cudnn`: its
 device span (CUDA events, after one warm-up frame), its bits and the
-relative RMS of its EL reconstruction against the `port` frame.  Prints one
-JSON line.  Needs a CUDA device.
+relative RMS of its EL reconstruction against the `port` frame.  Last,
+one 1080p two-layer P-frame (LSSVC, random init, seed 0, cap 10 px) with
+the DMC's transposed convs as the port runs them (forward convs, cuDNN
+in its deterministic mode, which a stream's closed loop needs) and as
+cuDNN's transposed-conv algorithms (deterministic mode off: algorithm 0
+adds with atomics), in turns (cuDNN, port, port, cuDNN; 3 frames each
+after a warm-up): s per frame, and whether the frame run twice gives the
+same bits.
+Prints one JSON line.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -30,9 +37,9 @@ import json
 import torch
 import torch.nn.functional as F
 
-from ..models import IntraSS
-from ..models.init import init_intra_ss
-from ..ops import conv2d
+from ..models import LSSVC, IntraSS, components
+from ..models.init import init_intra_ss, init_lssvc
+from ..ops import OD_OFFSET_CAP_SERVING, conv2d
 from ..ops.nn import set_fp32_parity
 from .timing import card, require_cuda, time_ms
 
@@ -42,9 +49,10 @@ SHAPES = [(192, 192, 144, 240), (192, 192, 288, 480), (192, 192, 72, 120),
           (192, 768, 144, 240), (64, 64, 576, 960), (64, 64, 1152, 1920)]
 
 
-def _cudnn(enabled=True, benchmark=False):
+def _cudnn(enabled=True, benchmark=False, deterministic=True):
     return torch.backends.cudnn.flags(enabled=enabled, benchmark=benchmark,
-                                      deterministic=False, allow_tf32=False)
+                                      deterministic=deterministic,
+                                      allow_tf32=False)
 
 
 MODES = {"port": lambda: _cudnn(),
@@ -115,6 +123,53 @@ def iframe_modes(dev) -> dict:
     return out
 
 
+def _cudnn_transposed(x, w, b=None, stride=2, padding=1,
+                      output_padding=1):
+    """The DMC's transposed convs as cuDNN's own (nondeterministic)
+    algorithms run them: the port's path before it took forward convs."""
+    return F.conv_transpose2d(
+        x.permute(0, 3, 1, 2), w, b, stride=stride, padding=padding,
+        output_padding=output_padding).permute(0, 2, 3, 1).contiguous()
+
+
+def pframe_deconv_paths(dev) -> dict:
+    """One 1080p P-frame with the DMC's transposed convs as the port runs
+    them (forward convs, cuDNN deterministic) and as cuDNN's transposed
+    convs (deterministic mode off), in turns."""
+    model = LSSVC(init_lssvc(torch.Generator().manual_seed(0)), device=dev,
+                  od_offset_cap=OD_OFFSET_CAP_SERVING)
+    model.set_scale_information(2.0, EL_HW, (0, 0, 0, 0))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    args = [torch.rand((1, *hw, c), generator=gen, device=dev)
+            for hw, c in ((BL_HW, 3), (EL_HW, 3), (BL_HW, 3), (EL_HW, 3),
+                          (BL_HW, 64), (EL_HW, 48))]
+    paths = {"port": (components.conv_transpose2d, MODES["port"]),
+             "cudnn_transposed": (_cudnn_transposed,
+                                  lambda: _cudnn(deterministic=False))}
+    out = {name: {"s_per_frame": [], "repeats_equal": True}
+           for name in paths}
+    port_fn = components.conv_transpose2d
+    try:
+        for name in ("cudnn_transposed", "port", "port", "cudnn_transposed"):
+            components.conv_transpose2d, mode = paths[name]
+            with mode():
+                first = model.forward_one_frame(*args)["dpb"]
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(3):
+                    again = model.forward_one_frame(*args)["dpb"]
+                end.record()
+                torch.cuda.synchronize()
+            out[name]["s_per_frame"].append(start.elapsed_time(end) / 3e3)
+            out[name]["repeats_equal"] &= all(
+                torch.equal(first[k], again[k]) for k in first)
+    finally:
+        components.conv_transpose2d = port_fn
+    return out
+
+
 def main():
     dev = require_cuda()
     set_fp32_parity()
@@ -123,7 +178,8 @@ def main():
     print(json.dumps({"card": card(), "precision": "fp32, TF32 off",
                       "torch": torch.__version__,
                       "cudnn": torch.backends.cudnn.version(),
-                      "convs": convs, "iframe": iframe_modes(dev)}),
+                      "convs": convs, "iframe": iframe_modes(dev),
+                      "pframe": pframe_deconv_paths(dev)}),
           flush=True)
 
 

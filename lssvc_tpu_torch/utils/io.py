@@ -1,5 +1,5 @@
-"""Raw 8-bit YUV 4:2:0 planar reader (the JAX package's `utils/io.py`
-`YUVReader`, as the GOP loop reads; numpy only).
+"""Raw 8-bit YUV 4:2:0 planar reader and writer (the JAX package's
+`utils/io.py` `YUVReader` and `YUVWriter`; numpy only).
 
 The reference's file format (`src/utils/video_reader.py`): one frame is a
 W x H Y plane, then the U and V planes at half width and height, values
@@ -35,6 +35,24 @@ class YUVReader:
         uv = np.frombuffer(uv, dtype=np.uint8).reshape(
             2, self.height // 2, self.width // 2).astype(np.float32) / 255
         return y, uv
+
+    def close(self):
+        self.file.close()
+
+
+class YUVWriter:
+    """Writes 8-bit 4:2:0 frames, each a W x H Y plane then the U and V
+    planes at half width and height (`decode.yuv_frame` makes them)."""
+
+    def __init__(self, dst_path, width, height):
+        self.frame_size = width * height * 3 // 2
+        self.file = open(dst_path, "wb")
+
+    def write_one_frame(self, frame: bytes):
+        if len(frame) != self.frame_size:
+            raise ValueError(f"a frame of {len(frame)} bytes, expected "
+                             f"{self.frame_size}")
+        self.file.write(frame)
 
     def close(self):
         self.file.close()

@@ -5,17 +5,29 @@ Marked `cuda`: each test skips on a host without CUDA.  On a GPU host,
 lssvc_tpu_torch/csrc and runs them; nothing here imports JAX.
 """
 
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+from lssvc_tpu_torch import test as cli
+from lssvc_tpu_torch.decode import yuv_frame
+from lssvc_tpu_torch.harness import runner
 from lssvc_tpu_torch.models import LSSVC, IntraSS
 from lssvc_tpu_torch.models.init import init_intra_ss, init_lssvc
+from lssvc_tpu_torch.models.intra_ss_stream import (compress_stream,
+                                                    decompress_stream)
+from lssvc_tpu_torch.models.lssvc_stream import LSSVCExtend
+from lssvc_tpu_torch.tools.synthetic import write_dataset
 from lssvc_tpu_torch.ops import conv_chain as cc
 from lssvc_tpu_torch.ops import warp as plain
 from lssvc_tpu_torch.ops import warp_kernels as wk
 
 pytestmark = pytest.mark.cuda
+REPO = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
@@ -269,3 +281,94 @@ def test_conv_chain_rejects_what_the_kernel_does_not_take(dev):
         chain(torch.zeros((1, 5, 6, 3), device=dev))
     with pytest.raises(ValueError):
         cc.ConvChain(specs * 10, 4, torch.float32, dev)  # past 64 layers
+
+
+def _equal(a, b, what):
+    assert a.shape == b.shape and torch.equal(a, b), what
+
+
+def test_stream_closed_loop_of_each_model(dev, tmp_path):
+    """On the card, each model's stream encoder returns its decoder's
+    pictures bit for bit: IntraNoAR at 64x64, IntraSS at EL 128x128 / BL
+    64x64, DMC at 64x64 and LSSVC at EL 128x128 / BL 64x64 (through the
+    warp kernels)."""
+    rng = np.random.default_rng(9)
+
+    def a(*shape):
+        return torch.from_numpy(rng.random((1, *shape), np.float32)).to(dev)
+
+    intra = IntraSS(init_intra_ss(torch.Generator().manual_seed(1), 192),
+                    device=dev)
+    intra.set_scale_information(2.0, (128, 128), (0, 0, 0, 0))
+    intra.update()
+    x_bl, x_el = a(64, 64, 3), a(128, 128, 3)
+    bl = intra.base_layer_model
+    enc = bl.compress(x_bl, with_recon=True)
+    dec = bl.decompress(enc["strings"], enc["shape"])
+    for k in ("x_hat", "y_hat"):
+        _equal(enc[k], dec[k], f"IntraNoAR {k}")
+    paths = [tmp_path / "bl.bin", tmp_path / "el.bin"]
+    enc = compress_stream(intra, x_bl, x_el, *paths, 64, 64, 128, 128)
+    dec = decompress_stream(intra, *paths)
+    for k in ("x_hat_bl", "x_hat_el", "feature_el"):
+        _equal(enc[k], dec[k], f"IntraSS {k}")
+
+    video = LSSVCExtend(init_lssvc(torch.Generator().manual_seed(2)),
+                        device=dev, od_offset_cap=10.0)
+    video.set_scale_information(2.0, (128, 128), (0, 0, 0, 0))
+    video.update()
+    dpb = {"ref_frame_bl": a(64, 64, 3), "ref_feature_bl": a(64, 64, 64),
+           "ref_frame_el": a(128, 128, 3), "ref_feature_el": a(128, 128, 48)}
+    counts = (wk.flow_warp.launches, wk.grouped_warp.launches)
+    enc_bl = video.base_layer_model.compress(x_bl, dpb)
+    dec_bl = video.base_layer_model.decompress(enc_bl["string"], 64, 64, dpb)
+    for k in ("ref_frame_bl", "ref_feature_bl", "y_hat_bl", "mv_hat_bl"):
+        _equal(enc_bl["dpb"][k], dec_bl["dpb"][k], f"DMC {k}")
+    dpb_el = dict(dpb, texture=dec_bl["dpb"]["ref_feature_bl"],
+                  y_hat_bl=dec_bl["dpb"]["y_hat_bl"],
+                  mv_hat_bl=dec_bl["dpb"]["mv_hat_bl"])
+    enc_el = video.compress(x_el, dpb_el)
+    dec_el = video.decompress(enc_el["string"], 128, 128, dpb_el)
+    for k in ("ref_frame_el", "ref_feature_el"):
+        _equal(enc_el["dpb"][k], dec_el["dpb"][k], f"LSSVC {k}")
+    # each layer's encoder and decoder run SpyNet's 4 and the 3 context
+    # warps (the decoders only the 3), the EL's OffsetDiversity one each
+    assert (wk.flow_warp.launches - counts[0],
+            wk.grouped_warp.launches - counts[1]) == (20, 2)
+
+
+def test_card_stream_decodes_in_a_fresh_process(dev, tmp_path, monkeypatch):
+    """The CLI writes a 120x104 3-frame GOP's streams on the card; the
+    decode CLI, in a fresh process on the card, rebuilds the run's EL and
+    BL pictures byte for byte."""
+    h, w, frames = 104, 120, 3
+    cfg = write_dataset(tmp_path / "ds", h, w, frames=frames, gop=3, seed=5)
+    intra, video = tmp_path / "intra.pth", tmp_path / "video.pth"
+    torch.save(init_intra_ss(torch.Generator().manual_seed(1), 192), intra)
+    torch.save(init_lssvc(torch.Generator().manual_seed(2)), video)
+    pictures = {"x_hat_bl": [], "x_hat_el": []}
+    real_copy = runner.HostCopy
+
+    def recording(tensors):
+        for k in pictures:
+            pictures[k].append(tensors[k].clone())
+        return real_copy(tensors)
+
+    monkeypatch.setattr(runner, "HostCopy", recording)
+    cli.main(["--test_config", str(cfg), "--i_frame_model_path", str(intra),
+              "--model_path", str(video), "--output_path",
+              str(tmp_path / "out"), "--ratios", "x2", "--write_stream", "1",
+              "--stream_path", str(tmp_path / "bins")])
+    dec = subprocess.run(
+        [sys.executable, "-m", "lssvc_tpu_torch.decode", "--bin_dir",
+         str(tmp_path / "bins" / "seq1" / "0" / "x2"), "--i_frame_model_path",
+         str(intra), "--model_path", str(video), "--height", str(h),
+         "--width", str(w), "--ratio", "x2", "--gop", "3", "--frame_num",
+         str(frames), "--yuv_out", str(tmp_path / "el.yuv"), "--yuv_out_bl",
+         str(tmp_path / "bl.yuv")], cwd=REPO, capture_output=True, text=True,
+        timeout=600)
+    assert dec.returncode == 0, dec.stderr
+    for layer in ("el", "bl"):
+        want = b"".join(yuv_frame(x, (0, 0, 0, 0))
+                        for x in pictures[f"x_hat_{layer}"])
+        assert (tmp_path / f"{layer}.yuv").read_bytes() == want, layer

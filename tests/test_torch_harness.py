@@ -8,11 +8,16 @@ JAX package's `init_intra_ss(192)` / `init_lssvc(0)` bridged by
 `params_from_jax`.  Per frame: bits within 3e-3 relative, PSNRs within 0.1
 dB, MS-SSIM within 5e-3 or NaN on both sides; equal frame types and key
 sets.  Then the CLI (`python -m lssvc_tpu_torch.test`) on the CPU from
-`.pth` checkpoints of the port's own init, and the flags it refuses.
+`.pth` checkpoints of the port's own init, with estimated bits and with
+real bitstreams decoded again by `python -m lssvc_tpu_torch.decode` in a
+fresh process, and the flags it refuses.
 """
 
 import json
 import math
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,10 +28,12 @@ import jax
 from lssvc_tpu.harness import runner as jrunner
 from lssvc_tpu.models.init import init_intra_ss as j_init_intra_ss
 from lssvc_tpu.models.init import init_lssvc as j_init_lssvc
+from lssvc_tpu.models.dmc import DMCExtend as JDMC
 from lssvc_tpu.models.intra_ss import IntraSS as JIntraSS
 from lssvc_tpu.models.lssvc import LSSVCExtend as JLSSVC
 from lssvc_tpu.ops.nn import set_od_offset_cap
 from lssvc_tpu_torch import test as cli
+from lssvc_tpu_torch.decode import yuv_frame
 from lssvc_tpu_torch.convert import params_from_jax
 from lssvc_tpu_torch.harness import runner as trunner
 from lssvc_tpu_torch.harness.results import RESULT_KEYS
@@ -38,6 +45,7 @@ from lssvc_tpu_torch.tools.synthetic import write_dataset, write_sequence
 
 YUV_KEYS = {"ave_i_frame_YUV_psnr", "ave_p_frame_YUV_psnr",
             "ave_all_frame_YUV_psnr"}
+REPO = Path(__file__).resolve().parents[1]
 
 
 def _recording(monkeypatch, module):
@@ -157,11 +165,10 @@ def test_checkpoints_are_held_to_the_models_keys(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--write_stream", "1"], ["--intra_rdo"], ["--precision", "bf16"],
+    ["--intra_rdo"], ["--precision", "bf16"],
     ["--int8_calib", "table.json"], ["--save_decoded_frame", "1"],
     ["--save_decoded_mv", "1"], ["--save_warp_frame", "1"],
-    ["--save_decoded_context", "1"], ["--decoding_profiling", "1"],
-    ["--worker", "2"]])
+    ["--save_decoded_context", "1"], ["--worker", "2"]])
 def test_cli_refuses_unported_flags(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         cli.main(["--test_config", str(tmp_path / "none.json"),
@@ -187,3 +194,71 @@ def test_run_test_refuses_unported_task_keys(tmp_path):
     for key in trunner.UNPORTED_TASK_KEYS:
         with pytest.raises(NotImplementedError, match=key):
             trunner.run_test(None, model, {key: True, "frame_num": 1})
+
+
+def test_cli_writes_streams_that_a_fresh_decoder_rebuilds(tmp_path,
+                                                         monkeypatch):
+    """`--write_stream 1 --decoding_profiling 1` on the 120x104 3-frame GOP
+    (I P P, padded to 128x128): a BL and an EL bin per frame, bits equal to
+    8 x the files' sizes, encode and decode seconds, both layers'
+    decode-profiling keys the JAX package's stage names.  Then
+    `python -m lssvc_tpu_torch.decode --device cpu` in a fresh process
+    rebuilds the run's EL and BL pictures byte for byte."""
+    h, w, frames = 104, 120, 3
+    cfg = write_dataset(tmp_path / "ds", h, w, frames=frames, gop=3, seed=5,
+                        ds_name="DS")
+    intra, video = tmp_path / "intra.pth", tmp_path / "video.pth"
+    torch.save(init_intra_ss(torch.Generator().manual_seed(1), 192), intra)
+    torch.save(init_lssvc(torch.Generator().manual_seed(2)), video)
+    pictures = {"x_hat_bl": [], "x_hat_el": []}
+    real_copy = trunner.HostCopy
+
+    def recording(tensors):  # the run's (cropped, clamped) DPB pictures
+        for k in pictures:
+            pictures[k].append(tensors[k].clone())
+        return real_copy(tensors)
+
+    monkeypatch.setattr(trunner, "HostCopy", recording)
+    out, bins = tmp_path / "out", tmp_path / "bins"
+    (res_bl, res_el, res_fl), = cli.main([
+        "--test_config", str(cfg), "--i_frame_model_path", str(intra),
+        "--model_path", str(video), "--output_path", str(out),
+        "--ratios", "x2", "--device", "cpu", "--write_stream", "1",
+        "--decoding_profiling", "1", "--stream_path", str(bins)])
+
+    bin_dir = bins / "seq1" / "0" / "x2"
+    sizes = {layer: [8 * (bin_dir / layer / f"{i}.bin").stat().st_size
+                     for i in range(frames)] for layer in ("BL", "EL")}
+    assert sorted(p.relative_to(bin_dir).as_posix()
+                  for p in bin_dir.rglob("*")) == sorted(
+        [f"{layer}/{i}.bin" for layer in ("BL", "EL")
+         for i in range(frames)] + ["BL", "EL"])
+    for res, bits in ((res_bl, sizes["BL"]), (res_el, sizes["EL"]),
+                      (res_fl, [b + e for b, e in zip(*sizes.values())])):
+        assert [round(b * res["frame_pixel_num"]) for b in res["frame_bpp"]] \
+            == bits
+    stages = {"BL": JDMC.DECODING_STAGES, "EL": JLSSVC.DECODING_STAGES}
+    for layer in ("BL", "EL", "FL"):
+        log = json.loads((out / f"x2_{layer}.json").read_text())
+        res = log["DS"]["seq1"]["video.pth"]
+        assert res["encoding_time"] > 0 and res["decoding_time"] > 0
+        if layer == "FL":
+            assert "decoding_profiling" not in res
+            continue
+        prof = res["decoding_profiling"]
+        assert list(prof) == ["frames", "overall", *stages[layer]]
+        assert prof["frames"] == 2 and prof["overall"] > 0
+
+    dec = subprocess.run(
+        [sys.executable, "-m", "lssvc_tpu_torch.decode", "--bin_dir",
+         str(bin_dir), "--i_frame_model_path", str(intra), "--model_path",
+         str(video), "--height", str(h), "--width", str(w), "--ratio", "x2",
+         "--gop", "3", "--frame_num", str(frames), "--yuv_out",
+         str(tmp_path / "el.yuv"), "--yuv_out_bl", str(tmp_path / "bl.yuv"),
+         "--device", "cpu"], cwd=REPO, capture_output=True, text=True,
+        timeout=600)
+    assert dec.returncode == 0, dec.stderr
+    for layer in ("el", "bl"):
+        want = b"".join(yuv_frame(x, (0, 0, 0, 0))
+                        for x in pictures[f"x_hat_{layer}"])
+        assert (tmp_path / f"{layer}.yuv").read_bytes() == want, layer

@@ -5,7 +5,8 @@ EL 128x128 / BL 64x64, full channel widths, fp32, the OffsetDiversity cap at
 the serving 10 px on both sides.  Weights are the JAX package's
 `init_lssvc(0)`, bridged by `params_from_jax`.  Bits within 3e-3 relative;
 reconstructions and features within the 5% relative-RMS noise floor of
-tests/parity_utils.py; `mv_hat` through `assert_close_mostly`.
+tests/parity_utils.py; `mv_hat` through `assert_close_mostly`.  Last, the
+port's CLI with `LSSVC_OD_OFFSET_CAP=0` against the JAX package at cap 0.
 """
 
 import numpy as np
@@ -19,10 +20,15 @@ from parity_utils import assert_close_mostly, assert_rel_rms
 from lssvc_tpu.models import lssvc as jl
 from lssvc_tpu.models.init import init_lssvc as j_init_lssvc
 from lssvc_tpu.ops.nn import set_od_offset_cap
+from lssvc_tpu_torch import test as cli
 from lssvc_tpu_torch.convert import params_from_jax
 from lssvc_tpu_torch.models import LSSVC
+from lssvc_tpu_torch.models.init import init_intra_ss as t_init_intra_ss
 from lssvc_tpu_torch.models.init import init_lssvc as t_init_lssvc
 from lssvc_tpu_torch.ops import OD_OFFSET_CAP_SERVING
+from lssvc_tpu_torch.ops.nn import od_offset_cap_from_env
+from lssvc_tpu_torch.parallel import scheduler
+from lssvc_tpu_torch.tools.synthetic import write_dataset
 
 EL, BL = (128, 128), (64, 64)
 DPB_KEYS = ("ref_frame_bl", "ref_frame_el", "ref_feature_bl",
@@ -128,3 +134,58 @@ def test_dpb_chain_three_frames(pair):
         for k in ("ref_frame_bl", "ref_frame_el"):
             dpb_j[k] = np.clip(dpb_j[k], 0, 1)
             dpb_t[k] = torch.clamp(dpb_t[k], 0, 1)
+
+
+def test_cli_reads_the_offset_cap_from_the_environment(pair, tmp_path,
+                                                       monkeypatch):
+    """`LSSVC_OD_OFFSET_CAP=0` turns the cap off, as in the JAX package's
+    CLI: the port's CLI loads its LSSVC with `od_offset_cap is None`, and a
+    P-frame of that model matches the JAX package at cap 0.  The offset
+    head is given weights (the init's are zero, an identity warp) that
+    drive offsets past 10 px, so the cap changes the frame.  (Last in the
+    module: it compiles the JAX forward at cap 0, then restores the
+    module's cap.)"""
+    _, np_params, _ = pair
+    rng = np.random.default_rng(3)
+    np_params = dict(np_params)
+    for k in ("align.conv_offset.4.weight", "align.conv_offset.4.bias"):
+        np_params[k] = rng.normal(size=np_params[k].shape).astype(np.float32)
+    jparams = {k: jnp.asarray(v) for k, v in np_params.items()}
+    ckpt = tmp_path / "video.pth"
+    torch.save(params_from_jax(np_params, "lssvc"), ckpt)
+    intra = tmp_path / "intra.pth"
+    torch.save(t_init_intra_ss(torch.Generator().manual_seed(0), 32), intra)
+    cfg = write_dataset(tmp_path / "ds", 64, 64, frames=1, gop=1, seed=0)
+    loaded = []
+
+    def no_run(video_net, i_frame_net, task):  # the loaded models only
+        loaded.append(video_net)
+        return {}, {}, {}
+
+    monkeypatch.setattr(scheduler, "run_test", no_run)
+    monkeypatch.setenv("LSSVC_OD_OFFSET_CAP", "0")
+    cli.main(["--test_config", str(cfg), "--i_frame_model_path", str(intra),
+              "--model_path", str(ckpt), "--output_path",
+              str(tmp_path / "out"), "--ratios", "x2", "--device", "cpu"])
+    model, = loaded
+    assert model.od_offset_cap is None
+    for value, cap in (("", None), ("12.5", 12.5)):
+        monkeypatch.setenv("LSSVC_OD_OFFSET_CAP", value)
+        assert od_offset_cap_from_env() == cap
+    monkeypatch.delenv("LSSVC_OD_OFFSET_CAP")
+    assert od_offset_cap_from_env() == OD_OFFSET_CAP_SERVING
+
+    model.set_scale_information(2.0, EL, (0, 0, 0, 0))
+    set_od_offset_cap(0)
+    jax.clear_caches()
+    try:
+        x_bl, x_el, dpb = _inputs(21, 48)
+        port = _port_frame(model, x_bl, x_el, dpb)
+        _assert_frame_close(port, _jax_frame(jparams, x_bl, x_el, dpb))
+        model.od_offset_cap = OD_OFFSET_CAP_SERVING
+        capped = _port_frame(model, x_bl, x_el, dpb)["dpb"]["ref_frame_el"]
+        assert not torch.allclose(capped, port["dpb"]["ref_frame_el"],
+                                  atol=1e-3)
+    finally:
+        set_od_offset_cap(OD_OFFSET_CAP_SERVING)
+        jax.clear_caches()

@@ -76,6 +76,29 @@ def test_conv_transpose2d(stride, padding, output_padding):
     _close(out, ref)
 
 
+@pytest.mark.parametrize("stride,output_padding", [(2, 1), (1, 0)])
+@pytest.mark.parametrize("shape", [(1, 9, 11, 6, 10), (2, 5, 7, 64, 2),
+                                   (1, 1, 1, 3, 4)])
+def test_conv_transpose2d_as_forward_convs(shape, stride, output_padding):
+    """The forward-conv form equals torch's transposed conv within float32
+    rounding (max |err| <= 4e-6 max |ref|, both held to a float64 one)."""
+    n, h, w, cin, cout = shape
+    rng = np.random.default_rng(cin)
+    x = torch.from_numpy(_r(rng, (n, h, w, cin)))
+    wt = torch.from_numpy(_r(rng, (cin, cout, 3, 3)))
+    b = torch.from_numpy(_r(rng, (cout,)))
+    out = tops.conv_transpose2d(x, wt, b, stride=stride, padding=1,
+                                output_padding=output_padding)
+    ref = torch.nn.functional.conv_transpose2d(
+        x.permute(0, 3, 1, 2).double(), wt.double(), b.double(),
+        stride=stride, padding=1, output_padding=output_padding
+    ).permute(0, 2, 3, 1)
+    assert out.shape == ref.shape
+    assert float((out - ref).abs().max()) <= 4e-6 * float(ref.abs().max())
+    with pytest.raises(ValueError, match="not a configuration"):
+        tops.conv_transpose2d(x, wt, b, stride=2, padding=0)
+
+
 def test_pixel_shuffle_and_pools():
     rng = np.random.default_rng(3)
     x = _r(rng, (2, 6, 8, 12))
