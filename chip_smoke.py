@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; nothing is caught):
    and its rANS coder with g++, one compiler per source, all at once;
    counts the tensor-core instructions (HGMMA, HMMA) in conv_chain's SASS
    (cuobjdump), and fails without HGMMA.
-3. Main path: LSSVC from the port's random init, fp32 (TF32 off), offset cap
+3. Main path: LSSVC from the port's random init, fp32 (TF32 off in the
+   model's scope), offset cap
    10 px, EL 1152x1920 / BL 576x960 from a random decoded-picture buffer.
    A warm-up frame records the shape of every kernel launch (flow_warp,
    its pair entry point, grouped_warp); then a chain of K=3 frames runs
@@ -87,10 +88,36 @@ Phases (any failure exits non-zero; nothing is caught):
    host copies), symbols per frame, real against phase 8's estimated bits,
    peak memory and the launches per P-frame.
 
+11. Modes: the bench twin (`python -m lssvc_tpu_torch.bench`) at 1080p,
+   K=3, in fp32, high, bf16, bf16_f32out, bf16_packed (without and with
+   LSSVC_PACKED_CTX=1) and bf16_einsum, the warp counts set to 0 just
+   before each run and read just after: both warps launch in every run,
+   the packed pair store once a frame in the packed-ctx run and in no
+   other.  Prints s/frame, peak memory, bits and launches of each.
+12. Precision gates at 128x128 (the size of phases 5 and 9): bf16 and high
+   P-frames and I-frames on the card against the CPU in the same
+   precision with the CPU tests' tolerances, high against fp32 on the card
+   (printed), fp32 at packed width 2 (with and without the packed pair
+   warp) against fp32 plain within 2e-4 for all but 0.5% of elements.
+13. Packed stores: the fused packed pair warp (3 + 48 channels at
+   1152x1920) and grouped_warp's packed store (48 -> 96) bit for bit
+   against their plain versions in f32 and bf16; then warp_bench's
+   `packed_run` with the counts set to 0 just before and read just after;
+   times beside the byte bound, the plain versions and F.grid_sample.
+14. bf16 stream path: the first 3 frames (I P P) of phase 8's sequence
+   through the CLI in process with `--precision bf16 --write_stream 1`;
+   `python -m lssvc_tpu_torch.decode --precision bf16` in a fresh
+   subprocess rebuilds the encoder's pictures byte for byte; the closed
+   loop at 1080p in bf16; encode and decode seconds per I- and P-frame;
+   the I-frame's 3x3 conv shapes in bf16 (tools/conv_paths.py).
+
 Then one JSON line {"kernels": [...]}: each kernel's launches counted on its
 path (the warps on the P-frame chain of phase 3, with their GOP path,
-stream path and warp-tier path counts beside them; conv_chain on the
-conv-chain path of phase 6), its times, bound and errors.  The last line is
+stream path, warp-tier path, bf16 chain and bf16 stream counts beside
+them; the pair's packed store on the bf16_packed chain with
+LSSVC_PACKED_CTX=1; the grouped packed store on warp_bench's packed_run;
+conv_chain on the conv-chain path of phase 6), its times, bound and
+errors.  The last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -98,6 +125,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -108,7 +136,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lssvc_tpu_torch import build
+from lssvc_tpu_torch import bench, build
 from lssvc_tpu_torch import test as cli
 from lssvc_tpu_torch.decode import yuv_frame
 from lssvc_tpu_torch.harness import runner
@@ -123,8 +151,8 @@ from lssvc_tpu_torch.ops import conv_chain as cc
 from lssvc_tpu_torch.ops import warp as plain
 from lssvc_tpu_torch.ops import warp_kernels as wk
 from lssvc_tpu_torch.parallel import scheduler
-from lssvc_tpu_torch.tools import (convchain_bench, synthetic, warp_bench,
-                                   warp_tier_bench)
+from lssvc_tpu_torch.tools import (conv_paths, convchain_bench, synthetic,
+                                   warp_bench, warp_tier_bench)
 from lssvc_tpu_torch.tools.profile_frame import iframe_flops
 from lssvc_tpu_torch.tools.timing import card, time_ms
 from lssvc_tpu_torch.tools.warp_bench import (bound_ms, flow_warp_cost,
@@ -203,7 +231,8 @@ def grid_sample_ms(x, flow):
     iy = torch.arange(h, device=x.device, dtype=torch.float32)[None, :, None]
     ix = torch.arange(w, device=x.device, dtype=torch.float32)[None, None, :]
     grid = torch.stack([(ix + flow[..., 0]) / ((w - 1) / 2) - 1,
-                        (iy + flow[..., 1]) / ((h - 1) / 2) - 1], -1)
+                        (iy + flow[..., 1]) / ((h - 1) / 2) - 1], -1) \
+        .to(x.dtype)
     x_nchw = x.permute(0, 3, 1, 2)
     return time_ms(lambda: F.grid_sample(
         x_nchw, grid, mode="bilinear", padding_mode="border",
@@ -708,8 +737,10 @@ def phase_main_path(dev):
     params = init_lssvc(torch.Generator().manual_seed(0))
     model = LSSVC(params, device=dev, od_offset_cap=OD_OFFSET_CAP_SERVING)
     model.set_scale_information(2.0, EL_HW, (0, 0, 0, 0))
-    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
-        raise AssertionError("fp32 parity mode must turn TF32 off")
+    with model.scope():  # the model's own mode, entered by each call
+        if (torch.backends.cudnn.allow_tf32
+                or torch.backends.cuda.matmul.allow_tf32):
+            raise AssertionError("fp32 parity mode must turn TF32 off")
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def uni(*shape):
@@ -1240,6 +1271,414 @@ def phase_iframe_cpu_vs_card(dev):
         f"RMS {rms}")
 
 
+# phase 11: the bench twin's modes at 1080p, K=3 (mode, LSSVC_PACKED_CTX)
+BENCH_MODES = [("fp32", "0"), ("high", "0"), ("bf16", "0"),
+               ("bf16_f32out", "0"), ("bf16_packed", "0"),
+               ("bf16_packed", "1"), ("bf16_einsum", "0")]
+PAIR_PACKED_REPLACES = (
+    "lssvc_tpu/ops/warp_pallas.py:596-606 (_warp_kernel_cblock, "
+    "nhwc_out=\"p\", via flow_warp_auto(packed_out=True) :1214)")
+GROUPED_PACKED_REPLACES = (
+    "lssvc_tpu/ops/warp_pallas.py:807-811 (_grouped_warp_kernel_cblock, "
+    "nhwc_out=\"p\", via grouped_warp_auto(packed_out=True) :1332)")
+# the bf16 stream GOP codes the first 3 frames of phase 8's sequence: I P P
+BF16_GOP_FRAMES = 3
+
+
+def _reset_counts():
+    for fn in (wk.flow_warp, wk.grouped_warp):
+        fn.launches = fn.packed_launches = 0
+
+
+def _counts():
+    return {"flow_warp": wk.flow_warp.launches,
+            "flow_warp_packed": wk.flow_warp.packed_launches,
+            "grouped_warp": wk.grouped_warp.launches,
+            "grouped_warp_packed": wk.grouped_warp.packed_launches}
+
+
+def phase_modes(dev):
+    """Phase 11: the bench twin (`python -m lssvc_tpu_torch.bench`) at
+    1080p, K=3, in each serving mode, the warp counts set to 0 just before
+    each run and read just after: every run launches both warps; the
+    packed-ctx run launches the pair's packed store, one a frame; no other
+    run launches a packed store."""
+    log("# modes: lssvc_tpu_torch.bench at 1080p, K=3")
+    rows = {}
+    before = os.environ.get("LSSVC_PACKED_CTX")
+    try:
+        for mode, ctx in BENCH_MODES:
+            os.environ["LSSVC_PACKED_CTX"] = ctx
+            torch.cuda.synchronize()
+            _reset_counts()
+            res = bench.bench_chain(EL_HW, k=K, mode=mode, device=dev)
+            torch.cuda.synchronize()
+            counts = _counts()
+            name = mode + ("+packed_ctx" if ctx == "1" else "")
+            if not math.isfinite(res["bits"]):
+                raise AssertionError(f"{name}: bits {res['bits']}")
+            if counts["flow_warp"] == 0 or counts["grouped_warp"] == 0:
+                raise AssertionError(f"{name}: warp counts {counts}")
+            if (counts["flow_warp_packed"] > 0) != (ctx == "1"):
+                raise AssertionError(f"{name}: packed-store counts {counts}")
+            if counts["grouped_warp_packed"]:
+                raise AssertionError(f"{name}: grouped packed {counts}")
+            frames = counts["grouped_warp"]  # one grouped warp a frame
+            if ctx == "1" and counts["flow_warp_packed"] != frames:
+                raise AssertionError(f"{name}: {counts}: one packed pair a "
+                                     "frame expected")
+            rows[name] = dict(res, launches=counts,
+                              launches_per_frame={k: v / frames for k, v
+                                                  in counts.items()})
+            log(f"  {name}: {res['s_per_frame']:.4f} s/frame, peak "
+                f"{res['peak_gib']:.2f} GiB, bits {res['bits']:.1f}, "
+                f"launches {counts}")
+    finally:
+        if before is None:
+            os.environ.pop("LSSVC_PACKED_CTX", None)
+        else:
+            os.environ["LSSVC_PACKED_CTX"] = before
+    log(json.dumps({"modes": rows}))
+    return rows
+
+
+def _frame_args(seed):
+    rng = np.random.default_rng(seed)
+    shapes = [(1, 64, 64, 3), (1, 128, 128, 3), (1, 64, 64, 3),
+              (1, 128, 128, 3), (1, 64, 64, 64), (1, 128, 128, 48)]
+    return [torch.from_numpy(rng.random(s, np.float32)) for s in shapes]
+
+
+def _p_frame(params, device, args, **mode):
+    model = LSSVC(params, device=device, od_offset_cap=OD_OFFSET_CAP_SERVING,
+                  **mode)
+    model.set_scale_information(2.0, (128, 128), (0, 0, 0, 0))
+    return model.forward_one_frame(*(a.to(device) for a in args))
+
+
+def _close_mostly(a, b, atol, rtol, frac):
+    """`tests/parity_utils.assert_close_mostly`: at most `frac` of the
+    elements past atol + rtol |b|."""
+    a, b = a.float().cpu(), b.float().cpu()
+    share = float(((a - b).abs() > atol + rtol * b.abs()).float().mean())
+    if share > frac:
+        raise AssertionError(f"{share:.4f} of the elements past tolerance")
+    return share
+
+
+def phase_precision_gates(dev):
+    """Phase 12, at the size of phases 5 and 9 (EL 128x128 / BL 64x64):
+    (a) bf16 and high P-frames on the card against the port's CPU frames in
+    the same precision, with the CPU tests' tolerances (bits within 2%,
+    the DPB pictures within 5% relative RMS; bf16 mv_hat: at most 2% of
+    elements past 2e-2 + 1e-2 |ref|); (b) high against fp32 on the card
+    (printed, and held to phase 5's 3e-3 bits, 5% pictures); (c) fp32 at
+    packed width 2, with and without the packed pair warp, against fp32
+    plain on the card, within 2e-4 (rtol and atol) but for 0.5% of the
+    elements (`tests/parity_utils.assert_close_mostly`: cuDNN's fp32
+    algorithms sum the packed and the plain shapes in other orders, and
+    the random-init codec amplifies last bits; the largest error and the
+    relative RMS are printed); (d) the I-frame in
+    bf16 and high on the card against the CPU: bits within 2%; the BL
+    picture within 1.5x the card's own distance from its fp32 picture
+    (capped at 20%; at least phase 9's 5%): a random-init IntraNoAR's
+    latents round differently under any rounding of its convs; the EL
+    from the CPU's BL outputs within 5% and 2% bits."""
+    params = init_lssvc(torch.Generator().manual_seed(0))
+    args = _frame_args(1)
+    out = {}
+    card = {prec: _p_frame(params, dev, args, precision=prec)
+            for prec in ("fp32", "high", "bf16")}
+    for prec in ("bf16", "high"):
+        cpu = _p_frame(params, "cpu", args, precision=prec)
+        row = {}
+        for k in ("bit_bl", "bit_el"):
+            a, b = float(card[prec][k]), float(cpu[k])
+            row[k] = abs(a - b) / abs(b)
+            if row[k] > 0.02:
+                raise AssertionError(f"{prec} {k}: card {a} vs cpu {b}")
+        for k in ("ref_frame_bl", "ref_frame_el"):
+            row[k] = _rel_rms(card[prec]["dpb"][k], cpu["dpb"][k])
+            if row[k] > 0.05:
+                raise AssertionError(f"{prec} {k}: rel RMS {row[k]}")
+        if prec == "bf16":
+            row["mv_hat_share_past_tol"] = _close_mostly(
+                card[prec]["mv_hat"], cpu["mv_hat"], 2e-2, 1e-2, 0.02)
+        out[f"{prec}_card_vs_cpu"] = row
+    hi, fp = card["high"], card["fp32"]
+    row = {k: abs(float(hi[k]) - float(fp[k])) / abs(float(fp[k]))
+           for k in ("bit_bl", "bit_el")}
+    row.update({k: _rel_rms(hi["dpb"][k], fp["dpb"][k])
+                for k in ("ref_frame_bl", "ref_frame_el", "ref_feature_el")})
+    row["mv_hat"] = _rel_rms(hi["mv_hat"], fp["mv_hat"])
+    out["high_vs_fp32_card"] = row
+    if max(row["bit_bl"], row["bit_el"]) > 3e-3 or max(
+            row["ref_frame_bl"], row["ref_frame_el"]) > 0.05:
+        raise AssertionError(f"high vs fp32 on the card: {row}")
+    for ctx in (False, True):
+        packed = _p_frame(params, dev, args, packed_width=2, packed_ctx=ctx)
+        row = {}
+        for k in ("ref_frame_bl", "ref_frame_el", "ref_feature_el"):
+            a, b = packed["dpb"][k], fp["dpb"][k]
+            row[k] = {
+                "max_err_over_tol": float(
+                    ((a - b).abs() / (2e-4 + 2e-4 * b.abs())).max()),
+                "rel_rms": _rel_rms(a, b),
+                "share_past_tol": _close_mostly(a, b, 2e-4, 2e-4, 0.005)}
+        out[f"fp32_packed{'_ctx' if ctx else ''}_vs_plain_card"] = row
+
+    # (d) the I-frame
+    from lssvc_tpu_torch.models import intra_ss as tis
+
+    iparams = init_intra_ss(torch.Generator().manual_seed(0), 192)
+    rng = np.random.default_rng(2)
+    x_bl = torch.from_numpy(rng.random((1, 64, 64, 3), np.float32))
+    x_el = torch.from_numpy(rng.random((1, 128, 128, 3), np.float32))
+
+    def iframe(device, prec):
+        model = IntraSS(iparams, device=device, precision=prec)
+        model.set_scale_information(2.0, (128, 128), (0, 0, 0, 0))
+        return model, model.forward(x_bl.to(device), x_el.to(device))
+
+    i_fp32 = iframe(dev, "fp32")[1]
+    for prec in ("bf16", "high"):
+        (m_cpu, cpu), (m_card, crd) = iframe("cpu", prec), iframe(dev, prec)
+        row = {"bit_bl": abs(float(crd["bit_bl"]) - float(cpu["bit_bl"]))
+               / float(cpu["bit_bl"])}
+        row["x_hat_bl"] = _rel_rms(crd["x_hat_bl"], cpu["x_hat_bl"])
+        floor = _rel_rms(crd["x_hat_bl"], i_fp32["x_hat_bl"])
+        row["x_hat_bl_card_vs_card_fp32"] = floor
+        limit = max(0.05, min(1.5 * floor, 0.2))
+        if row["bit_bl"] > 0.02 or row["x_hat_bl"] > limit:
+            raise AssertionError(f"I-frame {prec}: {row}")
+        # the EL from the CPU's BL outputs, on both devices
+        bl_cpu = m_cpu.base_layer_model.forward(x_bl)
+        els = []
+        for model, device in ((m_cpu, "cpu"), (m_card, dev)):
+            with model.scope(), torch.no_grad():
+                els.append(tis._el_forward(
+                    model.el_params(), x_el.to(device),
+                    bl_cpu["x_hat"].to(device), bl_cpu["y_hat"].to(device),
+                    None, (128, 128), (0, 0, 0, 0)))
+        row["el_bit_el"] = abs(float(els[1]["bit_el"])
+                               - float(els[0]["bit_el"])) \
+            / float(els[0]["bit_el"])
+        for k in ("x_hat_el", "feature_el"):
+            row[f"el_{k}"] = _rel_rms(els[1][k], els[0][k])
+        if row["el_bit_el"] > 0.02 or max(row["el_x_hat_el"],
+                                          row["el_feature_el"]) > 0.05:
+            raise AssertionError(f"I-frame EL {prec}: {row}")
+        out[f"iframe_{prec}_card_vs_cpu"] = row
+    log(json.dumps({"precision_gates": out}))
+    return out
+
+
+def phase_packed_stores(dev):
+    """Phase 13: the two packed stores at the model's launch shapes (the
+    EL pair, 3 + 48 channels at 1152x1920; grouped_warp 48 -> 96), f32 and
+    bf16, bit for bit against their plain versions; then
+    tools/warp_bench.py's `packed_run` (its path), the counts set to 0
+    just before and read just after; the plain versions' and
+    F.grid_sample's times beside the byte bound."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n, h, w, ca, cb = warp_bench.EL_PAIR
+    _, _, _, c_src, go, gn = warp_bench.GROUPED
+    log("# packed stores against their plain versions")
+    errs = {"pair": [], "grouped": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        xs, flow = warp_bench.flow_inputs(gen, warp_bench.EL_PAIR,
+                                          dtype=dtype)
+        c0 = _counts()
+        out = wk.flow_warp_pair(*xs, flow, packed_out=True)
+        ref = plain.flow_warp(torch.cat(xs, -1), flow).view(out.shape)
+        if _counts()["flow_warp_packed"] != c0["flow_warp_packed"] + 1:
+            raise AssertionError("the packed pair is not one launch")
+        errs["pair"].append(check_bits(
+            f"{tag} packed pair {warp_bench.EL_PAIR} -> "
+            f"{tuple(out.shape)}", out, ref))
+        x, fx, fy, m = warp_bench.grouped_inputs(gen, dtype=dtype)
+        out = wk.grouped_warp(x, fx, fy, m, gn, packed_out=True)
+        ref = plain.grouped_warp_plain(x, fx, fy, m, gn).view(out.shape)
+        errs["grouped"].append(check_bits(
+            f"{tag} packed grouped {warp_bench.GROUPED} -> "
+            f"{tuple(out.shape)}", out, ref))
+        del xs, flow, x, fx, fy, m, out, ref
+    torch.cuda.synchronize()
+    _reset_counts()
+    times = warp_bench.packed_run(dev)
+    torch.cuda.synchronize()
+    counts = _counts()
+    if counts["flow_warp_packed"] == 0 or counts["grouped_warp_packed"] == 0:
+        raise AssertionError(f"packed_run counts {counts}")
+    bf16 = torch.bfloat16
+    xs, flow = warp_bench.flow_inputs(gen, warp_bench.EL_PAIR, dtype=bf16)
+    pair_plain_ms = time_ms(lambda: plain.flow_warp(
+        torch.cat(xs, -1), flow).view(n, h, w // 2, -1), 5, 1)
+    pair_library_ms = grid_sample_ms(torch.cat(xs, -1), flow)
+    del xs, flow
+    x, fx, fy, m = warp_bench.grouped_inputs(gen, dtype=bf16)
+    grouped_plain_ms = time_ms(lambda: plain.grouped_warp_plain(
+        x, fx, fy, m, gn).view(n, h, w // 2, -1), 3, 1)
+    del x, fx, fy, m
+    b16 = times["bfloat16"]
+    p_bound, p_by = bound_ms(*flow_warp_cost(n, h, w, ca + cb, 2))
+    g_bound, g_by = bound_ms(*grouped_cost(*warp_bench.GROUPED, 2))
+    pair_entry = {
+        "name": "flow_warp_packed", "route": "cuda", "source": SOURCE,
+        "replaces": PAIR_PACKED_REPLACES, "call": "flow_warp_pair("
+        "packed_out=True)", "shape": list(warp_bench.EL_PAIR),
+        "out_shape": [n, h, w // 2, 2 * (ca + cb)], "dtype": "bfloat16",
+        "max_abs_err": max(errs["pair"]), "ms": b16["pair_packed_ms"],
+        "plain_ms": pair_plain_ms, "bound_ms": p_bound, "bound_by": p_by,
+        "library_ms": pair_library_ms,
+        "library_call": "F.grid_sample(bilinear, border, align_corners=True)"
+                        " on the two tensors' concat, bf16",
+        "unpacked_ms": b16["pair_ms"], "float32": times["float32"],
+        "packed_run_launches": counts["flow_warp_packed"]}
+    grouped_entry = {
+        "name": "grouped_warp_packed", "route": "cuda", "source": SOURCE,
+        "replaces": GROUPED_PACKED_REPLACES,
+        "call": "grouped_warp(packed_out=True): the plain output viewed "
+                "packed (the same bytes)",
+        "shape": [n, h, w, c_src], "units": go,
+        "out_shape": [n, h, w // 2, 2 * go * (c_src // gn)],
+        "dtype": "bfloat16", "max_abs_err": max(errs["grouped"]),
+        "ms": b16["grouped_packed_ms"], "plain_ms": grouped_plain_ms,
+        "bound_ms": g_bound, "bound_by": g_by, "library_ms": None,
+        "unpacked_ms": b16["grouped_ms"], "float32": times["float32"],
+        "launches": counts["grouped_warp_packed"]}
+    log(f"# packed pair bf16 {b16['pair_packed_ms']:.4f} ms (unpacked "
+        f"{b16['pair_ms']:.4f}, bound {p_bound:.4f}, plain "
+        f"{pair_plain_ms:.4f}, grid_sample {pair_library_ms:.4f}); packed "
+        f"grouped bf16 {b16['grouped_packed_ms']:.4f} ms (unpacked "
+        f"{b16['grouped_ms']:.4f}, bound {g_bound:.4f}, plain "
+        f"{grouped_plain_ms:.4f}); f32 {json.dumps(times['float32'])}; "
+        f"packed_run launches {counts}")
+    return pair_entry, grouped_entry, times
+
+
+def phase_bf16_stream(dev, d, cfg, intra, video):
+    """Phase 14: the first 3 frames (I P P) of phase 8's sequence through
+    the CLI in this process, `--precision bf16 --write_stream 1`, its
+    clamped DPB pictures kept as 8-bit 4:2:0 frames; `python -m
+    lssvc_tpu_torch.decode --precision bf16` in a fresh subprocess must
+    rebuild them byte for byte; the closed loop at 1080p in bf16 (an
+    I-frame and the P-frame after it, encoder DPB = decoder DPB); the
+    I-frame's 3x3 conv shapes in bf16 (tools/conv_paths.py)."""
+    log(f"# bf16 stream path: {BF16_GOP_FRAMES} frames (I P P) of "
+        f"{GOP_HW[1]}x{GOP_HW[0]}, x2, --precision bf16 --write_stream 1")
+    bins = d / "bins_bf16"
+    pictures = {"x_hat_bl": [], "x_hat_el": []}
+    real_copy = runner.HostCopy
+
+    def recording(tensors):
+        for k in pictures:
+            pictures[k].append(yuv_frame(tensors[k], (0, 0, 0, 0)))
+        return real_copy(tensors)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    runner.HostCopy = recording
+    t0 = time.perf_counter()
+    try:
+        with StreamTimer() as timer:
+            cli.main(["--test_config", str(cfg), "--i_frame_model_path",
+                      str(intra), "--model_path", str(video),
+                      "--output_path", str(d / "out_bf16"), "--ratios", "x2",
+                      "--precision", "bf16", "--write_stream", "1",
+                      "--force_frame_num", str(BF16_GOP_FRAMES),
+                      "--stream_path", str(bins)])
+    finally:
+        runner.HostCopy = real_copy
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = _counts()
+    n_p = BF16_GOP_FRAMES - 1
+    want = {"flow_warp": 20 * n_p, "flow_warp_packed": 0,
+            "grouped_warp": 2 * n_p, "grouped_warp_packed": 0}
+    if counts != want:
+        raise AssertionError(f"bf16 stream counts {counts}, expected {want}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    yuv = {layer: d / f"bf16_{layer}.yuv" for layer in ("el", "bl")}
+    decode_s = _subprocess(
+        [sys.executable, "-m", "lssvc_tpu_torch.decode", "--bin_dir",
+         str(bins / "seq1" / "0" / "x2"), "--i_frame_model_path", str(intra),
+         "--model_path", str(video), "--height", str(GOP_HW[0]), "--width",
+         str(GOP_HW[1]), "--ratio", "x2", "--gop", str(GOP), "--frame_num",
+         str(BF16_GOP_FRAMES), "--precision", "bf16", "--yuv_out",
+         str(yuv["el"]), "--yuv_out_bl", str(yuv["bl"])],
+        "the bf16 decode CLI")
+    for layer, path in yuv.items():
+        if path.read_bytes() != b"".join(pictures[f"x_hat_{layer}"]):
+            raise AssertionError(f"bf16: decoded {layer.upper()} YUV "
+                                 "differs from the encoder's pictures")
+    log(f"  CLI in process {run_s:.2f} s; bf16 decode subprocess "
+        f"{decode_s:.2f} s: EL and BL YUV byte-equal to the encoder's "
+        f"{BF16_GOP_FRAMES} frames")
+
+    # the closed loop at 1080p in bf16
+    i_net = scheduler.load_intra(str(intra), dev, "bf16")
+    v_net = scheduler.load_video(str(video), dev, OD_OFFSET_CAP_SERVING,
+                                 "bf16")
+    for net in (i_net, v_net):
+        net.update(force=True)
+        net.set_scale_information(2.0, GOP_EL_HW, (0, 0, 0, 0))
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def uni(*shape):
+        return torch.rand((1, *shape), generator=gen, device=dev)
+
+    x_bl, x_el = uni(*GOP_BL_HW, 3), uni(*GOP_EL_HW, 3)
+    paths = [d / "loop16_bl.bin", d / "loop16_el.bin"]
+    enc = intra_ss_stream.compress_stream(i_net, x_bl, x_el, *paths,
+                                          *GOP_BL_HW, *GOP_EL_HW)
+    dec = intra_ss_stream.decompress_stream(i_net, *paths)
+    for k in ("x_hat_bl", "x_hat_el", "feature_el"):
+        if dec[k].dtype != torch.bfloat16:
+            raise AssertionError(f"bf16 I-frame {k} is {dec[k].dtype}")
+        _equal(enc[k], dec[k], f"bf16 I-frame {k}")
+    dpb = {"ref_frame_bl": dec["x_hat_bl"].clamp(0, 1),
+           "ref_feature_bl": None,
+           "ref_frame_el": dec["x_hat_el"].clamp(0, 1),
+           "ref_feature_el": dec["feature_el"]}
+    x_bl, x_el = uni(*GOP_BL_HW, 3), uni(*GOP_EL_HW, 3)
+    bl = v_net.base_layer_model
+    enc = bl.compress(x_bl, dpb)
+    dec = bl.decompress(enc["string"], *GOP_BL_HW, dpb)
+    for k in ("ref_frame_bl", "ref_feature_bl"):
+        _equal(enc["dpb"][k], dec["dpb"][k], f"bf16 P-frame {k}")
+    dpb_el = dict(dpb, texture=dec["dpb"]["ref_feature_bl"],
+                  y_hat_bl=dec["dpb"]["y_hat_bl"],
+                  mv_hat_bl=dec["dpb"]["mv_hat_bl"])
+    enc = v_net.compress(x_el, dpb_el)
+    dec = v_net.decompress(enc["string"], *GOP_EL_HW, dpb_el)
+    for k in ("ref_frame_el", "ref_feature_el"):
+        _equal(enc["dpb"][k], dec["dpb"][k], f"bf16 P-frame {k}")
+    log("  closed loop at 1080p in bf16: I-frame and P-frame DPB of both "
+        "layers bit-equal between encoder and decoder")
+    del i_net, v_net, enc, dec, dpb, dpb_el
+
+    convs = [{"c_in": ci, "c_out": co, "hw": [h, w],
+              **conv_paths.conv_paths(dev, ci, co, h, w, torch.bfloat16)}
+             for ci, co, h, w in conv_paths.SHAPES]
+    out = {
+        "bf16_stream_path": "lssvc_tpu_torch.test --precision bf16 "
+                            "--write_stream 1 (in process), "
+                            "lssvc_tpu_torch.decode --precision bf16 (fresh "
+                            "subprocess)",
+        "frames": BF16_GOP_FRAMES, "el": list(GOP_EL_HW),
+        "bl": list(GOP_BL_HW), "iframe": timer.summary("I"),
+        "pframe": timer.summary("P"), "run_s": run_s,
+        "decode_subprocess_s": decode_s,
+        "decode_subprocess_s_per_frame": decode_s / BF16_GOP_FRAMES,
+        "peak_mem_gib": peak_gib, "launches": counts,
+        "iframe_conv_shapes_bf16": convs}
+    log(json.dumps(out))
+    return counts
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
@@ -1256,6 +1695,10 @@ def main():
             iframe_flops(GOP_EL_HW, GOP_BL_HW), d, *gop)
         phase_iframe_cpu_vs_card(dev)
         stream_launches = phase_stream(dev, d, *gop, estimated_bpp)
+        modes = phase_modes(dev)
+        phase_precision_gates(dev)
+        pair_packed, grouped_packed, _ = phase_packed_stores(dev)
+        bf16_stream = phase_bf16_stream(dev, d, *gop)
     n_p = GOP_FRAMES - -(-GOP_FRAMES // GOP)
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -1264,7 +1707,15 @@ def main():
         k["stream_launches"] = stream_launches[k["name"]]
         k["stream_launches_per_p_frame"] = stream_launches[k["name"]] / n_p
         k["warp_tier_bench"] = tiers[k["name"]]
-    kernels.append(chain_entry)
+        k["bf16_launches"] = modes["bf16"]["launches"][k["name"]]
+        k["bf16_stream_launches"] = bf16_stream[k["name"]]
+    # the pair's packed store on its path, the bf16_packed chain with
+    # LSSVC_PACKED_CTX=1
+    ctx = modes["bf16_packed+packed_ctx"]
+    pair_packed["launches"] = ctx["launches"]["flow_warp_packed"]
+    pair_packed["launches_per_frame"] = \
+        ctx["launches_per_frame"]["flow_warp_packed"]
+    kernels += [pair_packed, grouped_packed, chain_entry]
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

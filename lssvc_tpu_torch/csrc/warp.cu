@@ -10,6 +10,17 @@
 // and for the XLA fallback lssvc_tpu/ops/warp.py flow_warp_lowmem.
 // lssvc_flow_warp_pair is warp_pallas.py flow_warp_pair: two sources warped
 // by one flow, which the JAX package runs as concat, warp, split.
+// lssvc_flow_warp_pair_packed is the packed store of _warp_kernel_cblock
+// (nhwc_out="p", via flow_warp_auto(packed_out=True)) on the pair
+// [ref_el, f1] that models/lssvc.py:159-178 concatenates first: both sources
+// warped into ONE (N, H, W, ca+cb) output, a at channel 0 and b at channel
+// ca of each pixel.  pack_width of a C-contiguous NHWC tensor is a pure
+// reshape, so that buffer already is the width-packed (N, H, W/2,
+// 2(ca+cb)) layout, channel (w%2)(ca+cb) + c: the packed store is the
+// output's pixel stride and channel offset, with no concat of the sources.
+// The grouped warp's packed store (_grouped_warp_kernel_cblock with
+// nhwc_out="p") is the same bytes as its plain output, so it needs nothing
+// here: the wrapper views the output.
 //
 // grouped_warp stands for
 //   lssvc_tpu/ops/warp_pallas.py  _grouped_warp_kernel_cblock  (via
@@ -152,13 +163,17 @@ __device__ __forceinline__ Taps<I> taps(float fx, float fy, int ix, int iy,
 // ---------------------------------------------------------------------------
 // flow_warp
 
-// One tensor to warp: x and out (N, H, W, c).  units: 16-byte chunks a pixel
-// on the vector path, 1 on the scalar path, 0 for no tensor.
+// One tensor to warp: x (N, H, W, c), and its output at channel `oo` of
+// pixels `os` elements apart (os = c, oo = 0 for an output of its own).
+// units: 16-byte chunks a pixel on the vector path, 1 on the scalar path, 0
+// for no tensor.
 template <typename T>
 struct Source {
   const T* x;
   T* out;
   int c;
+  int os;
+  int oo;
   int units;
   bool vec;
 };
@@ -201,7 +216,7 @@ __device__ __forceinline__ void warp_chunk(const Source<T>& s,
       ow[q] = bf16_bits(value(2 * q)) | bf16_bits(value(2 * q + 1)) << 16;
     }
   }
-  *reinterpret_cast<uint4*>(s.out + pix * s.c + k) = o;
+  *reinterpret_cast<uint4*>(s.out + pix * s.os + s.oo + k) = o;
 }
 
 // All c channels of one pixel, one value per load.
@@ -212,7 +227,7 @@ __device__ __forceinline__ void warp_channels(const Source<T>& s,
   const T* x01 = s.x + t.p01 * s.c;
   const T* x10 = s.x + t.p10 * s.c;
   const T* x11 = s.x + t.p11 * s.c;
-  T* o = s.out + pix * s.c;
+  T* o = s.out + pix * s.os + s.oo;
 #pragma unroll 4
   for (int k = 0; k < s.c; ++k) {
     o[k] = from_f32<T>(lerp2(to_f32(__ldg(x00 + k)), to_f32(__ldg(x01 + k)),
@@ -272,15 +287,25 @@ __global__ void __launch_bounds__(256, 8)
   }
 }
 
+// The vector path needs whole 16-byte chunks at 16-byte aligned addresses
+// in x and out: the channel count, the output's pixel stride and channel
+// offset all whole chunks.  The packed pair's 3 + 48 channels in a 51-channel
+// row are not (204 bytes f32, 102 bf16), so both take the scalar path.
 template <typename T>
-Source<T> source(const void* x, void* out, int c) {
-  Source<T> s{(const T*)x, (T*)out, c, 0, false};
+Source<T> source(const void* x, void* out, int c, int os, int oo) {
+  Source<T> s{(const T*)x, (T*)out, c, os, oo, 0, false};
   if (c > 0) {
-    s.vec = (c * sizeof(T)) % 16 == 0 && (uintptr_t)x % 16 == 0 &&
-            (uintptr_t)out % 16 == 0;
+    const T* o = (const T*)out + oo;
+    s.vec = (c * sizeof(T)) % 16 == 0 && (os * sizeof(T)) % 16 == 0 &&
+            (uintptr_t)x % 16 == 0 && (uintptr_t)o % 16 == 0;
     s.units = s.vec ? (int)(c * sizeof(T) / 16) : 1;
   }
   return s;
+}
+
+template <typename T>
+Source<T> source(const void* x, void* out, int c) {
+  return source<T>(x, out, c, c, 0);
 }
 
 template <typename T>
@@ -306,7 +331,10 @@ int launch_flow_warp(Source<T> a, Source<T> b, const void* flow, int64_t n,
   const int rows = rows_for(tile);
   const dim3 block(bx, rows);
   const dim3 grid((w + tile - 1) / tile, h, (unsigned)n);
-  const int most = a.c > b.c ? (a.c > 2 ? a.c : 2) : (b.c > 2 ? b.c : 2);
+  // the widest row of any tensor: the sources, the outputs, the flow
+  const int widths[4] = {a.c, b.c, a.os, b.os};
+  int most = 2;
+  for (int i = 0; i < 4; ++i) most = widths[i] > most ? widths[i] : most;
   if (n * h * w * most < (int64_t(1) << 31)) {
     flow_warp_kernel<T, uint32_t><<<grid, block, 0, st>>>(
         a, b, (const float*)flow, h, w, tile);
@@ -509,6 +537,24 @@ extern "C" int lssvc_flow_warp_pair(const void* a, const void* b,
   return launch_flow_warp<__nv_bfloat16>(
       source<__nv_bfloat16>(a, out_a, ca),
       source<__nv_bfloat16>(b, out_b, cb), flow, n, h, w, s);
+}
+
+// a (N,H,W,ca) and b (N,H,W,cb) warped by the same flow into one
+// (N,H,W,ca+cb) output: a's channels first, then b's (the packed pair).
+extern "C" int lssvc_flow_warp_pair_packed(const void* a, const void* b,
+                                           const void* flow, void* out,
+                                           int64_t n, int h, int w, int ca,
+                                           int cb, int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int os = ca + cb;
+  if (dtype == 0) {
+    return launch_flow_warp<float>(source<float>(a, out, ca, os, 0),
+                                   source<float>(b, out, cb, os, ca), flow, n,
+                                   h, w, s);
+  }
+  return launch_flow_warp<__nv_bfloat16>(
+      source<__nv_bfloat16>(a, out, ca, os, 0),
+      source<__nv_bfloat16>(b, out, cb, os, ca), flow, n, h, w, s);
 }
 
 extern "C" int lssvc_grouped_warp(const void* x, const void* fx,

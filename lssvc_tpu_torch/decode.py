@@ -14,7 +14,8 @@ frames as the encoder's GOP loop clamps them.
 
 A stream decodes only with what it was encoded with: the same kind of
 device (a stream coded on the card decodes on the card, a CPU stream on
-the CPU), fp32, and the same OffsetDiversity cap (`LSSVC_OD_OFFSET_CAP`).
+the CPU), the same `--precision` (a bf16 stream decodes only in bf16),
+and the same OffsetDiversity cap (`LSSVC_OD_OFFSET_CAP`).
 The decoder derives every scale-index plane as the encoder did, and the
 last bits of the convolutions differ between devices (and between the
 port and the JAX package), so a mismatch flips a scale bucket and
@@ -33,7 +34,7 @@ import torch
 from .harness.runner import RATIO_FACTORS
 from .models.intra_ss_stream import decompress_stream
 from .ops import pad_nhwc
-from .ops.nn import od_offset_cap_from_env
+from .ops.nn import od_offset_cap_from_env, precision_from_cli
 from .parallel.scheduler import load_intra, load_video
 from .utils.color import rgb_to_ycbcr420
 from .utils.io import YUVWriter
@@ -45,9 +46,10 @@ from .utils.stream import decode_p
 def yuv_frame(picture: torch.Tensor, p_size) -> bytes:
     """A DPB picture (1, H, W, 3 in [0, 1], padded by `p_size`, on any
     device) -> its 8-bit 4:2:0 frame as YUVWriter writes it: cropped,
-    converted to YCbCr 4:2:0, then rint(x * 255) clipped to [0, 255]."""
+    converted to YCbCr 4:2:0, then rint(x * 255) clipped to [0, 255]
+    (a bf16 picture as f32, exactly)."""
     rgb = pad_nhwc(picture, inverse_padding_size(p_size))[0] \
-        .permute(2, 0, 1).cpu().numpy()
+        .permute(2, 0, 1).float().cpu().numpy()
     y, uv = rgb_to_ycbcr420(rgb)
     planes = [np.clip(np.rint(p * 255), 0, 255).astype(np.uint8)
               for p in (y, uv)]
@@ -75,8 +77,16 @@ def parse_args(argv=None):
     p.add_argument("--frame_num", type=int, required=True)
     p.add_argument("--yuv_out", required=True, help="EL output YUV path")
     p.add_argument("--yuv_out_bl", default=None, help="BL output YUV path")
-    p.add_argument("--precision", default="fp32", choices=["fp32"],
-                   help="the encoder's precision; only fp32 is ported")
+    p.add_argument("--precision", default="fp32",
+                   choices=["fp32", "high", "bf16", "int8"],
+                   help="MUST be the precision the stream was encoded "
+                        "with: the decoder derives every scale-index plane "
+                        "as the encoder did, and another precision flips "
+                        "index buckets and desynchronises the stream (a "
+                        "bf16 stream decodes only in bf16); int8 is not "
+                        "ported yet")
+    p.add_argument("--int8_calib", default=None,
+                   help="int8's calibration table (not ported yet)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda): the kind of device "
                         "the stream was encoded on")
@@ -85,6 +95,7 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    precision = precision_from_cli(args.precision, args.int8_calib)
     device = resolve_device(args.device)
     pad_info = get_interlayer_padding(H_HR=args.height, W_HR=args.width,
                                       ratio=RATIO_FACTORS[args.ratio])
@@ -94,8 +105,9 @@ def main(argv=None):
     hb, wb = pad_info["LR_size"]
     he, we = pad_info["HR_size"]
 
-    i_net = load_intra(args.i_frame_model_path, device)
-    v_net = load_video(args.model_path, device, od_offset_cap_from_env())
+    i_net = load_intra(args.i_frame_model_path, device, precision)
+    v_net = load_video(args.model_path, device, od_offset_cap_from_env(),
+                       precision)
     for net in (i_net, v_net):
         net.set_scale_information(RATIO_FACTORS[args.ratio], (he_pad, we_pad),
                                   (0, 0, 0, 0))

@@ -155,17 +155,19 @@ GAUSSIAN_SCALE_TABLE_IMG = _log_scale_table(0.11, 256.0, 64)
 
 def build_indexes_video(scales):
     """Video-side scale -> table row (no +1 shift), int32 on the scales'
-    device."""
+    device; computed in f32 whatever the scales' dtype (an index plane
+    crosses to the host)."""
     log_min = math.log(0.01)
     step = (math.log(64.0) - log_min) / (256 - 1)
-    idx = (torch.log(torch.clamp(scales, min=1e-5)) - log_min) / step
+    idx = (torch.log(torch.clamp(scales.float(), min=1e-5)) - log_min) / step
     return torch.clamp(idx, 0, 255).to(torch.int32)
 
 
 def build_indexes_img(scales):
     """Image-side map, with the reference's +1 bias
-    (`img_entropy_models.py:689`)."""
+    (`img_entropy_models.py:689`), in f32."""
     log_min = math.log(0.11)
     step = (math.log(256.0) - log_min) / (64 - 1)
-    idx = (torch.log(torch.clamp(scales, min=1e-5)) - log_min) / step + 1
+    idx = (torch.log(torch.clamp(scales.float(), min=1e-5)) - log_min) \
+        / step + 1
     return torch.clamp(idx, 0, 63).to(torch.int32)

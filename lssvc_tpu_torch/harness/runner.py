@@ -87,11 +87,13 @@ class HostCopy:
             self.event.record()
 
     def get(self) -> dict:
-        """name -> numpy array; images as CHW (batch 0)."""
+        """name -> numpy array (a bf16 model's pictures as f32, exactly);
+        images as CHW (batch 0)."""
         if self.event is not None:
             self.event.synchronize()
-        return {k: (v.numpy()[0].transpose(2, 0, 1) if v.dim() == 4
-                    else v.numpy()) for k, v in self.host.items()}
+        arrays = {k: v.float().numpy() for k, v in self.host.items()}
+        return {k: (a[0].transpose(2, 0, 1) if a.ndim == 4 else a)
+                for k, a in arrays.items()}
 
 
 def run_test(video_net, i_frame_net, args_dict):

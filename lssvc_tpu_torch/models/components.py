@@ -1,9 +1,11 @@
 """Shared network blocks as pure NHWC functions over scoped parameters.
 
-The JAX package's `models/components.py`, unpacked branches only.  Every
-function takes a `P` scope whose keys follow the reference's torch module
-naming; sequential containers index all submodules (activations
-included), matching torch nn.Sequential key numbering.
+The JAX package's `models/components.py`.  Every function takes a `P`
+scope whose keys follow the reference's torch module naming; sequential
+containers index all submodules (activations included), matching torch
+nn.Sequential key numbering.  Where the current mode has packed width 2
+(`ops.nn.packed_width`), the full-res stride-1 stacks run in the
+width-packed domain (`models/packed_blocks.py`), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +24,14 @@ from ..ops import (
     max_pool2d,
     pixel_shuffle,
     relu,
+)
+from ..ops.nn import packed_width
+from ..ops.packed import pack_width, unpack_width
+from .packed_blocks import (
+    p_depth_conv_block,
+    p_res_block,
+    packed_region,
+    pconv,
 )
 
 
@@ -131,8 +141,15 @@ def depth_conv_block(p, x, stride=1, slope_depth_conv=0.01, slope_ffn=0.1):
 
 
 def unet(p, x):
-    """Two-level UNet of DepthConvBlocks (`lssvc_modules.py:295-336`)."""
-    x1 = depth_conv_block(p.sub("conv1"), x)
+    """Two-level UNet of DepthConvBlocks (`lssvc_modules.py:295-336`); the
+    two full-res DepthConvBlocks (conv1, up_conv2) run width-packed under
+    packed width 2."""
+    packed = packed_width() == 2
+    if packed:
+        x1 = packed_region(
+            x, lambda xp: p_depth_conv_block(p.sub("conv1"), xp))
+    else:
+        x1 = depth_conv_block(p.sub("conv1"), x)
     x2 = max_pool2d(x1, 2)
     x2 = depth_conv_block(p.sub("conv2"), x2)
     x3 = max_pool2d(x2, 2)
@@ -142,6 +159,10 @@ def unet(p, x):
     d3 = subpel_conv(p.sub("up3"), x3, 2)
     d3 = depth_conv_block(p.sub("up_conv3"), cat([x2, d3]))
     d2 = subpel_conv(p.sub("up2"), d3, 2)
+    if packed:
+        return packed_region(
+            cat([x1, d2]),
+            lambda xp: p_depth_conv_block(p.sub("up_conv2"), xp))
     return depth_conv_block(p.sub("up_conv2"), cat([x1, d2]))
 
 
@@ -149,9 +170,17 @@ def unet(p, x):
 # Multi-scale feature extraction / fusion (shared by DMC and LSSVC)
 
 def feature_extractor_3scale(p, x, slope=0.01):
-    """conv/res x3 with stride-2 between scales (`dmc_net.py:11-31`)."""
-    l1 = conv(p.sub("conv1"), x)
-    l1 = res_block(p.sub("res_block1"), l1, slope)
+    """conv/res x3 with stride-2 between scales (`dmc_net.py:11-31`); the
+    full-res conv and ResBlock run width-packed under packed width 2."""
+    if packed_width() == 2:
+        def tail(xp):
+            f = pconv(p.sub("conv1"), xp)
+            return p_res_block(p.sub("res_block1"), f, slope)
+
+        l1 = packed_region(x, tail)
+    else:
+        l1 = conv(p.sub("conv1"), x)
+        l1 = res_block(p.sub("res_block1"), l1, slope)
     l2 = conv(p.sub("conv2"), l1, stride=2)
     l2 = res_block(p.sub("res_block2"), l2, slope)
     l3 = conv(p.sub("conv3"), l2, stride=2)
@@ -170,8 +199,15 @@ def multi_scale_context_fusion(p, c1, c2, c3, slope=0.01):
     c2_up = res_block(p.sub("res_block2_up"), c2_up, slope)
     c2_out = conv(p.sub("conv2_out"), cat32)
     c2_out = res_block(p.sub("res_block2_out"), c2_out, slope)
-    c1_out = conv(p.sub("conv1_out"), cat([c2_up, c1]))
-    c1_out = res_block(p.sub("res_block1_out"), c1_out, slope)
+    if packed_width() == 2:
+        def tail(xp):
+            f = pconv(p.sub("conv1_out"), xp)
+            return p_res_block(p.sub("res_block1_out"), f, slope)
+
+        c1_out = packed_region(cat([c2_up, c1]), tail)
+    else:
+        c1_out = conv(p.sub("conv1_out"), cat([c2_up, c1]))
+        c1_out = res_block(p.sub("res_block1_out"), c1_out, slope)
     return c1 + c1_out, c2 + c2_out, c3 + c3_out
 
 
@@ -211,7 +247,13 @@ def gdn_res_decoder(p, y, c2, c3):
 
 def recon_generation_simple(p, ctx, res):
     """conv + 2 ResBlocks + recon conv (`dmc_net.py:143-156`).
-    Returns (feature, recon)."""
+    Returns (feature, recon); width-packed under packed width 2."""
+    if packed_width() == 2:
+        fp = pconv(p.sub("feature_conv.0"), pack_width(cat([ctx, res]), 2))
+        fp = p_res_block(p.sub("feature_conv.1"), fp)
+        fp = p_res_block(p.sub("feature_conv.2"), fp)
+        recon = unpack_width(pconv(p.sub("recon_conv"), fp), 2)
+        return unpack_width(fp, 2), recon
     f = conv(p.sub("feature_conv.0"), cat([ctx, res]))
     f = res_block(p.sub("feature_conv.1"), f)
     f = res_block(p.sub("feature_conv.2"), f)
@@ -234,7 +276,15 @@ def temporal_prior_encoder_gdn(p, c1, c2, c3):
 # SpyNet motion estimation
 
 def me_basic(p, x):
-    """5-layer 7x7 CNN refinement (`video_net_component.py:191-210`)."""
+    """5-layer 7x7 CNN refinement (`video_net_component.py:191-210`).
+
+    Under packed width 2 (and a width that divides by 4) it runs packed at
+    p=4, as the JAX package does (7-wide taps pack to 3-wide)."""
+    if packed_width() == 2 and x.shape[2] % 4 == 0:
+        xp = pack_width(x.contiguous(), 4)
+        for i in range(1, 5):
+            xp = relu(pconv(p.sub(f"conv{i}"), xp, p=4))
+        return unpack_width(pconv(p.sub("conv5"), xp, p=4), 4)
     x = relu(conv(p.sub("conv1"), x))
     x = relu(conv(p.sub("conv2"), x))
     x = relu(conv(p.sub("conv3"), x))

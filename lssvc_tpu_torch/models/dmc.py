@@ -9,12 +9,11 @@ the hyperprior.  Bits are estimated, not coded.
 
 from __future__ import annotations
 
-import torch
-
 from ..convert import P
 from ..entropy.models import factorized_bits, laplace_bits
 from ..ops import clamp_flow, flow_warp, flow_warp_pair, leaky_relu, ste_round
-from .base import Model
+from ..ops.nn import compute_dtype
+from .base import Model, scoped
 from .components import (
     cat,
     conv,
@@ -89,7 +88,9 @@ def motion_compensation(p, ref, feature, mv):
     else:
         f = conv(p.sub("feature_adaptor_P"), feature)
     f1, f2, f3 = feature_extractor_3scale(p.sub("feature_extractor"), f)
-    warpframe, c1 = flow_warp_pair(ref, f1, mv1)
+    # the reference frame joins f1's compute dtype (`dmc.py:103-112`)
+    warpframe, c1 = flow_warp_pair(ref.to(compute_dtype()).to(f1.dtype), f1,
+                                   mv1)
     c2 = flow_warp(f2, mv2)
     c3 = flow_warp(f3, mv3)
     c1, c2, c3 = multi_scale_context_fusion(p.sub("context_fusion_net"),
@@ -155,8 +156,8 @@ def forward_inter(params, x, ref_frame, ref_feature):
 
 class DMC(Model):
     """Base-layer P-frame codec on `device` (default "cuda"; raises without
-    CUDA unless "cpu" is asked for)."""
+    CUDA unless "cpu" is asked for), in the mode of `models/base.py`."""
 
-    @torch.no_grad()
+    @scoped
     def forward_inter(self, x, ref_frame, ref_feature):
         return forward_inter(self.flat_params(), x, ref_frame, ref_feature)

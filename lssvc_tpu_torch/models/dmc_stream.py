@@ -29,6 +29,7 @@ from ..entropy.models import build_indexes_video
 from ..utils.checks import finite_flags, raise_if_nonfinite, sanitize_dpb
 from ..utils.stream import decode_p, encode_p, filesize, \
     get_downsampled_shape
+from .base import scoped
 from .components import (
     cat,
     gdn_res_decoder,
@@ -50,8 +51,10 @@ from .dmc import (
 
 def quantize_i(y, means):
     """Symbol plane: round(y - means) as int32, the values the coder
-    carries and the decoder stages consume."""
-    return torch.round(y - means).to(torch.int32)
+    carries and the decoder stages consume; the subtract runs in f32 in
+    every mode (the f32 symbol boundary of `entropy/coder.py`: in bf16 a
+    bf16 subtract would round first)."""
+    return torch.round(y.float() - means.float()).to(torch.int32)
 
 
 def _split_indexes(params_out):
@@ -112,13 +115,13 @@ def encode_device(params, x, ref_frame, ref_feature):
     Returns (planes, dpb) on the device; nothing crosses to the host."""
     p = P(params)
     mv_y, mv_z = enc_mv_analysis(p, x, ref_frame)
-    mv_z_i = torch.round(mv_z).to(torch.int32)
+    mv_z_i = torch.round(mv_z.float()).to(torch.int32)
     mv_idx, mv_means = dec_mv_prior(p, mv_z_i.float())
     mv_y_q_i = quantize_i(mv_y, mv_means)
     mv_hat = dec_mv(p, mv_y_q_i.float(), mv_means)
     c1, c2, c3 = dec_contexts(p, mv_hat, ref_frame, ref_feature)
     y, z = enc_res_analysis(p, x, c1, c2, c3)
-    z_i = torch.round(z).to(torch.int32)
+    z_i = torch.round(z.float()).to(torch.int32)
     y_idx, y_means = dec_y_prior(p, z_i.float(), c1, c2, c3)
     y_q_i = quantize_i(y, y_means)
     recon, feature, y_hat = dec_recon(p, y_q_i.float(), y_means, c1, c2, c3)
@@ -222,8 +225,8 @@ class DMCExtend(DecodeProfilingMixin, DMC):
     # mv_z and z channels
     channel_N = 64
 
-    def __init__(self, params: dict, device="cuda"):
-        super().__init__(params, device=device)
+    def __init__(self, params: dict, device="cuda", **mode):
+        super().__init__(params, device=device, **mode)
         self._coder = None
         self._init_decoding_profiling()
 
@@ -231,7 +234,7 @@ class DMCExtend(DecodeProfilingMixin, DMC):
         if self._coder is None or force:
             self._coder = VideoCoder(self.flat_params())
 
-    @torch.no_grad()
+    @scoped
     def compress(self, x, dpb):
         dpb = sanitize_dpb(dpb)
         planes, out_dpb = encode_device(self.flat_params(), x,
@@ -239,7 +242,7 @@ class DMCExtend(DecodeProfilingMixin, DMC):
                                         dpb["ref_feature_bl"])
         return {"string": write_planes(self._coder, planes), "dpb": out_dpb}
 
-    @torch.no_grad()
+    @scoped
     def decompress(self, string, height, width, dpb):
         dpb = sanitize_dpb(dpb)
         p = P(self.flat_params())
@@ -272,6 +275,7 @@ class DMCExtend(DecodeProfilingMixin, DMC):
         return {"dpb": {"ref_frame_bl": recon, "ref_feature_bl": feature,
                         "y_hat_bl": y_hat, "mv_hat_bl": mv_hat}}
 
+    @scoped
     def encode_decode(self, x, dpb, output_path, pic_width, pic_height):
         """Write x's stream to `output_path`, then decode the file: the
         decoded DPB, the file's bits, and the encode and decode seconds."""

@@ -28,7 +28,7 @@ from ..entropy.models import (
 )
 from ..ops import leaky_relu, ste_round
 from ..utils.stream import decode_i, encode_i, filesize, get_downsampled_shape
-from .base import Model
+from .base import Model, scoped
 from .components import (
     conv,
     residual_block,
@@ -135,13 +135,13 @@ class IntraNoAR(Model):
     """Base-layer I-frame codec on `device` (default "cuda"; raises without
     CUDA unless "cpu" is asked for)."""
 
-    def __init__(self, params: dict, device="cuda"):
-        super().__init__(params, device=device)
+    def __init__(self, params: dict, device="cuda", precision="fp32"):
+        super().__init__(params, device=device, precision=precision)
         # g_s.0.conv1 is an OIHW (N, N, 3, 3) weight
         self.N = int(params["g_s.0.conv1.weight"].shape[0])
         self._coder = None  # built by update()
 
-    @torch.no_grad()
+    @scoped
     def forward(self, x):
         return forward(self.flat_params(), x)
 
@@ -164,11 +164,11 @@ class IntraNoAR(Model):
         if self._coder is None or force:
             self._coder = IntraCoder(self.flat_params())
 
-    @torch.no_grad()
+    @scoped
     def get_y_z(self, x):
         return analysis(self.flat_params(), x)
 
-    @torch.no_grad()
+    @scoped
     def compress(self, x=None, y=None, z=None, with_recon=False):
         """rANS-encode (y, z) -> {"strings": [y_strings, z_strings],
         "shape": z's (h, w)} (`priors.py:420-437`).  With `with_recon`, also
@@ -189,7 +189,7 @@ class IntraNoAR(Model):
             out["x_hat"] = g_s(P(params).sub("g_s"), out["y_hat"])
         return out
 
-    @torch.no_grad()
+    @scoped
     def decompress(self, strings, shape):
         params = self.flat_params()
         z_hat = self._coder.eb_decompress(strings[1], shape, self.device)
@@ -198,6 +198,7 @@ class IntraNoAR(Model):
             strings[0], build_indexes_img(scales_hat), means_hat)
         return {"x_hat": g_s(P(params).sub("g_s"), y_hat), "y_hat": y_hat}
 
+    @scoped
     def encode_decode(self, x, output_path, pic_width, pic_height):
         """Write x's stream to `output_path`, then decode the file: the
         decoded x_hat and y_hat, and the file's bits."""

@@ -25,7 +25,7 @@ from ..entropy.models import (
 )
 from ..ops import bilinear_resize, leaky_relu, pad_nhwc, ste_round
 from . import intra_noar
-from .base import Model
+from .base import Model, scoped
 from .components import (
     cat,
     conv,
@@ -153,14 +153,16 @@ class IntraSS(Model):
     """Two-layer I-frame codec on `device` (default "cuda"; raises without
     CUDA unless "cpu" is asked for).  The `base_layer_model.` keys form
     the submodule `base_layer_model`, an IntraNoAR, so `state_dict()` has
-    the reference's keys.  Every width comes from the weights."""
+    the reference's keys.  Every width comes from the weights.  Both
+    layers run in `precision` (`models/base.py`)."""
 
-    def __init__(self, params: dict, device="cuda"):
+    def __init__(self, params: dict, device="cuda", precision="fp32"):
         super().__init__({k: v for k, v in params.items()
-                          if not k.startswith(BL_PREFIX)}, device=device)
+                          if not k.startswith(BL_PREFIX)}, device=device,
+                         precision=precision)
         self.base_layer_model = intra_noar.IntraNoAR(
             {k[len(BL_PREFIX):]: v for k, v in params.items()
-             if k.startswith(BL_PREFIX)}, device=device)
+             if k.startswith(BL_PREFIX)}, device=device, precision=precision)
         self.shape_hr = (256, 256)
         self.pad_size = (0, 0, 0, 0)
         self._coder = None  # the EL's, built by update()
@@ -175,7 +177,7 @@ class IntraSS(Model):
         return {k: v for k, v in self.named_parameters()
                 if not k.startswith(BL_PREFIX)}
 
-    @torch.no_grad()
+    @scoped
     def forward(self, x_bl, x_el, rdo=False):
         if rdo:
             raise NotImplementedError(
@@ -189,6 +191,7 @@ class IntraSS(Model):
             self._coder = IntraCoder(self.el_params())
             self.base_layer_model.update(force=force)
 
+    @scoped
     def encode_decode(self, x_bl, x_el, bin_path_bl, bin_path_el,
                       pic_height_bl, pic_width_bl, pic_height_el,
                       pic_width_el):

@@ -33,11 +33,20 @@ def el_prior_planes(params, z_hat, y_hat_bl, ctx3, shape_hr):
     return build_indexes_img(scales), means
 
 
-@torch.no_grad()
 def compress_stream(model, x_bl, x_el, bin_path_bl, bin_path_el,
                     pic_height_bl, pic_width_bl, pic_height_el, pic_width_el):
     """Writes both .bin files; returns their bits and the decoder's
-    reconstructions (closed loop, see the module docstring)."""
+    reconstructions (closed loop, see the module docstring).  Runs in the
+    model's mode."""
+    with torch.no_grad(), model.scope():
+        return _compress_stream(model, x_bl, x_el, bin_path_bl, bin_path_el,
+                                pic_height_bl, pic_width_bl, pic_height_el,
+                                pic_width_el)
+
+
+def _compress_stream(model, x_bl, x_el, bin_path_bl, bin_path_el,
+                     pic_height_bl, pic_width_bl, pic_height_el,
+                     pic_width_el):
     model.update()
     bl = model.base_layer_model
     params = model.el_params()
@@ -68,10 +77,15 @@ def compress_stream(model, x_bl, x_el, bin_path_bl, bin_path_el,
             "feature_el": feature}
 
 
-@torch.no_grad()
 def decompress_stream(model, bin_path_bl, bin_path_el):
     """Both layers' reconstructions from the two .bin files: the decoder
-    half of `IntraSS.encode_decode`, and what the decode CLI runs."""
+    half of `IntraSS.encode_decode`, and what the decode CLI runs, in the
+    model's mode."""
+    with torch.no_grad(), model.scope():
+        return _decompress_stream(model, bin_path_bl, bin_path_el)
+
+
+def _decompress_stream(model, bin_path_bl, bin_path_el):
     model.update()
     bl = model.base_layer_model
     params = model.el_params()

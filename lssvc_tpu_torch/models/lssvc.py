@@ -1,5 +1,6 @@
 """LSSVC — the two-layer P-frame codec (the JAX package's `models/lssvc.py`
-`:121-309`, default unpacked branch).
+`:121-309`), in every mode of `ops.nn.Mode`: the precisions, the
+width-packed domain and its fused packed pair warp.
 
 Per two-layer P-frame:
 
@@ -13,12 +14,11 @@ Per two-layer P-frame:
     and layer priors, quantized through the four-part checkerboard prior
 
 Each frame launches flow_warp 14 times (4 SpyNet levels and 3 context warps
-per layer) and grouped_warp once (OffsetDiversity).
+per layer) and grouped_warp once (OffsetDiversity); with the fused packed
+pair warp, the EL pair's launch is the packed store.
 """
 
 from __future__ import annotations
-
-import torch
 
 from ..convert import P
 from ..entropy.models import factorized_bits, laplace_bits
@@ -30,8 +30,10 @@ from ..ops import (
     pad_nhwc,
     ste_round,
 )
+from ..ops.nn import compute_dtype, current_mode, packed_width
+from ..ops.packed import pack_width, unpack_width
 from . import dmc
-from .base import Model
+from .base import Model, scoped
 from .components import (
     cat,
     conv,
@@ -42,6 +44,7 @@ from .components import (
     scaled_flows,
     subpel_conv,
 )
+from .packed_blocks import packed_region, pconv
 from .four_part_prior import forward_four_part_prior
 from .lssvc_blocks import (
     el_recon_generation,
@@ -111,11 +114,16 @@ def temporal_prior_encoder(p, c3):
 
 
 def el_feature_adaptor(p, ref_el, feature_el):
-    """Dispatch on DPB feature provenance (`LSSVC_net.py:195-202`)."""
+    """Dispatch on DPB feature provenance (`LSSVC_net.py:195-202`); the
+    steady-state (48-channel full-res) adaptor runs width-packed under
+    packed width 2."""
     if feature_el is None:
         return conv(p.sub("feature_adaptor_EL_I"), ref_el)
     if feature_el.shape[-1] == 64:
         return conv(p.sub("feature_adaptor_EL_first_P"), feature_el)
+    if packed_width() == 2:
+        return packed_region(
+            feature_el, lambda xp: pconv(p.sub("feature_adaptor_EL"), xp))
     return conv(p.sub("feature_adaptor_EL"), feature_el)
 
 
@@ -126,10 +134,26 @@ def el_motion_compensation(p, ref_el, feature_el, mv, od_offset_cap=None):
     mv1, mv2, mv3 = scaled_flows(mv)
     f = el_feature_adaptor(p, ref_el, feature_el)
     f1, f2, f3 = feature_extractor_3scale(p.sub("feature_extractor"), f)
-    warpframe, c1_init = flow_warp_pair(ref_el, f1, mv1)
-    c1 = offset_diversity(p.sub("align"), f1,
-                          cat([c1_init, warpframe, mv]), mv,
-                          offset_cap=od_offset_cap)
+    # the reference frame joins f1's compute dtype, so a bf16 f1 keeps the
+    # pair on the warp's bf16 path (`lssvc.py:150-155`)
+    ref = ref_el.to(compute_dtype()).to(f1.dtype)
+    if (current_mode().packed_ctx and packed_width() == 2
+            and ref_el.shape[2] % 4 == 0):
+        # the fused packed pair warp (`lssvc.py:159-178`): one launch
+        # stores [ref_el, f1] warped into one (N, H, W/2, 2*51) buffer,
+        # which OffsetDiversity's entry conv reads through its kernel's
+        # input permutation; warpframe is a strided view of it
+        pair = flow_warp_pair(ref, f1, mv1, packed_out=True)
+        warpframe = unpack_width(pair, 2)[..., :ref.shape[-1]]
+        c1 = offset_diversity(p.sub("align"), f1, None, mv,
+                              offset_cap=od_offset_cap,
+                              aux_pair_packed=pair,
+                              mv_packed=pack_width(mv, 2))
+    else:
+        warpframe, c1_init = flow_warp_pair(ref, f1, mv1)
+        c1 = offset_diversity(p.sub("align"), f1,
+                              cat([c1_init, warpframe, mv]), mv,
+                              offset_cap=od_offset_cap)
     c2 = flow_warp(f2, mv2)
     c3 = flow_warp(f3, mv3)
     c1, c2, c3 = multi_scale_context_fusion(p.sub("context_fusion_net"),
@@ -271,16 +295,23 @@ class LSSVC(Model):
 
     `od_offset_cap` clips OffsetDiversity's diversity offsets (px): None
     leaves them uncapped, `ops.nn.OD_OFFSET_CAP_SERVING` is the serving
-    preset."""
+    preset.  `precision`, `packed_width`, `conv1x1_einsum` and
+    `packed_ctx` are the model's mode (`models/base.py`); the base layer
+    is built in the same mode."""
 
     BASE_LAYER = dmc.DMC
 
-    def __init__(self, params: dict, device="cuda", od_offset_cap=None):
+    def __init__(self, params: dict, device="cuda", od_offset_cap=None,
+                 precision="fp32", packed_width=1, conv1x1_einsum=False,
+                 packed_ctx=False):
+        mode = dict(precision=precision, packed_width=packed_width,
+                    conv1x1_einsum=conv1x1_einsum)
         super().__init__({k: v for k, v in params.items()
-                          if not k.startswith(BL_PREFIX)}, device=device)
+                          if not k.startswith(BL_PREFIX)}, device=device,
+                         packed_ctx=packed_ctx, **mode)
         self.base_layer_model = self.BASE_LAYER(
             {k[len(BL_PREFIX):]: v for k, v in params.items()
-             if k.startswith(BL_PREFIX)}, device=device)
+             if k.startswith(BL_PREFIX)}, device=device, **mode)
         self.od_offset_cap = od_offset_cap
         self.shape_hr = (256, 256)
         self.scale_factor = 2.0
@@ -291,7 +322,7 @@ class LSSVC(Model):
         self.shape_hr = tuple(int(v) for v in shape_hr)
         self.pad_size = tuple(int(v) for v in pad_size)
 
-    @torch.no_grad()
+    @scoped
     def forward_one_frame(self, x_bl, x_el, ref_frame_bl, ref_frame_el,
                           ref_feature_bl, ref_feature_el):
         return forward_one_frame(self.flat_params(), x_bl, x_el, ref_frame_bl,

@@ -1,5 +1,6 @@
 """LSSVC enhancement-layer building blocks (the JAX package's
-`models/lssvc_blocks.py`, unpacked paths).
+`models/lssvc_blocks.py`), in both domains: the full-res stacks run
+width-packed where the current mode has packed width 2.
 
 The channel plan g_ch = 48/64/96/96/128 for 1x/2x/4x/8x/16x scales, the
 OffsetDiversity group-warp aligner, inter-layer resamplers, hybrid weight
@@ -24,6 +25,8 @@ from ..ops import (
     grouped_warp,
     leaky_relu,
 )
+from ..ops.nn import matmul_f32out, packed_width
+from ..ops.packed import pack_width, unpack_width
 from .components import (
     cat,
     conv,
@@ -32,6 +35,14 @@ from .components import (
     res_block,
     subpel_conv,
     unet,
+)
+from .packed_blocks import (
+    aux_pair_perm,
+    p_conv_seq3,
+    p_depth_conv_block,
+    p_res_block,
+    packed_region,
+    pconv,
 )
 
 
@@ -66,14 +77,35 @@ def _offset_fusion_scatter(group_num: int, offset_num: int, cg: int):
 
 
 def offset_diversity(p, x, aux_feature, flow, group_num=16, offset_num=2,
-                     max_residue_magnitude=40.0, offset_cap=None):
+                     max_residue_magnitude=40.0, offset_cap=None,
+                     aux_pair_packed=None, mv_packed=None):
     """Group-wise multi-offset warp with masks (`lssvc_modules.py:75-112`).
 
     `offset_cap` (px) clips the diversity offsets (the serving preset is
-    10, `ops.nn.OD_OFFSET_CAP_SERVING`); None leaves them uncapped."""
+    10, `ops.nn.OD_OFFSET_CAP_SERVING`); None leaves them uncapped.
+
+    `aux_pair_packed` (with `mv_packed`, aux_feature None): the aux tensor
+    arrives already packed, as the fused packed pair warp's (N, H, W/2,
+    2*(3+48)) store and the packed mv; the entry conv reads their concat
+    through a permutation of its packed kernel's input channels
+    (`aux_pair_perm`), with no relayout of the pair."""
     cg = x.shape[-1] // group_num  # channels per group (3)
 
-    out = conv(p.sub("conv_offset.0"), aux_feature, stride=2)
+    if aux_pair_packed is not None:
+        c_pair = aux_pair_packed.shape[-1] // 2
+        aux_p = torch.cat([aux_pair_packed, mv_packed.to(
+            aux_pair_packed.dtype)], dim=-1)
+        out = unpack_width(
+            pconv(p.sub("conv_offset.0"), aux_p, stride=2,
+                  in_perm=aux_pair_perm(c_pair, c_pair + 2)), 2)
+    elif packed_width() == 2 and aux_feature.shape[2] % 4 == 0:
+        # % 4, not % 2: the stride-2 packed conv is exact only when the
+        # packed width W/2 is itself even (the JAX package's
+        # `lssvc_blocks.py:130-135`)
+        out = unpack_width(pconv(p.sub("conv_offset.0"),
+                                 pack_width(aux_feature, 2), stride=2), 2)
+    else:
+        out = conv(p.sub("conv_offset.0"), aux_feature, stride=2)
     out = leaky_relu(out, 0.1)
     out = conv(p.sub("conv_offset.2"), out)
     out = leaky_relu(out, 0.1)
@@ -82,9 +114,13 @@ def offset_diversity(p, x, aux_feature, flow, group_num=16, offset_num=2,
 
     o1, o2, mask = torch.chunk(out, 3, dim=-1)  # 32 ch each
     mask = torch.sigmoid(mask)
-    offset = max_residue_magnitude * torch.tanh(cat([o1, o2]))
+    # Python floats, so the offsets keep the conv's dtype as in the JAX
+    # package (`lssvc_blocks.py:154-159`): a 0-dim f32 tensor here would
+    # give bf16 in torch but f32 in JAX (torch treats a 0-dim tensor like
+    # a scalar)
+    offset = torch.tanh(cat([o1, o2])) * float(max_residue_magnitude)
     if offset_cap:
-        offset = torch.clamp(offset, -offset_cap, offset_cap)
+        offset = torch.clamp(offset, -float(offset_cap), float(offset_cap))
     # offset channel 2j is unit j's dx, 2j+1 its dy; add the base flow
     flow_x = offset[..., 0::2] + flow[..., 0:1]  # (B, H, W, 32)
     flow_y = offset[..., 1::2] + flow[..., 1:2]
@@ -96,7 +132,8 @@ def offset_diversity(p, x, aux_feature, flow, group_num=16, offset_num=2,
     scat = torch.from_numpy(
         _offset_fusion_scatter(group_num, offset_num, cg)).to(wg)
     dense = torch.einsum("ou,iou->io", wg[:, :, 0, 0], scat)
-    return torch.matmul(warped, dense) + p("fusion.bias")
+    # operands in the compute dtype, f32 out (`lssvc_blocks.py:178-187`)
+    return matmul_f32out(warped, dense) + p("fusion.bias")
 
 
 def hybrid_weight_generator(p, ctx_temp, ctx_spat):
@@ -105,9 +142,18 @@ def hybrid_weight_generator(p, ctx_temp, ctx_spat):
     for i in (1, 2, 3):
         g = p.sub(f"generator{i}")
         f = cat([ctx_temp[i - 1], ctx_spat[i - 1]])
-        f = conv(g.sub("0"), f)
-        f = res_block(g.sub("1"), f, end_with_relu=True)
-        f = conv(g.sub("2"), f)
+        if packed_width() == 2 and i <= 2:
+            # the 1x and 2x generators run packed; the 4x one stays plain
+            def stack(xp, g=g):
+                fp = pconv(g.sub("0"), xp)
+                fp = p_res_block(g.sub("1"), fp, end_with_relu=True)
+                return pconv(g.sub("2"), fp)
+
+            f = packed_region(f, stack)
+        else:
+            f = conv(g.sub("0"), f)
+            f = res_block(g.sub("1"), f, end_with_relu=True)
+            f = conv(g.sub("2"), f)
         wmap = torch.softmax(f, dim=-1)
         maps_t.append(wmap[..., 0:1])
         maps_s.append(wmap[..., 1:2])
@@ -116,7 +162,12 @@ def hybrid_weight_generator(p, ctx_temp, ctx_spat):
 
 def _resampler_tail(p, up):
     """Full-res tail shared by the resamplers: conv_seq3 + two
-    DepthConvBlock refines."""
+    DepthConvBlock refines; under packed width 2 both come back packed."""
+    if packed_width() == 2:
+        fp = p_conv_seq3(p.sub("conv2"), pack_width(up.contiguous(), 2))
+        rp = p_depth_conv_block(p.sub("feature_refine.0"), fp)
+        rp = p_depth_conv_block(p.sub("feature_refine.1"), rp)
+        return rp, fp
     f = conv_seq3(p.sub("conv2"), up)
     refine = depth_conv_block(p.sub("feature_refine.0"), f)
     refine = depth_conv_block(p.sub("feature_refine.1"), refine)
@@ -128,7 +179,11 @@ def mv_resampler(p, mv_bl, shape_hr, s):
     f0 = conv_seq3(p.sub("conv1"), mv_bl)
     up = bilinear_resize(f0, shape_hr)
     refine, f = _resampler_tail(p, up)
-    return s * conv(p.sub("recon_conv"), refine + f)
+    if packed_width() == 2:
+        mv = unpack_width(pconv(p.sub("recon_conv"), refine + f), 2)
+    else:
+        mv = conv(p.sub("recon_conv"), refine + f)
+    return mv * float(s)  # a Python float, as in the JAX package
 
 
 def texture_resampler(p, texture_bl, shape_hr):
@@ -140,6 +195,8 @@ def texture_resampler(p, texture_bl, shape_hr):
     f = conv_seq3(p.sub("conv1"), f)
     up = bilinear_resize(f, shape_hr)
     refine, up_f = _resampler_tail(p, up)
+    if packed_width() == 2:
+        return unpack_width(refine + up_f, 2)
     return refine + up_f
 
 
@@ -228,6 +285,12 @@ def el_res_decoder(p, y_hat, c2, c3):
 
 def el_recon_generation(p, ctx, res):
     """first_conv + 2 UNets + recon conv (`lssvc_modules.py:279-292`)."""
+    if packed_width() == 2:
+        f = packed_region(cat([ctx, res]),
+                          lambda xp: pconv(p.sub("first_conv"), xp))
+        f = unet(p.sub("unet_1"), f)
+        f = unet(p.sub("unet_2"), f)
+        return f, packed_region(f, lambda xp: pconv(p.sub("recon_conv"), xp))
     f = conv(p.sub("first_conv"), cat([ctx, res]))
     f = unet(p.sub("unet_1"), f)
     f = unet(p.sub("unet_2"), f)

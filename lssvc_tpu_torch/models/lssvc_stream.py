@@ -31,6 +31,7 @@ from .components import cat, me_spynet
 from .dmc_stream import DecodeProfilingMixin, DMCExtend, _sync, quantize_i
 from .four_part_prior import PASS_MASKS, checkerboard_masks, \
     spatial_prior_net
+from .base import scoped
 from .lssvc import (
     LSSVC,
     el_recon_generation,
@@ -91,7 +92,8 @@ def enc_pass_symbols(pass_idx, y, means_4):
     path); the means come from the decoder's `dec_pass_update` chain."""
     masks = checkerboard_masks(y.shape[1], y.shape[2], y.device)
     y_4 = torch.chunk(y, 4, dim=-1)
-    return sum(torch.round((y_4[q] - means_4[q]) * masks[m])
+    # f32, as every symbol plane (`dmc_stream.quantize_i`)
+    return sum(torch.round((y_4[q].float() - means_4[q].float()) * masks[m])
                for q, m in enumerate(PASS_MASKS[pass_idx])).to(torch.int32)
 
 
@@ -174,14 +176,14 @@ def encode_device(params, x_el, ref_el, feature_el, texture, mv_bl_hat,
     p = P(params)
     mv_ctx, mv_ctx_prior = dec_mv_setup(p, mv_bl_hat, shape_hr, scale_factor)
     mv_y, mv_z = enc_mv_analysis(p, x_el, ref_el, mv_ctx)
-    mv_z_i = torch.round(mv_z).to(torch.int32)
+    mv_z_i = torch.round(mv_z.float()).to(torch.int32)
     mv_idx, mv_means = dec_mv_prior(p, mv_z_i.float(), mv_ctx_prior)
     mv_y_q_i = quantize_i(mv_y, mv_means)
     mv_hat, c1, c2, c3, warp_frame = dec_contexts(
         p, mv_y_q_i.float(), mv_means, mv_ctx, texture, ref_el, feature_el,
         shape_hr, od_offset_cap)
     y, z = enc_res_analysis(p, x_el, c1, c2, c3)
-    z_i = torch.round(z).to(torch.int32)
+    z_i = torch.round(z.float()).to(torch.int32)
     common = dec_common_params(p, z_i.float(), c3, y_bl_hat, shape_hr)
     # read on the host in write_planes, after the four passes are queued
     finite = finite_flags(mv_y=mv_y, mv_z=mv_z, mv_means=mv_means, y=y,
@@ -231,8 +233,10 @@ class LSSVCExtend(DecodeProfilingMixin, LSSVC):
     # channels of the EL's mv_z
     channel_mv = 64
 
-    def __init__(self, params: dict, device="cuda", od_offset_cap=None):
-        super().__init__(params, device=device, od_offset_cap=od_offset_cap)
+    def __init__(self, params: dict, device="cuda", od_offset_cap=None,
+                 **mode):
+        super().__init__(params, device=device, od_offset_cap=od_offset_cap,
+                         **mode)
         self._coder = None
         self._init_decoding_profiling()
 
@@ -242,7 +246,7 @@ class LSSVCExtend(DecodeProfilingMixin, LSSVC):
             self._coder = VideoCoder(self.flat_params())
             self.base_layer_model.update(force=force)
 
-    @torch.no_grad()
+    @scoped
     def compress(self, x_el, dpb):
         dpb = sanitize_dpb(dpb)
         texture, mv_bl_hat, y_bl_hat = _depad(dpb, self.pad_size)
@@ -252,7 +256,7 @@ class LSSVCExtend(DecodeProfilingMixin, LSSVC):
             self.shape_hr, self.scale_factor, self.od_offset_cap)
         return {"string": write_planes(self._coder, planes), "dpb": out_dpb}
 
-    @torch.no_grad()
+    @scoped
     def decompress(self, string, height, width, dpb):
         dpb = sanitize_dpb(dpb)
         p = P(self.flat_params())
@@ -294,6 +298,7 @@ class LSSVCExtend(DecodeProfilingMixin, LSSVC):
         return {"dpb": {"ref_frame_el": recon, "ref_feature_el": feature},
                 "context": c1}
 
+    @scoped
     def encode_decode(self, x_bl, x_el, dpb, output_path_bl, output_path_el,
                       pic_width, pic_height, pic_width_bl, pic_height_bl):
         """Both layers: the BL's stream, then the EL's, each written and

@@ -5,33 +5,159 @@ reference's Conv2d / ConvTranspose2d / PixelShuffle / pooling / GDN).  A
 conv runs `F.conv2d` on `x.permute(0, 3, 1, 2)`: for a contiguous NHWC
 tensor that is a channels_last view, which cuDNN takes as it is, and the
 result permuted back is contiguous NHWC again.
+
+The numerics are a `Mode` (the JAX package's process-wide precision,
+packed-width and 1x1-einsum switches): a model enters its mode with
+`precision_scope` around each public call, and the functions here read it
+through `current_mode()`.  Nothing outlives the scope.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import os
+import threading
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 
+PRECISIONS = ("fp32", "high", "bf16", "bf16_f32out")
+
+
 def set_fp32_parity():
-    """The fp32 parity mode: full-fp32, deterministic convolutions and
-    matmuls.
+    """The fp32 parity mode's backend flags, set process-wide (the tools
+    that time plain convolutions outside a model): full-fp32,
+    deterministic convolutions and matmuls.
 
     cuDNN runs fp32 convolutions in TF32 by default (about three decimal
     digits); the JAX package runs them at `Precision.HIGHEST`."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    # A stream's encoder and decoder (another process) must compute each
-    # conv bit for bit alike: cuDNN's heuristic, never its timed choice,
-    # and only algorithms that sum in a fixed order (`conv_transpose2d`
-    # takes forward convs for the same reason)
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
+
+
+@dataclasses.dataclass(frozen=True)
+class Mode:
+    """A model's numerics (the JAX package's process-wide switches of
+    `ops/nn.py:24-31,53-106,166-195`, held per model here).
+
+    precision:
+      "fp32"  f32 operands and outputs, TF32 off (the parity mode);
+      "high"  f32 activations, TF32 convolutions and matmuls on the card
+              (PyTorch's meaning of the word; the JAX package's 3-pass
+              bf16 `Precision.HIGH`), plain f32 on the CPU;
+      "bf16"  bf16 conv and matmul operands AND outputs, f32 accumulation,
+              f32 parameters; elementwise work in whatever dtype the conv
+              gave;
+      "bf16_f32out"  bf16 operands, f32 outputs (the bench ablation): the
+              operands are rounded to bf16 and kept as f32 tensors, and
+              the conv runs with TF32 on; a bf16 value is exact in TF32 and
+              its products are exact in f32, so this is "bf16 operands, f32
+              accumulation" on the tensor cores.
+    packed_width: 2 routes the full-res stride-1 stacks through the
+      width-packed domain (`ops/packed.py`).
+    conv1x1_einsum: 1x1 stride-1 ungrouped convs as matmuls.
+    packed_ctx: under packed width 2, the EL pair warp stores straight into
+      the packed domain and OffsetDiversity reads it there (the JAX
+      package's `LSSVC_PACKED_CTX`, `models/lssvc.py:34,159-178`).
+    cache: the model's packed kernels (`models/packed_blocks.py`)."""
+
+    precision: str = "fp32"
+    packed_width: int = 1
+    conv1x1_einsum: bool = False
+    packed_ctx: bool = False
+    cache: dict | None = dataclasses.field(default=None, compare=False)
+
+    def __post_init__(self):
+        if self.precision not in PRECISIONS:
+            raise ValueError(f"precision {self.precision!r}, expected one "
+                             f"of {PRECISIONS}")
+        if self.packed_width not in (1, 2):
+            raise ValueError(f"packed_width {self.packed_width}, expected "
+                             "1 or 2")
+
+
+_FP32 = Mode()
+_STATE = threading.local()
+
+
+def current_mode() -> Mode:
+    """The mode of the innermost `precision_scope` (fp32 outside any)."""
+    return getattr(_STATE, "mode", _FP32)
+
+
+@contextlib.contextmanager
+def precision_scope(mode: Mode):
+    """Run the block in `mode`: the functions of the port read it through
+    `current_mode()`, and the backend flags are set for it (TF32 only for
+    "high" and "bf16_f32out"; in every mode cuDNN's heuristic, never its
+    timed choice, and only algorithms that sum in a fixed order, so that a
+    stream's encoder and decoder, in another process, compute each conv
+    bit for bit alike: `conv_transpose2d` takes forward convs for the same
+    reason).  Everything is restored on exit, so nothing leaks into the
+    caller or into another model."""
+    tf32 = mode.precision in ("high", "bf16_f32out")
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    before = (current_mode(), cudnn.allow_tf32, matmul.allow_tf32,
+              cudnn.benchmark, cudnn.deterministic)
+    _STATE.mode = mode
+    cudnn.allow_tf32 = matmul.allow_tf32 = tf32
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        yield mode
+    finally:
+        (_STATE.mode, cudnn.allow_tf32, matmul.allow_tf32, cudnn.benchmark,
+         cudnn.deterministic) = before
+
+
+def compute_dtype() -> torch.dtype:
+    """The dtype of conv and matmul operands in the current mode."""
+    return (torch.bfloat16 if current_mode().precision.startswith("bf16")
+            else torch.float32)
+
+
+def packed_width() -> int:
+    return current_mode().packed_width
+
+
+def _operands(x, w, b):
+    """(x, w, b) as the current mode's conv takes them: bf16 for "bf16"
+    (the bias too: F.conv2d adds it inside the conv, so the output is
+    rounded once, where the JAX package rounds the conv and then the sum,
+    `ops/nn.py:254`); bf16-rounded f32 for "bf16_f32out"; as given
+    otherwise."""
+    prec = current_mode().precision
+    if prec == "bf16":
+        bf = torch.bfloat16
+        return x.to(bf), w.to(bf), None if b is None else b.to(bf)
+    if prec == "bf16_f32out":
+        def rounded(t):
+            return t.to(torch.bfloat16).float()
+
+        return rounded(x), rounded(w), b
+    return x, w, b
+
+
+def matmul_f32out(a, b):
+    """a @ b with operands in the compute dtype and an f32 product (the
+    JAX package's `einsum(..., preferred_element_type=float32)`).  bf16
+    operands are rounded, kept as f32 tensors and multiplied with TF32 on:
+    a bf16 value is exact in TF32, so this is bf16 operands, f32
+    accumulation, on the tensor cores."""
+    if compute_dtype() == torch.float32:
+        return torch.matmul(a, b)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return torch.matmul(a.to(torch.bfloat16).float(),
+                            b.to(torch.bfloat16).float())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 @contextlib.contextmanager
@@ -45,6 +171,26 @@ def fp32_matmul():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def precision_from_cli(precision: str, int8_calib=None) -> str:
+    """The CLIs' `--precision`: fp32, high or bf16 (the JAX package's
+    `apply_precision_cli` without int8)."""
+    if precision == "int8" or int8_calib:
+        raise NotImplementedError(
+            "--precision int8 and --int8_calib belong to the int8 slice of "
+            "the port (lssvc_tpu/ops/int8.py, harness/calibrate.py), which "
+            "is not ported yet")
+    if precision not in ("fp32", "high", "bf16"):
+        raise ValueError(f"--precision {precision!r}: expected fp32, high "
+                         "or bf16")
+    return precision
+
+
+def packed_ctx_from_env() -> bool:
+    """`LSSVC_PACKED_CTX=1`: the fused packed pair warp under packed width
+    2, read as the JAX package's `models/lssvc.py:34` reads it."""
+    return os.environ.get("LSSVC_PACKED_CTX", "0") == "1"
 
 
 # Serving cap on OffsetDiversity's diversity offsets, in pixels (the JAX
@@ -82,11 +228,20 @@ def pad_nhwc(x, pad_lrtb, value=0.0):
 
 
 def conv2d(x, w, b=None, stride=1, padding=None, groups=1):
-    """2D convolution. x: NHWC, w: OIHW ((out, in/groups, kh, kw)).
+    """2D convolution in the current mode. x: NHWC, w: OIHW ((out,
+    in/groups, kh, kw)).
 
     `padding` defaults to (k-1)//2 per axis; pass an int or (ph, pw)."""
     if padding is None:
         padding = ((w.shape[2] - 1) // 2, (w.shape[3] - 1) // 2)
+    x, w, b = _operands(x, w, b)
+    if (current_mode().conv1x1_einsum and w.shape[2:] == (1, 1)
+            and groups == 1 and stride in (1, (1, 1))
+            and padding in (0, (0, 0))):
+        # the JAX package's `ops/nn.py:184-195,248-255`: a matmul, then
+        # the bias in the output's dtype
+        out = torch.matmul(x, w[:, :, 0, 0].t())
+        return out if b is None else out + b.to(out.dtype)
     return _nhwc(F.conv2d(_nchw(x), w, b, stride=stride, padding=padding,
                           groups=groups))
 
@@ -183,7 +338,10 @@ def gdn(x, beta, gamma, inverse: bool = False):
     (inverse) or x * rsqrt(norm)."""
     beta = torch.square(torch.clamp(beta, min=_BETA_BOUND)) - _PEDESTAL
     gamma = torch.square(torch.clamp(gamma, min=_GAMMA_BOUND)) - _PEDESTAL
-    norm = torch.matmul(torch.square(x), gamma.t()) + beta
+    # the JAX package's einsum of bf16 x^2 with the f32 gamma computes in
+    # f32 (type promotion), and so does x * rsqrt(f32 norm); torch's
+    # matmul takes one dtype, so the square is cast explicitly
+    norm = torch.matmul(torch.square(x).to(gamma.dtype), gamma.t()) + beta
     if inverse:
         return x * torch.sqrt(norm)
     return x * torch.rsqrt(norm)

@@ -24,6 +24,8 @@ import functools
 import numpy as np
 import torch
 
+from .nn import compute_dtype
+
 
 def clamp_flow(flow, h, w):
     """Clamp a pixel-space flow field (..., 2: (dx, dy)) to +-(W, H).
@@ -197,7 +199,9 @@ def bilinear_resize(x, out_hw):
     """Resize NHWC `x` to (out_h, out_w), torch bilinear align_corners=False.
 
     Exact 2x / 0.5x factors take the 2-tap lerp path; other factors apply
-    the 2-banded resize matrices as dense products."""
+    the 2-banded resize matrices as dense products, matrices and operand in
+    the current mode's compute dtype (`lssvc_tpu/ops/warp.py:276-285`),
+    the result in x's dtype."""
     out_h, out_w = int(out_hw[0]), int(out_hw[1])
     h, w = x.shape[1], x.shape[2]
     if (h, w) == (out_h, out_w):
@@ -206,10 +210,11 @@ def bilinear_resize(x, out_hw):
         return bilinear_upsample2(x)
     if (2 * out_h, 2 * out_w) == (h, w):
         return bilinear_downsample2(x)
-    mh = torch.from_numpy(_bilinear_matrix(h, out_h)).to(x)
-    mw = torch.from_numpy(_bilinear_matrix(w, out_w)).to(x)
-    y = torch.einsum("oh,nhwc->nowc", mh, x)
-    return torch.einsum("pw,nowc->nopc", mw, y)
+    dt = compute_dtype()
+    mh = torch.from_numpy(_bilinear_matrix(h, out_h)).to(x.device, dt)
+    mw = torch.from_numpy(_bilinear_matrix(w, out_w)).to(x.device, dt)
+    y = torch.einsum("oh,nhwc->nowc", mh, x.to(dt))
+    return torch.einsum("pw,nowc->nopc", mw, y).to(x.dtype)
 
 
 def _up2_axis(x, axis):

@@ -1,8 +1,8 @@
 """Task runner for evaluation sweeps (the JAX package's
 `parallel/scheduler.py:27-112`, one worker).
 
-Models are cached per checkpoint path, so a sweep over
-(dataset x ratio x sequence) loads each network once.  Under
+Models are cached per checkpoint path and precision, so a sweep over
+(dataset x ratio x sequence) loads each network once in each precision.  Under
 `write_stream` a model builds its CDF tables on load, and its bins go to
 `<stream_path>/<sequence>/<model_idx>/<ratio>/{BL,EL}/`.  Tasks run one
 after another on one device; a pool of workers (one a GPU) is a later step.
@@ -70,36 +70,44 @@ def _checked(sd: dict, shapes: dict, path: str) -> dict:
     return {k: sd[k].float() for k in shapes}
 
 
-def load_intra(path: str, device) -> IntraSS:
+def load_intra(path: str, device, precision="fp32") -> IntraSS:
     sd = _state_dict(path, "intra_ss")
     shapes = _shapes(init_intra_ss, int(sd[BL_CHANNEL_KEY].shape[0]))
-    return IntraSS(_checked(sd, shapes, path), device=device)
+    return IntraSS(_checked(sd, shapes, path), device=device,
+                   precision=precision)
 
 
-def load_video(path: str, device, od_offset_cap) -> LSSVCExtend:
+def load_video(path: str, device, od_offset_cap,
+               precision="fp32") -> LSSVCExtend:
     """LSSVCExtend with OffsetDiversity's cap `od_offset_cap` (px, None for
-    no cap)."""
+    no cap), in `precision`."""
     params = _checked(_state_dict(path, "lssvc"), _shapes(init_lssvc), path)
-    return LSSVCExtend(params, device=device, od_offset_cap=od_offset_cap)
+    return LSSVCExtend(params, device=device, od_offset_cap=od_offset_cap,
+                       precision=precision)
 
 
 class Runner:
-    """Runs tasks on one device, loading each checkpoint once; the video
-    models take OffsetDiversity's cap `od_offset_cap`."""
+    """Runs tasks on one device, loading each checkpoint once a precision
+    (a task's "precision", else `precision`); the video models take
+    OffsetDiversity's cap `od_offset_cap`."""
 
-    def __init__(self, device, od_offset_cap):
+    def __init__(self, device, od_offset_cap, precision="fp32"):
         self.device = device
         self.od_offset_cap = od_offset_cap
+        self.precision = precision
         self.models = {}
 
     def _models(self, task):
+        precision = task.get("precision", self.precision)
         key = (task["i_frame_model_path"],
-               None if task.get("force_intra") else task["video_model_path"])
+               None if task.get("force_intra") else task["video_model_path"],
+               precision)
         if key not in self.models:
-            intra = load_intra(task["i_frame_model_path"], self.device)
+            intra = load_intra(task["i_frame_model_path"], self.device,
+                               precision)
             video = (None if task.get("force_intra")
                      else load_video(task["video_model_path"], self.device,
-                                     self.od_offset_cap))
+                                     self.od_offset_cap, precision))
             if task.get("write_stream"):
                 for model in (intra, video):
                     if model is not None:

@@ -7,12 +7,14 @@ results, with estimated bits or, with `--write_stream 1`, real bitstreams.
         --output_path out --ratios x2 [--device cpu] \\
         [--write_stream 1 --stream_path bins [--decoding_profiling 1]]
 
-Runs on `cuda` unless `--device` says otherwise.  Streams go to
+Runs on `cuda` unless `--device` says otherwise, in `--precision` fp32
+(the parity mode; default), high (TF32 convs and matmuls on the card) or
+bf16 (bf16 conv operands and outputs, f32 accumulation).  Streams go to
 `<stream_path>/<sequence>/<model_idx>/<ratio>/{BL,EL}/<frame>.bin`, and
-`python -m lssvc_tpu_torch.decode` decodes them.  OffsetDiversity's
-offset cap is `LSSVC_OD_OFFSET_CAP` px (10 unless set; 0 or empty: no
-cap).  Flags of paths that are not ported yet (latent RDO, other
-precisions, PNG artifacts, more than one worker) raise.
+`python -m lssvc_tpu_torch.decode` decodes them, in the same precision.
+OffsetDiversity's offset cap is `LSSVC_OD_OFFSET_CAP` px (10 unless set; 0
+or empty: no cap).  Flags of paths that are not ported yet (latent RDO,
+int8, PNG artifacts, more than one worker) raise.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import os
 import time
 
 from .harness.results import filter_dict
-from .ops.nn import od_offset_cap_from_env
+from .ops.nn import od_offset_cap_from_env, precision_from_cli
 from .parallel.scheduler import Runner
 from .utils.platform import resolve_device
 
@@ -89,7 +91,11 @@ def parse_args(argv=None):
     parser.add_argument("--verbose", type=int, default=0)
     parser.add_argument("--model_name", type=str, default="LSSVC_net")
     parser.add_argument("--precision", type=str, default="fp32",
-                        choices=["fp32", "high", "bf16", "int8"])
+                        choices=["fp32", "high", "bf16", "int8"],
+                        help="fp32 = reference parity, high = TF32 convs "
+                             "and matmuls on the GPU, bf16 = bf16 operands "
+                             "and outputs (a bf16 stream decodes only in "
+                             "bf16); int8 is not ported yet")
     parser.add_argument("--int8_calib", type=str, default=None)
     parser.add_argument("--ratios", type=str, nargs="+",
                         default=["x2", "x1_5"],
@@ -99,10 +105,9 @@ def parse_args(argv=None):
 
 def refuse_unported(args):
     """Raise on a flag whose path is not ported yet."""
+    precision_from_cli(args.precision, args.int8_calib)  # int8 raises
     unported = [flag for flag, on in (
         ("--intra_rdo", args.intra_rdo),
-        ("--precision " + args.precision, args.precision != "fp32"),
-        ("--int8_calib", args.int8_calib is not None),
         ("--save_decoded_frame", args.save_decoded_frame),
         ("--save_decoded_mv", args.save_decoded_mv),
         ("--save_warp_frame", args.save_warp_frame),
@@ -147,6 +152,7 @@ def build_tasks(args, config):
                         "ds_name": ds_name,
                         "verbose": args.verbose,
                         "decoding_profiling": args.decoding_profiling,
+                        "precision": args.precision,
                     })
     return tasks
 
@@ -201,7 +207,8 @@ def main(argv=None):
     with open(args.test_config) as f:
         config = json.load(f)
     tasks = build_tasks(args, config)
-    results = Runner(device, od_offset_cap_from_env()).run_tasks(tasks)
+    results = Runner(device, od_offset_cap_from_env(),
+                     args.precision).run_tasks(tasks)
     write_results(args, config, results)
 
     count_frames = sum({(t["ds_name"], t["video_path"]): t["frame_num"]

@@ -1,10 +1,12 @@
-"""Which path the codec's fp32 convolutions can take on the GPU.
+"""Which path the codec's convolutions can take on the GPU.
 
-    python -m lssvc_tpu_torch.tools.conv_paths
+    python -m lssvc_tpu_torch.tools.conv_paths [--dtype bf16]
 
 Times the 3x3 conv shapes of a 1080p IntraSS I-frame (IntraNoAR's
 192-channel layers at 144x240, 288x480 and 72x120, and the EL's
-64-channel layers) through five PyTorch paths, all fp32 with TF32 off:
+64-channel layers) through five PyTorch paths, all fp32 with TF32 off
+(or, with `--dtype bf16`, on bf16 inputs and weights, the bf16 serving
+mode's convs; then only the conv shapes are timed):
 
   port       `ops.conv2d`: F.conv2d on the NHWC tensor's channels_last
              view, the algorithm cuDNN's heuristic picks
@@ -27,10 +29,15 @@ adds with atomics), in turns (cuDNN, port, port, cuDNN; 3 frames each
 after a warm-up): s per frame, and whether the frame run twice gives the
 same bits.
 Prints one JSON line.  Needs a CUDA device.
+
+The model runs enter the model's own mode (`precision_scope`, which turns
+`cudnn.benchmark` off and `cudnn.deterministic` on) and then each cuDNN
+mode inside it, so the mode timed is the one named.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 
@@ -60,6 +67,25 @@ MODES = {"port": lambda: _cudnn(),
          "no_cudnn": lambda: _cudnn(enabled=False)}
 
 
+@contextlib.contextmanager
+def _model_in(model, mode):
+    """The model's calls in cuDNN `mode`, entered inside the model's own
+    scope (which alone would set benchmark off, deterministic on)."""
+    own = model.scope
+
+    def scope():
+        stack = contextlib.ExitStack()
+        stack.enter_context(own())
+        stack.enter_context(mode())
+        return stack
+
+    model.scope = scope
+    try:
+        yield
+    finally:
+        del model.scope
+
+
 def _im2col(x, w, b):
     n, h, wd, _ = x.shape
     cols = F.unfold(x.permute(0, 3, 1, 2), w.shape[2], padding=1)
@@ -67,12 +93,15 @@ def _im2col(x, w, b):
     return y.reshape(n, w.shape[0], h, wd).permute(0, 2, 3, 1)
 
 
-def conv_paths(dev, c_in, c_out, h, w) -> dict:
-    """ms and relative max error of each path at one shape."""
+def conv_paths(dev, c_in, c_out, h, w, dtype=torch.float32) -> dict:
+    """ms and relative max error of each path at one shape, on inputs,
+    weights and bias of `dtype` (the error against a float64 conv of the
+    same values)."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randn((1, h, w, c_in), generator=gen, device=dev)
-    wt = torch.randn((c_out, c_in, 3, 3), generator=gen, device=dev) / 40
-    b = torch.randn((c_out,), generator=gen, device=dev)
+    x = torch.randn((1, h, w, c_in), generator=gen, device=dev).to(dtype)
+    wt = (torch.randn((c_out, c_in, 3, 3), generator=gen, device=dev)
+          / 40).to(dtype)
+    b = torch.randn((c_out,), generator=gen, device=dev).to(dtype)
     ref = conv2d(x.double(), wt.double(), b.double())
     x_nchw = x.permute(0, 3, 1, 2).contiguous()
     paths = {
@@ -103,7 +132,7 @@ def iframe_modes(dev) -> dict:
     x_el = torch.rand((1, *EL_HW, 3), generator=gen, device=dev)
     out, base = {}, None
     for name, mode in MODES.items():
-        with mode():
+        with _model_in(model, mode):
             model.forward(x_bl, x_el)  # warm-up (and cuDNN's own timing)
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
@@ -152,7 +181,7 @@ def pframe_deconv_paths(dev) -> dict:
     try:
         for name in ("cudnn_transposed", "port", "port", "cudnn_transposed"):
             components.conv_transpose2d, mode = paths[name]
-            with mode():
+            with _model_in(model, mode):
                 first = model.forward_one_frame(*args)["dpb"]
                 torch.cuda.synchronize()
                 start = torch.cuda.Event(enable_timing=True)
@@ -170,17 +199,23 @@ def pframe_deconv_paths(dev) -> dict:
     return out
 
 
-def main():
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--dtype", choices=["fp32", "bf16"], default="fp32")
+    args = p.parse_args(argv)
     dev = require_cuda()
     set_fp32_parity()
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     convs = [{"c_in": ci, "c_out": co, "hw": [h, w],
-              **conv_paths(dev, ci, co, h, w)} for ci, co, h, w in SHAPES]
-    print(json.dumps({"card": card(), "precision": "fp32, TF32 off",
-                      "torch": torch.__version__,
-                      "cudnn": torch.backends.cudnn.version(),
-                      "convs": convs, "iframe": iframe_modes(dev),
-                      "pframe": pframe_deconv_paths(dev)}),
-          flush=True)
+              **conv_paths(dev, ci, co, h, w, dtype)}
+             for ci, co, h, w in SHAPES]
+    out = {"card": card(), "precision": ("fp32, TF32 off" if args.dtype ==
+                                         "fp32" else "bf16 operands"),
+           "torch": torch.__version__,
+           "cudnn": torch.backends.cudnn.version(), "convs": convs}
+    if args.dtype == "fp32":
+        out.update(iframe=iframe_modes(dev), pframe=pframe_deconv_paths(dev))
+    print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

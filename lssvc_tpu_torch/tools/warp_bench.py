@@ -9,18 +9,26 @@ full-resolution feature warped by one flow as a pair, and the two smaller
 feature scales; then OffsetDiversity's one grouped warp (`GROUPED`).  Each
 call is timed as a whole (CUDA events, inputs uniform in [-1, 1), smooth
 flows of amplitude `TIME_FLOW_PX`), beside its byte bound; the EL pair and
-the grouped warp again on random per-pixel flows.  One JSON line, then the
-card's name and power limit.
+the grouped warp again on random per-pixel flows.  Then (`packed_run`) the
+EL pair and the grouped warp in f32 and bf16, each in the plain layout and
+through its width-packed store (`packed_out=True`: the pair as the fused
+packed pair warp of `LSSVC_PACKED_CTX`, the grouped warp as the
+`grouped_packed_out` case of the JAX package's
+`tools/warp_overhead_bench.py:150-168`), beside their byte bounds.  One
+JSON line, then the card's name and power limit.
 
 The tool uses only the wrappers' public calls (`flow_warp`,
 `flow_warp_pair`, `grouped_warp`), so it also times an older tree of the
 package in the same way:
 
     PYTHONPATH=<older tree> python lssvc_tpu_torch/tools/warp_bench.py
+
+(a tree whose wrappers take no `packed_out` skips `packed_run`).
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 
 import torch
@@ -105,15 +113,44 @@ def flow_inputs(gen, shape, smooth=True, dtype=torch.float32):
     return xs, flow
 
 
-def grouped_inputs(gen, smooth=True):
+def grouped_inputs(gen, smooth=True, dtype=torch.float32):
     """x, flow_x, flow_y, mask of OffsetDiversity's launch."""
     n, h, w, c_src, go, _ = GROUPED
     units = (n, h, w, go)
     fx, fy = ((smooth_field(gen, units, TIME_FLOW_PX) if smooth
                else uniform(gen, units, -TIME_FLOW_PX, TIME_FLOW_PX))
               for _ in range(2))
-    return (uniform(gen, (n, h, w, c_src), -1, 1), fx, fy,
+    return (uniform(gen, (n, h, w, c_src), -1, 1).to(dtype), fx, fy,
             uniform(gen, units, 0, 1))
+
+
+def packed_run(dev):
+    """The EL pair and the grouped warp at the model's shapes, f32 and
+    bf16, plain layout and packed store: {dtype: {"pair_ms",
+    "pair_packed_ms", "pair_bound_ms", "grouped_ms", "grouped_packed_ms",
+    "grouped_bound_ms"}}.  A packed store moves the same bytes as the
+    plain layout, so it has the same bound."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    n, h, w, ca, cb = EL_PAIR
+    gn = GROUPED[-1]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        elt = torch.finfo(dtype).bits // 8
+        xs, flow = flow_inputs(gen, EL_PAIR, dtype=dtype)
+        x, fx, fy, m = grouped_inputs(gen, dtype=dtype)
+        out[str(dtype)[6:]] = {
+            "pair_ms": time_ms(lambda: wk.flow_warp_pair(*xs, flow)),
+            "pair_packed_ms": time_ms(
+                lambda: wk.flow_warp_pair(*xs, flow, packed_out=True)),
+            "pair_bound_ms": bound_ms(*flow_warp_cost(n, h, w, ca + cb,
+                                                      elt))[0],
+            "grouped_ms": time_ms(lambda: wk.grouped_warp(x, fx, fy, m, gn)),
+            "grouped_packed_ms": time_ms(
+                lambda: wk.grouped_warp(x, fx, fy, m, gn, packed_out=True)),
+            "grouped_bound_ms": bound_ms(*grouped_cost(*GROUPED, elt))[0],
+        }
+        del xs, flow, x, fx, fy, m
+    return out
 
 
 def run(dev):
@@ -146,7 +183,10 @@ def run(dev):
 
 
 def main():
-    result = run(require_cuda())
+    dev = require_cuda()
+    result = run(dev)
+    if "packed_out" in inspect.signature(wk.flow_warp_pair).parameters:
+        result["packed"] = packed_run(dev)
     print(json.dumps(result), flush=True)
     print(card(), flush=True)
 

@@ -372,3 +372,65 @@ def test_card_stream_decodes_in_a_fresh_process(dev, tmp_path, monkeypatch):
         want = b"".join(yuv_frame(x, (0, 0, 0, 0))
                         for x in pictures[f"x_hat_{layer}"])
         assert (tmp_path / f"{layer}.yuv").read_bytes() == want, layer
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ca,cb", [(3, 48), (3, 5)])
+def test_pair_packed_store_equals_plain(dev, dtype, ca, cb):
+    """The fused packed pair warp: both sources into one (N, H, W, ca+cb)
+    buffer in one launch, viewed width-packed; bit for bit the plain warp
+    of their concat, packed.  51 channels a row put both sources on the
+    scalar path; a launch counts on `launches` and `packed_launches`."""
+    a = _uniform((2, 21, 70, ca), 1, -1, 1, dev, dtype)
+    b = _uniform((2, 21, 70, cb), 2, -1, 1, dev, dtype)
+    flow = _flow(a.shape, 3, 40, dev)
+    n, p = wk.flow_warp.launches, wk.flow_warp.packed_launches
+    out = wk.flow_warp_pair(a, b, flow, packed_out=True)
+    assert (wk.flow_warp.launches, wk.flow_warp.packed_launches) == \
+        (n + 1, p + 1)
+    assert out.shape == (2, 21, 35, 2 * (ca + cb))
+    _bits(out, plain.flow_warp(torch.cat([a, b], -1), flow)
+          .reshape(out.shape))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_packed_store_equals_plain(dev, dtype):
+    """The grouped warp's packed store is its output viewed packed: bit for
+    bit the plain version, packed; odd widths raise."""
+    x = _uniform((1, 40, 96, 48), 4, -1, 1, dev, dtype)
+    fx, fy = (_uniform((1, 40, 96, 32), s, -12, 12, dev) for s in (5, 6))
+    m = _uniform((1, 40, 96, 32), 7, 0, 1, dev)
+    n, p = wk.grouped_warp.launches, wk.grouped_warp.packed_launches
+    out = wk.grouped_warp(x, fx, fy, m, 16, packed_out=True)
+    assert (wk.grouped_warp.launches, wk.grouped_warp.packed_launches) == \
+        (n + 1, p + 1)
+    _bits(out, plain.grouped_warp_plain(x, fx, fy, m, 16).reshape(out.shape))
+    with pytest.raises(ValueError, match="even width"):
+        wk.grouped_warp(x[:, :, :95], fx[:, :, :95], fy[:, :, :95],
+                        m[:, :, :95], 16, packed_out=True)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "high"])
+def test_precision_frames_card_agree_with_cpu(dev, precision):
+    """A bf16 or high two-layer P-frame (EL 128x128 / BL 64x64) on the card
+    against the same frame on the CPU in the same precision, with the CPU
+    tests' tolerances (tests/test_torch_precision.py): bits within 2%, the
+    reconstructions within 5% relative RMS.  (On the CPU `high` is plain
+    f32, so the card's TF32 frame is held to the fp32 frame.)"""
+    params = init_lssvc(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(9)
+    shapes = [(1, 64, 64, 3), (1, 128, 128, 3), (1, 64, 64, 3),
+              (1, 128, 128, 3), (1, 64, 64, 64), (1, 128, 128, 48)]
+    args = [torch.from_numpy(rng.random(s, np.float32)) for s in shapes]
+    outs = []
+    for device in ("cpu", dev):
+        model = LSSVC(params, device=device, od_offset_cap=10.0,
+                      precision=precision)
+        model.set_scale_information(2.0, (128, 128), (0, 0, 0, 0))
+        outs.append(model.forward_one_frame(*(a.to(device) for a in args)))
+    cpu, card = outs
+    for k in ("bit_bl", "bit_el"):
+        assert abs(float(card[k]) - float(cpu[k])) <= 0.02 * abs(float(cpu[k]))
+    for k in ("ref_frame_bl", "ref_frame_el"):
+        assert card["dpb"][k].dtype == cpu["dpb"][k].dtype
+        assert _rel_rms(card["dpb"][k], cpu["dpb"][k]) <= 0.05
