@@ -27,7 +27,8 @@ Phases (any failure exits non-zero; nothing is caught):
    launch of a frame on its own line with its bound, their sum, the EL
    pair as one whole flow_warp_pair call, grouped_warp on smooth and on
    random flows, beside the plain versions and the one PyTorch call
-   computing the same function where one exists.
+   computing the same function where one exists (for the EL pair in f32
+   and bf16).
 5. Whole path, CPU against card: one two-layer P-frame at EL 128x128 /
    BL 64x64 from the same weights on both devices (plain warps on the CPU,
    kernels on the card); bits within 3e-3 relative, recon within 5%
@@ -50,7 +51,7 @@ Phases (any failure exits non-zero; nothing is caught):
    0 just before and read just after; each variant through flow_warp /
    grouped_warp launches its kernel once and equals the plain version
    within check_equal's tolerance; then each kernel's plain version,
-   library call and bound at those shapes.
+   library call and bound at those shapes, and its time in bf16.
 8. GOP path: the port's CLI, `lssvc_tpu_torch.test.main(argv)` called
    in-process with `--ratios x2` on its default device, codes a synthetic
    1080p sequence (1920x1080 8-bit 4:2:0, 6 frames of a smooth texture
@@ -101,9 +102,12 @@ Phases (any failure exits non-zero; nothing is caught):
    warp) against fp32 plain within 2e-4 for all but 0.5% of elements.
 13. Packed stores: the fused packed pair warp (3 + 48 channels at
    1152x1920) and grouped_warp's packed store (48 -> 96) bit for bit
-   against their plain versions in f32 and bf16; then warp_bench's
-   `packed_run` with the counts set to 0 just before and read just after;
-   times beside the byte bound, the plain versions and F.grid_sample.
+   against their plain versions in f32 and bf16; the packed pair also
+   with its sources one element past 16-byte alignment, into an output one
+   element past it, and with a source past 2^31 elements (64-bit offsets);
+   then warp_bench's `packed_run` with the counts set to 0 just before and
+   read just after; times beside the byte bound, the plain versions and
+   F.grid_sample, in f32 and bf16.
 14. bf16 stream path: the first 3 frames (I P P) of phase 8's sequence
    through the CLI in process with `--precision bf16 --write_stream 1`;
    `python -m lssvc_tpu_torch.decode --precision bf16` in a fresh
@@ -508,6 +512,7 @@ def phase_kernels(dev, calls):
     xs, flow = warp_bench.flow_inputs(gen, warp_bench.EL_PAIR)
     plain_ms = time_ms(lambda: plain.flow_warp(torch.cat(xs, -1), flow), 5, 1)
     library_ms = grid_sample_ms(torch.cat(xs, -1), flow)
+    library_ms_bf16 = grid_sample_ms(torch.cat(xs, -1).to(bf16), flow)
     b_ms, b_by = bound_ms(*flow_warp_cost(n, h, w, ca + cb, 4))
     fw_entry = {
         "name": "flow_warp", "route": "cuda", "source": SOURCE,
@@ -518,13 +523,15 @@ def phase_kernels(dev, calls):
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
         "library_call": "F.grid_sample(bilinear, border, align_corners=True)"
                         " on the two tensors' concat",
+        "library_ms_bfloat16": library_ms_bf16,
         "ms_random_flows": bench["pair_ms_random_flows"],
         "frame_ms": bench["frame_ms"],
         "frame_bound_ms": bench["frame_bound_ms"],
     }
     log(f"# flow_warp_pair at the EL pair {bench['pair_ms']:.4f} ms, "
         f"{bench['pair_ms_random_flows']:.4f} ms on random flows (bound "
-        f"{b_ms:.4f}, plain {plain_ms:.4f}, grid_sample {library_ms:.4f}); "
+        f"{b_ms:.4f}, plain {plain_ms:.4f}, grid_sample {library_ms:.4f}, "
+        f"in bf16 {library_ms_bf16:.4f}); "
         f"the {len(bench['frame'])} launches of a frame "
         f"{bench['frame_ms']:.4f} ms (bound {bench['frame_bound_ms']:.4f})")
     del xs, flow
@@ -725,6 +732,16 @@ def phase_warp_tiers(dev):
                 lambda: plain.grouped_warp_plain(x, *units, gn), 3, 1),
             "library_ms": None,
             "bound_ms": bound_ms(*grouped_cost(n, h, w, c, go, gn, elt))[0]}}
+    # the same two kernels in bf16 at the bench's shapes
+    x16 = x.to(torch.bfloat16)
+    numbers["flow_warp"]["bf16_ms"] = time_ms(lambda: wk.flow_warp(x16, flow))
+    numbers["grouped_warp"]["bf16_ms"] = time_ms(
+        lambda: wk.grouped_warp(x16, *units, gn))
+    numbers["flow_warp"]["bf16_bound_ms"] = bound_ms(
+        *flow_warp_cost(n, h, w, c, 2))[0]
+    numbers["grouped_warp"]["bf16_bound_ms"] = bound_ms(
+        *grouped_cost(n, h, w, c, go, gn, 2))[0]
+    del x16
     for name, nums in numbers.items():
         nums["launches"] = launches[name]
         nums["ms"] = {r["name"]: r["ms"] for r in rows
@@ -1473,13 +1490,40 @@ def phase_precision_gates(dev):
     return out
 
 
+def check_pair_packed(name, xs, flow, out=None):
+    """The packed pair store of xs = [a, b] bit for bit against the plain
+    warp of their concat: through `flow_warp_pair(packed_out=True)` (one
+    launch, counted as packed), or, given `out` (N, H, W, ca+cb), through
+    the C entry point into it (an output the wrapper would not allocate,
+    e.g. one element past alignment)."""
+    a, b = xs
+    n, h, w, ca = a.shape
+    ref = plain.flow_warp(torch.cat(xs, -1), flow)
+    if out is None:
+        c0 = _counts()
+        out = wk.flow_warp_pair(a, b, flow, packed_out=True)
+        c1 = _counts()
+        if (c1["flow_warp"], c1["flow_warp_packed"]) != (
+                c0["flow_warp"] + 1, c0["flow_warp_packed"] + 1):
+            raise AssertionError(f"{name}: launches {c0} -> {c1}")
+        ref = ref.view(out.shape)
+    else:
+        wk._raise_on(wk._lib().lssvc_flow_warp_pair_packed(
+            a.data_ptr(), b.data_ptr(), flow.data_ptr(), out.data_ptr(), n,
+            h, w, ca, b.shape[-1], wk._DTYPES[a.dtype],
+            torch.cuda.current_stream().cuda_stream), name)
+    return check_bits(f"{name} -> {tuple(out.shape)}", out, ref)
+
+
 def phase_packed_stores(dev):
     """Phase 13: the two packed stores at the model's launch shapes (the
     EL pair, 3 + 48 channels at 1152x1920; grouped_warp 48 -> 96), f32 and
-    bf16, bit for bit against their plain versions; then
-    tools/warp_bench.py's `packed_run` (its path), the counts set to 0
-    just before and read just after; the plain versions' and
-    F.grid_sample's times beside the byte bound."""
+    bf16, bit for bit against their plain versions; the packed pair also
+    with a and b one element past 16-byte alignment, into an output one
+    element past it (the C entry point), and with a past 2^31 elements;
+    then tools/warp_bench.py's `packed_run` (its path), the counts set to
+    0 just before and read just after; the plain versions' and
+    F.grid_sample's times (f32 and bf16) beside the byte bound."""
     gen = torch.Generator(device=dev).manual_seed(5)
     n, h, w, ca, cb = warp_bench.EL_PAIR
     _, _, _, c_src, go, gn = warp_bench.GROUPED
@@ -1489,14 +1533,16 @@ def phase_packed_stores(dev):
         tag = str(dtype)[6:]
         xs, flow = warp_bench.flow_inputs(gen, warp_bench.EL_PAIR,
                                           dtype=dtype)
-        c0 = _counts()
-        out = wk.flow_warp_pair(*xs, flow, packed_out=True)
-        ref = plain.flow_warp(torch.cat(xs, -1), flow).view(out.shape)
-        if _counts()["flow_warp_packed"] != c0["flow_warp_packed"] + 1:
-            raise AssertionError("the packed pair is not one launch")
-        errs["pair"].append(check_bits(
-            f"{tag} packed pair {warp_bench.EL_PAIR} -> "
-            f"{tuple(out.shape)}", out, ref))
+        errs["pair"].append(check_pair_packed(
+            f"{tag} packed pair {warp_bench.EL_PAIR}", xs, flow))
+        errs["pair"].append(check_pair_packed(
+            f"{tag} packed pair, a and b at storage offset 1",
+            [misaligned(x) for x in xs], flow))
+        out = misaligned(torch.empty((n, h, w, ca + cb), dtype=dtype,
+                                     device=dev))
+        errs["pair"].append(check_pair_packed(
+            f"{tag} packed pair into an output at storage offset 1", xs,
+            flow, out))
         x, fx, fy, m = warp_bench.grouped_inputs(gen, dtype=dtype)
         out = wk.grouped_warp(x, fx, fy, m, gn, packed_out=True)
         ref = plain.grouped_warp_plain(x, fx, fy, m, gn).view(out.shape)
@@ -1504,6 +1550,26 @@ def phase_packed_stores(dev):
             f"{tag} packed grouped {warp_bench.GROUPED} -> "
             f"{tuple(out.shape)}", out, ref))
         del xs, flow, x, fx, fy, m, out, ref
+    # past 2^31 output elements the kernel offsets in 64 bits: the warp is
+    # per channel, so a is held by its first and last channels and b whole
+    bf16 = torch.bfloat16
+    big = (1, h, w, 2 ** 31 // (h * w) + 1)
+    a_big = torch.empty(big, dtype=bf16, device=dev).uniform_(
+        -1, 1, generator=gen)
+    b16 = uniform(gen, (1, h, w, 16), -1, 1).to(bf16)
+    flow = uniform(gen, (1, h, w, 2), -25, 25)
+    out = wk.flow_warp_pair(a_big, b16, flow, packed_out=True).view(
+        1, h, w, -1)
+    c_big = big[-1]
+    errs["pair"].append(check_bits(
+        f"bf16 packed pair a {big}: b {tuple(b16.shape)} ({out.numel()} "
+        "output elements)", out[..., c_big:], plain.flow_warp(b16, flow)))
+    for chans in (slice(0, 4), slice(c_big - 4, c_big)):
+        errs["pair"].append(check_bits(
+            f"bf16 packed pair a {big} channels {chans.start}:{chans.stop}",
+            out[..., chans],
+            plain.flow_warp(a_big[..., chans].contiguous(), flow)))
+    del a_big, b16, flow, out
     torch.cuda.synchronize()
     _reset_counts()
     times = warp_bench.packed_run(dev)
@@ -1511,17 +1577,20 @@ def phase_packed_stores(dev):
     counts = _counts()
     if counts["flow_warp_packed"] == 0 or counts["grouped_warp_packed"] == 0:
         raise AssertionError(f"packed_run counts {counts}")
-    bf16 = torch.bfloat16
-    xs, flow = warp_bench.flow_inputs(gen, warp_bench.EL_PAIR, dtype=bf16)
-    pair_plain_ms = time_ms(lambda: plain.flow_warp(
-        torch.cat(xs, -1), flow).view(n, h, w // 2, -1), 5, 1)
-    pair_library_ms = grid_sample_ms(torch.cat(xs, -1), flow)
-    del xs, flow
+    pair_plain_ms, pair_library_ms = {}, {}
+    for dtype in (torch.float32, bf16):
+        xs, flow = warp_bench.flow_inputs(gen, warp_bench.EL_PAIR,
+                                          dtype=dtype)
+        key = str(dtype)[6:]
+        pair_plain_ms[key] = time_ms(lambda: plain.flow_warp(
+            torch.cat(xs, -1), flow).view(n, h, w // 2, -1), 5, 1)
+        pair_library_ms[key] = grid_sample_ms(torch.cat(xs, -1), flow)
+        del xs, flow
     x, fx, fy, m = warp_bench.grouped_inputs(gen, dtype=bf16)
     grouped_plain_ms = time_ms(lambda: plain.grouped_warp_plain(
         x, fx, fy, m, gn).view(n, h, w // 2, -1), 3, 1)
     del x, fx, fy, m
-    b16 = times["bfloat16"]
+    b16, f32 = times["bfloat16"], times["float32"]
     p_bound, p_by = bound_ms(*flow_warp_cost(n, h, w, ca + cb, 2))
     g_bound, g_by = bound_ms(*grouped_cost(*warp_bench.GROUPED, 2))
     pair_entry = {
@@ -1530,11 +1599,16 @@ def phase_packed_stores(dev):
         "packed_out=True)", "shape": list(warp_bench.EL_PAIR),
         "out_shape": [n, h, w // 2, 2 * (ca + cb)], "dtype": "bfloat16",
         "max_abs_err": max(errs["pair"]), "ms": b16["pair_packed_ms"],
-        "plain_ms": pair_plain_ms, "bound_ms": p_bound, "bound_by": p_by,
-        "library_ms": pair_library_ms,
+        "plain_ms": pair_plain_ms["bfloat16"], "bound_ms": p_bound,
+        "bound_by": p_by, "library_ms": pair_library_ms["bfloat16"],
         "library_call": "F.grid_sample(bilinear, border, align_corners=True)"
                         " on the two tensors' concat, bf16",
-        "unpacked_ms": b16["pair_ms"], "float32": times["float32"],
+        "unpacked_ms": b16["pair_ms"],
+        "ms_float32": f32["pair_packed_ms"],
+        "bound_ms_float32": f32["pair_bound_ms"],
+        "plain_ms_float32": pair_plain_ms["float32"],
+        "library_ms_float32": pair_library_ms["float32"],
+        "unpacked_ms_float32": f32["pair_ms"], "float32": f32,
         "packed_run_launches": counts["flow_warp_packed"]}
     grouped_entry = {
         "name": "grouped_warp_packed", "route": "cuda", "source": SOURCE,
@@ -1546,15 +1620,18 @@ def phase_packed_stores(dev):
         "dtype": "bfloat16", "max_abs_err": max(errs["grouped"]),
         "ms": b16["grouped_packed_ms"], "plain_ms": grouped_plain_ms,
         "bound_ms": g_bound, "bound_by": g_by, "library_ms": None,
-        "unpacked_ms": b16["grouped_ms"], "float32": times["float32"],
+        "unpacked_ms": b16["grouped_ms"], "float32": f32,
         "launches": counts["grouped_warp_packed"]}
-    log(f"# packed pair bf16 {b16['pair_packed_ms']:.4f} ms (unpacked "
-        f"{b16['pair_ms']:.4f}, bound {p_bound:.4f}, plain "
-        f"{pair_plain_ms:.4f}, grid_sample {pair_library_ms:.4f}); packed "
-        f"grouped bf16 {b16['grouped_packed_ms']:.4f} ms (unpacked "
-        f"{b16['grouped_ms']:.4f}, bound {g_bound:.4f}, plain "
-        f"{grouped_plain_ms:.4f}); f32 {json.dumps(times['float32'])}; "
-        f"packed_run launches {counts}")
+    for tag, t in (("f32", f32), ("bf16", b16)):
+        key = "float32" if tag == "f32" else "bfloat16"
+        log(f"# packed pair {tag} {t['pair_packed_ms']:.4f} ms (unpacked "
+            f"{t['pair_ms']:.4f}, bound {t['pair_bound_ms']:.4f}, plain "
+            f"{pair_plain_ms[key]:.4f}, grid_sample "
+            f"{pair_library_ms[key]:.4f}); packed grouped "
+            f"{t['grouped_packed_ms']:.4f} ms (unpacked "
+            f"{t['grouped_ms']:.4f}, bound {t['grouped_bound_ms']:.4f})")
+    log(f"# packed grouped bf16 plain {grouped_plain_ms:.4f} ms; packed_run "
+        f"launches {counts}")
     return pair_entry, grouped_entry, times
 
 

@@ -16,8 +16,8 @@
 // warped into ONE (N, H, W, ca+cb) output, a at channel 0 and b at channel
 // ca of each pixel.  pack_width of a C-contiguous NHWC tensor is a pure
 // reshape, so that buffer already is the width-packed (N, H, W/2,
-// 2(ca+cb)) layout, channel (w%2)(ca+cb) + c: the packed store is the
-// output's pixel stride and channel offset, with no concat of the sources.
+// 2(ca+cb)) layout, channel (w%2)(ca+cb) + c: the packed store writes
+// that buffer, with no concat of the sources.
 // The grouped warp's packed store (_grouped_warp_kernel_cblock with
 // nhwc_out="p") is the same bytes as its plain output, so it needs nothing
 // here: the wrapper views the output.
@@ -40,6 +40,21 @@
 // move x read once, the flows (and mask) read once and the output written
 // once; at 3.35 TB/s that is the least time (EL pair 1x1152x1920x(3+48)
 // f32: 0.275 ms; grouped 1x1152x1920x48 -> 96: 0.634 ms).
+//
+// The packed pair store.  Its first design was flow_warp_kernel with the
+// output's pixel stride and channel offset: a 51-channel row (204 bytes f32,
+// 102 bf16) is no whole 16-byte chunks, so both sources fell to the scalar
+// path, one thread a pixel, a warp's lanes 192 bytes apart in b and 204
+// bytes apart in out, each load and store touching 32 sectors: 17x (f32) and
+// 8.5x (bf16) the plain pair.  Only the store was misaligned, so now the
+// gather and the store are apart (flow_warp_packed_kernel): a source takes
+// the vector path by its own layout (b's 48 channels: lanes over its 16-byte
+// chunks, four 16-byte loads each, as in flow_warp), the warped values go to
+// a shared-memory copy of the block's output span (64 pixels of a row are
+// one contiguous span of 64 * 51 elements), and the block writes the span
+// out with 16-byte stores, coalesced, where the span starts 16 bytes aligned
+// (64 pixels are 816 16-byte chunks in f32, 408 in bf16) and with single
+// elements at a misaligned start or end.
 //
 // flow_warp.  The first design ran one thread per output element in a flat
 // grid-stride loop: three runtime integer divisions to split the index,
@@ -193,10 +208,10 @@ __device__ __forceinline__ uint32_t bf16_bits(float v) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
 
-// Chunk u of one pixel: four 16-byte loads, one 16-byte store.
+// Chunk u of one pixel, warped: four 16-byte loads, the 16 bytes of T out.
 template <typename T, typename I>
-__device__ __forceinline__ void warp_chunk(const Source<T>& s,
-                                           const Taps<I>& t, I pix, int u) {
+__device__ __forceinline__ uint4 chunk_bits(const Source<T>& s,
+                                            const Taps<I>& t, int u) {
   const int k = u * (16 / (int)sizeof(T));  // 16 bytes of T
   const uint4 a = __ldg(reinterpret_cast<const uint4*>(s.x + t.p00 * s.c + k));
   const uint4 b = __ldg(reinterpret_cast<const uint4*>(s.x + t.p01 * s.c + k));
@@ -216,24 +231,39 @@ __device__ __forceinline__ void warp_chunk(const Source<T>& s,
       ow[q] = bf16_bits(value(2 * q)) | bf16_bits(value(2 * q + 1)) << 16;
     }
   }
-  *reinterpret_cast<uint4*>(s.out + pix * s.os + s.oo + k) = o;
+  return o;
 }
 
-// All c channels of one pixel, one value per load.
+// Chunk u of one pixel: four 16-byte loads, one 16-byte store.
 template <typename T, typename I>
-__device__ __forceinline__ void warp_channels(const Source<T>& s,
-                                              const Taps<I>& t, I pix) {
-  const T* x00 = s.x + t.p00 * s.c;
-  const T* x01 = s.x + t.p01 * s.c;
-  const T* x10 = s.x + t.p10 * s.c;
-  const T* x11 = s.x + t.p11 * s.c;
-  T* o = s.out + pix * s.os + s.oo;
+__device__ __forceinline__ void warp_chunk(const Source<T>& s,
+                                           const Taps<I>& t, I pix, int u) {
+  const int k = u * (16 / (int)sizeof(T));
+  *reinterpret_cast<uint4*>(s.out + pix * s.os + s.oo + k) =
+      chunk_bits(s, t, u);
+}
+
+// All c channels of one pixel of x (N, H, W, c) into o[0..c), one value
+// per load.
+template <typename T, typename I>
+__device__ __forceinline__ void warp_channels_to(const T* x, int c,
+                                                 const Taps<I>& t, T* o) {
+  const T* x00 = x + t.p00 * c;
+  const T* x01 = x + t.p01 * c;
+  const T* x10 = x + t.p10 * c;
+  const T* x11 = x + t.p11 * c;
 #pragma unroll 4
-  for (int k = 0; k < s.c; ++k) {
+  for (int k = 0; k < c; ++k) {
     o[k] = from_f32<T>(lerp2(to_f32(__ldg(x00 + k)), to_f32(__ldg(x01 + k)),
                              to_f32(__ldg(x10 + k)), to_f32(__ldg(x11 + k)),
                              t.wx, t.wy));
   }
+}
+
+template <typename T, typename I>
+__device__ __forceinline__ void warp_channels(const Source<T>& s,
+                                              const Taps<I>& t, I pix) {
+  warp_channels_to(s.x, s.c, t, s.out + pix * s.os + s.oo);
 }
 
 template <typename T, typename I>
@@ -287,25 +317,17 @@ __global__ void __launch_bounds__(256, 8)
   }
 }
 
-// The vector path needs whole 16-byte chunks at 16-byte aligned addresses
-// in x and out: the channel count, the output's pixel stride and channel
-// offset all whole chunks.  The packed pair's 3 + 48 channels in a 51-channel
-// row are not (204 bytes f32, 102 bf16), so both take the scalar path.
+// x and its own output.  The vector path needs whole 16-byte chunks at
+// 16-byte aligned addresses in x and out.
 template <typename T>
-Source<T> source(const void* x, void* out, int c, int os, int oo) {
-  Source<T> s{(const T*)x, (T*)out, c, os, oo, 0, false};
+Source<T> source(const void* x, void* out, int c) {
+  Source<T> s{(const T*)x, (T*)out, c, c, 0, 0, false};
   if (c > 0) {
-    const T* o = (const T*)out + oo;
-    s.vec = (c * sizeof(T)) % 16 == 0 && (os * sizeof(T)) % 16 == 0 &&
-            (uintptr_t)x % 16 == 0 && (uintptr_t)o % 16 == 0;
+    s.vec = (c * sizeof(T)) % 16 == 0 && (uintptr_t)x % 16 == 0 &&
+            (uintptr_t)out % 16 == 0;
     s.units = s.vec ? (int)(c * sizeof(T) / 16) : 1;
   }
   return s;
-}
-
-template <typename T>
-Source<T> source(const void* x, void* out, int c) {
-  return source<T>(x, out, c, c, 0);
 }
 
 template <typename T>
@@ -343,6 +365,174 @@ int launch_flow_warp(Source<T> a, Source<T> b, const void* flow, int64_t n,
         a, b, (const float*)flow, h, w, tile);
   }
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The packed pair store
+
+// Pixels a block of the packed store, fewer where their output span and
+// taps would pass kPackedSmemMax bytes of shared memory.
+constexpr int kPackedTile = 64;
+constexpr int kPackedSmemMax = 48 * 1024;
+
+// A block's shared memory: the taps of its pixels, then the copy of its
+// output span, which starts as many bytes past a 16-byte boundary as the
+// span does in out (hence 16 bytes more).
+template <typename I>
+__host__ __device__ constexpr int packed_taps_bytes(int tile) {
+  return (tile * (int)sizeof(Taps<I>) + 15) / 16 * 16;
+}
+
+template <typename T, typename I>
+int packed_smem_bytes(int tile, int c_out) {
+  return packed_taps_bytes<I>(tile) + 16 + tile * c_out * (int)sizeof(T);
+}
+
+// The 16 bytes of a warped chunk into shared memory at any element offset:
+// four 4-byte stores of f32, eight 2-byte stores of bf16.
+template <typename T>
+__device__ __forceinline__ void stage_chunk(const uint4& v, T* dst) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(&v);
+  if constexpr (sizeof(T) == 4) {
+    uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) d[q] = w[q];
+  } else {
+    uint16_t* d = reinterpret_cast<uint16_t*>(dst);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      d[2 * q] = (uint16_t)(w[q] & 0xffffu);
+      d[2 * q + 1] = (uint16_t)(w[q] >> 16);
+    }
+  }
+}
+
+// Block (unit, pixel) over `tile` pixels of row blockIdx.y of image
+// blockIdx.z from column blockIdx.x * tile; a and b share out (their os is
+// the output's pixel stride c_out, oo their channel offset).  The block's
+// output is one contiguous span of npix * c_out elements, staged in shared
+// memory:
+//   1. thread i < npix computes pixel i's taps, keeps them in shared
+//      memory, and warps the sources of the scalar path into the span;
+//   2. thread (u, p) warps chunk u of pixel p, p = threadIdx.y,
+//      threadIdx.y + blockDim.y, ..., of each source of the vector path
+//      (its channels whole 16-byte chunks, x aligned to 16 bytes: the
+//      loads' path depends on the source alone) into the span;
+//   3. all threads write the span out, 16 bytes a store from its first
+//      16-byte boundary in out to its last, single elements around them.
+// The same 32-register bound as flow_warp_kernel.
+template <typename T, typename I>
+__global__ void __launch_bounds__(256, 8)
+    flow_warp_packed_kernel(Source<T> a, Source<T> b,
+                            const float* __restrict__ flow, int h, int w,
+                            int tile) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Taps<I>* const taps_s = reinterpret_cast<Taps<I>*>(smem);
+  const int c_out = a.os;
+  const int iy = blockIdx.y;
+  const I img = (I)blockIdx.z * h * w;
+  const I row = img + (I)iy * w;
+  const int x_tile = blockIdx.x * tile;
+  const int npix = min(tile, w - x_tile);
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  T* const gout = a.out + (row + x_tile) * c_out;
+  const int mis = (int)((uintptr_t)gout % 16);  // a multiple of sizeof(T)
+  // span[i] lies at the same offset from a 16-byte boundary as gout[i]
+  T* const span =
+      reinterpret_cast<T*>(smem + packed_taps_bytes<I>(tile) + mis);
+
+  if (tid < npix) {
+    const int ix = x_tile + tid;
+    const I pix = row + ix;
+    const Taps<I> t =
+        taps<I>(flow[2 * pix], flow[2 * pix + 1], ix, iy, h, w, img);
+    taps_s[tid] = t;
+    T* const o = span + tid * c_out;
+    if (a.units && !a.vec) warp_channels_to(a.x, a.c, t, o + a.oo);
+    if (b.units && !b.vec) warp_channels_to(b.x, b.c, t, o + b.oo);
+  }
+  __syncthreads();
+
+  constexpr int E = 16 / (int)sizeof(T);  // elements a chunk
+  if (a.vec || b.vec) {  // the same in every thread
+    for (int p = threadIdx.y; p < npix; p += blockDim.y) {
+      const Taps<I> t = taps_s[p];
+      T* const o = span + p * c_out;
+      for (int u = threadIdx.x; a.vec && u < a.units; u += blockDim.x) {
+        stage_chunk(chunk_bits(a, t, u), o + a.oo + u * E);
+      }
+      for (int u = threadIdx.x; b.vec && u < b.units; u += blockDim.x) {
+        stage_chunk(chunk_bits(b, t, u), o + b.oo + u * E);
+      }
+    }
+    __syncthreads();
+  }
+
+  const int n = npix * c_out;
+  int head = ((16 - mis) % 16) / (int)sizeof(T);  // elements to a boundary
+  head = head < n ? head : n;
+  const int chunks = (n - head) / E;
+  const uint4* src = reinterpret_cast<const uint4*>(span + head);
+  uint4* dst = reinterpret_cast<uint4*>(gout + head);
+  for (int j = tid; j < chunks; j += nthreads) dst[j] = src[j];
+  for (int j = tid; j < head; j += nthreads) gout[j] = span[j];
+  for (int j = head + chunks * E + tid; j < n; j += nthreads) {
+    gout[j] = span[j];
+  }
+}
+
+// The loads' path of a source of the packed store: the vector path needs
+// whole 16-byte chunks in x alone, since the store goes through shared
+// memory.
+template <typename T>
+Source<T> packed_source(const void* x, void* out, int c, int os, int oo) {
+  Source<T> s{(const T*)x, (T*)out, c, os, oo, 0, false};
+  if (c > 0) {
+    s.vec = (c * sizeof(T)) % 16 == 0 && (uintptr_t)x % 16 == 0;
+    s.units = s.vec ? (int)(c * sizeof(T) / 16) : 1;
+  }
+  return s;
+}
+
+template <typename T, typename I>
+int launch_packed(const Source<T>& a, const Source<T>& b, const void* flow,
+                  int64_t n, int h, int w, cudaStream_t st) {
+  int tile = kPackedTile;
+  while (tile > 1 && packed_smem_bytes<T, I>(tile, a.os) > kPackedSmemMax) {
+    tile /= 2;
+  }
+  const int smem = packed_smem_bytes<T, I>(tile, a.os);
+  if (smem > kPackedSmemMax) return (int)cudaErrorInvalidValue;
+  // lanes over the chunks of the source with the most, at most 32; rows up
+  // to 256 threads, at most one a pixel.  bx * by >= tile: step 1 has a
+  // thread for each pixel.
+  const int ua = a.vec ? a.units : 0, ub = b.vec ? b.units : 0;
+  const int units = ua > ub ? ua : ub;
+  const int bx = units < 1 ? 1 : (units < 32 ? units : 32);
+  int by = 1;
+  while (2 * by * bx <= 256 && by < tile) by *= 2;
+  const dim3 grid((w + tile - 1) / tile, h, (unsigned)n);
+  flow_warp_packed_kernel<T, I><<<grid, dim3(bx, by), smem, st>>>(
+      a, b, (const float*)flow, h, w, tile);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_flow_warp_packed(const Source<T>& a, const Source<T>& b,
+                            const void* flow, int64_t n, int h, int w,
+                            cudaStream_t st) {
+  if (n <= 0 || h <= 0 || w <= 0 || (a.units == 0 && b.units == 0)) {
+    return (int)cudaGetLastError();
+  }
+  if (n > 65535 || h > 65535) return (int)cudaErrorInvalidValue;  // grid
+  const int widths[3] = {a.c, b.c, a.os};
+  int most = 2;
+  for (int i = 0; i < 3; ++i) most = widths[i] > most ? widths[i] : most;
+  if (n * h * w * most < (int64_t(1) << 31)) {
+    return launch_packed<T, uint32_t>(a, b, flow, n, h, w, st);
+  }
+  return launch_packed<T, int64_t>(a, b, flow, n, h, w, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -548,13 +738,13 @@ extern "C" int lssvc_flow_warp_pair_packed(const void* a, const void* b,
   cudaStream_t s = (cudaStream_t)stream;
   const int os = ca + cb;
   if (dtype == 0) {
-    return launch_flow_warp<float>(source<float>(a, out, ca, os, 0),
-                                   source<float>(b, out, cb, os, ca), flow, n,
-                                   h, w, s);
+    return launch_flow_warp_packed<float>(
+        packed_source<float>(a, out, ca, os, 0),
+        packed_source<float>(b, out, cb, os, ca), flow, n, h, w, s);
   }
-  return launch_flow_warp<__nv_bfloat16>(
-      source<__nv_bfloat16>(a, out, ca, os, 0),
-      source<__nv_bfloat16>(b, out, cb, os, ca), flow, n, h, w, s);
+  return launch_flow_warp_packed<__nv_bfloat16>(
+      packed_source<__nv_bfloat16>(a, out, ca, os, 0),
+      packed_source<__nv_bfloat16>(b, out, cb, os, ca), flow, n, h, w, s);
 }
 
 extern "C" int lssvc_grouped_warp(const void* x, const void* fx,

@@ -374,23 +374,74 @@ def test_card_stream_decodes_in_a_fresh_process(dev, tmp_path, monkeypatch):
         assert (tmp_path / f"{layer}.yuv").read_bytes() == want, layer
 
 
+# (ca, cb, (n, h, w)) of the packed pair's cases, also held on the CPU to
+# the JAX package (tests/test_torch_packed.py): the model's 3 + 48, a row of
+# whole 16-byte chunks (4 + 60; 8 + 120 puts both sources on the vector
+# path in both dtypes), one that is not (3 + 5), batch 2 and a width that
+# is no multiple of the 64-pixel tile (70: every row's span but the first
+# starts off a 16-byte boundary), and two whole tiles a row
+PACKED_PAIR_CASES = [
+    pytest.param(3, 48, (2, 21, 70), id="3-48"),
+    pytest.param(3, 5, (2, 21, 70), id="3-5"),
+    pytest.param(4, 60, (2, 21, 70), id="4-60"),
+    pytest.param(8, 120, (2, 21, 70), id="8-120"),
+    pytest.param(3, 48, (1, 21, 128), id="3-48-w128"),
+]
+
+
+def _packed_pair_call(a, b, flow, out):
+    """The packed pair's C entry point into `out` (N, H, W, ca+cb), which
+    the wrapper, allocating its own output, cannot reach."""
+    n, h, w, ca = a.shape
+    err = wk._lib().lssvc_flow_warp_pair_packed(
+        a.data_ptr(), b.data_ptr(), flow.data_ptr(), out.data_ptr(), n, h, w,
+        ca, b.shape[-1], wk._DTYPES[a.dtype],
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("ca,cb", [(3, 48), (3, 5)])
-def test_pair_packed_store_equals_plain(dev, dtype, ca, cb):
+@pytest.mark.parametrize("ca,cb,nhw", PACKED_PAIR_CASES)
+def test_pair_packed_store_equals_plain(dev, dtype, ca, cb, nhw):
     """The fused packed pair warp: both sources into one (N, H, W, ca+cb)
     buffer in one launch, viewed width-packed; bit for bit the plain warp
-    of their concat, packed.  51 channels a row put both sources on the
-    scalar path; a launch counts on `launches` and `packed_launches`."""
-    a = _uniform((2, 21, 70, ca), 1, -1, 1, dev, dtype)
-    b = _uniform((2, 21, 70, cb), 2, -1, 1, dev, dtype)
+    of their concat, packed, with flows past the borders and a NaN flow; a
+    launch counts on `launches` and `packed_launches`."""
+    a = _uniform(nhw + (ca,), 1, -1, 1, dev, dtype)
+    b = _uniform(nhw + (cb,), 2, -1, 1, dev, dtype)
     flow = _flow(a.shape, 3, 40, dev)
     n, p = wk.flow_warp.launches, wk.flow_warp.packed_launches
     out = wk.flow_warp_pair(a, b, flow, packed_out=True)
     assert (wk.flow_warp.launches, wk.flow_warp.packed_launches) == \
         (n + 1, p + 1)
-    assert out.shape == (2, 21, 35, 2 * (ca + cb))
+    assert out.shape == (nhw[0], nhw[1], nhw[2] // 2, 2 * (ca + cb))
     _bits(out, plain.flow_warp(torch.cat([a, b], -1), flow)
           .reshape(out.shape))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ca,cb", [(3, 48), (8, 120)])
+def test_pair_packed_store_of_misaligned_tensors(dev, dtype, ca, cb):
+    """Sources one element past 16-byte alignment take the scalar loads;
+    an output one element past it (through the C entry point) starts every
+    span off a 16-byte boundary, for aligned and misaligned sources: all
+    bit for bit the plain warp of the concat."""
+    shape = (2, 21, 70)
+    a = _uniform(shape + (ca,), 4, -1, 1, dev, dtype)
+    b = _uniform(shape + (cb,), 5, -1, 1, dev, dtype)
+    flow = _flow(a.shape, 6, 40, dev)
+    ref = plain.flow_warp(torch.cat([a, b], -1), flow)
+    a_m, b_m = _misaligned(a), _misaligned(b)
+    assert a_m.data_ptr() % 16 and b_m.data_ptr() % 16
+    n = wk.flow_warp.launches
+    out = wk.flow_warp_pair(a_m, b_m, flow, packed_out=True)
+    assert wk.flow_warp.launches == n + 1
+    _bits(out, ref.reshape(out.shape))
+    for srcs in ((a, b), (a_m, b_m)):
+        out = _misaligned(torch.zeros_like(ref))
+        assert out.data_ptr() % 16
+        _packed_pair_call(*srcs, flow, out)
+        _bits(out, ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -245,18 +245,29 @@ def _j(x, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("ca,cb", [(3, 48), (3, 5)])
-def test_pair_packed_store_plain_matches_jax(dtype, ca, cb):
+@pytest.mark.parametrize("ca,cb,nhw", [
+    pytest.param(3, 48, (1, 12, 40), id="3-48"),
+    pytest.param(3, 5, (1, 12, 40), id="3-5"),
+    # the card tests' shapes (tests/test_torch_cuda.py PACKED_PAIR_CASES)
+    pytest.param(3, 48, (2, 21, 70), id="3-48-2x21x70"),
+    pytest.param(3, 5, (2, 21, 70), id="3-5-2x21x70"),
+    pytest.param(4, 60, (2, 21, 70), id="4-60-2x21x70"),
+    pytest.param(8, 120, (2, 21, 70), id="8-120-2x21x70"),
+    pytest.param(3, 48, (1, 21, 128), id="3-48-1x21x128"),
+])
+def test_pair_packed_store_plain_matches_jax(dtype, ca, cb, nhw):
     """The packed pair store's plain version (concat, warp, view) against
     the JAX package's `flow_warp_auto(concat([a, b]), packed_out=True)`
-    (its non-TPU path: the XLA warp and `pack_width`), bit for bit; the
+    (its non-TPU path: the XLA warp and `pack_width`), bit for bit, at
+    every shape the card tests hold the kernel to this plain version; the
     JAX warp of a bf16 source returns f32, which the port rounds once."""
-    x, flow = _warp_inputs(81, (1, 12, 40, ca + cb))
+    n, h, w = nhw
+    x, flow = _warp_inputs(81, (n, h, w, ca + cb))
     a, b = x[..., :ca].copy(), x[..., ca:].copy()
     out = wk.flow_warp_pair(_as(a, dtype), _as(b, dtype),
                             torch.from_numpy(flow), packed_out=True)
     ref = flow_warp_auto(_j(x, dtype), jnp.asarray(flow), packed_out=True)
-    assert out.shape == (1, 12, 20, 2 * (ca + cb)) == ref.shape
+    assert out.shape == (n, h, w // 2, 2 * (ca + cb)) == ref.shape
     np.testing.assert_array_equal(out.float().numpy(),
                                   np.asarray(ref.astype(dtype), np.float32))
     single = wk.flow_warp(_as(x, dtype), torch.from_numpy(flow),
