@@ -9,7 +9,7 @@ Phases (any failure exits non-zero; nothing is caught):
 2. Build: compiles the kernels of lssvc_tpu_torch/csrc with nvcc (sm_90a)
    and its rANS coder with g++, one compiler per source, all at once;
    counts the tensor-core instructions (HGMMA, HMMA) in conv_chain's SASS
-   (cuobjdump), and fails without HGMMA.
+   and IMMA in int8_conv's (cuobjdump), and fails without HGMMA or IMMA.
 3. Main path: LSSVC from the port's random init, fp32 (TF32 off in the
    model's scope), offset cap
    10 px, EL 1152x1920 / BL 576x960 from a random decoded-picture buffer.
@@ -114,14 +114,36 @@ Phases (any failure exits non-zero; nothing is caught):
    subprocess rebuilds the encoder's pictures byte for byte; the closed
    loop at 1080p in bf16; encode and decode seconds per I- and P-frame;
    the I-frame's 3x3 conv shapes in bf16 (tools/conv_paths.py).
+15. int8: (a) `python -m lssvc_tpu_torch.tools.int8_calibrate` (in
+   process) on phase 8's video checkpoint, 512x512, 3 frames; (b)
+   int8_conv bit for bit against its plain version, s32 and bf16 outputs,
+   at every shape a warm-up int8 frame at 1080p launched it with (one
+   launch a served site call), then edge cases: Cin 102 and 32, stride 2,
+   7x3 with padding (1, 0), batch 2, s8 and f32 inputs, an input and an
+   output one element past 16-byte alignment, an input past 2^31
+   elements, all +-127 at K = 5376; (c) the bench twin's int8_packed
+   chain at 1080p, K=3, without and with LSSVC_PACKED_CTX=1, the counts
+   set to 0 just before and read just after: int8_conv launches equal the
+   served site calls, > 0, the warps launch 14 and 1 a frame (its own
+   calibration's frames included), the packed pair store once a frame
+   with the packed pair warp; s/frame, peak GiB and bits beside phase
+   11's bf16_packed; (d) the first 3 frames (I P P) of phase 8's sequence
+   through the CLI, `--precision int8 --int8_calib <table>
+   --write_stream 1`, decoded by `python -m lssvc_tpu_torch.decode
+   --precision int8 --int8_calib <table>` in a fresh subprocess byte for
+   byte, and the 1080p closed loop in int8; (e) int8_conv's times at the
+   packed 3x3 96 -> 96 site and SpyNet's EL conv2 beside its bounds, its
+   plain version, cuDNN's bf16 conv of the same packed shape and the
+   taps-call torch._int_mm yardstick, then tools/int8_bench.py's stack.
 
 Then one JSON line {"kernels": [...]}: each kernel's launches counted on its
 path (the warps on the P-frame chain of phase 3, with their GOP path,
 stream path, warp-tier path, bf16 chain and bf16 stream counts beside
 them; the pair's packed store on the bf16_packed chain with
 LSSVC_PACKED_CTX=1; the grouped packed store on warp_bench's packed_run;
-conv_chain on the conv-chain path of phase 6), its times, bound and
-errors.  The last line is
+conv_chain on the conv-chain path of phase 6; int8_conv on the
+int8_packed chain of phase 15), its times, bound and errors, after a line
+with the script's total seconds.  The last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -152,10 +174,12 @@ from lssvc_tpu_torch.models.lssvc_stream import LSSVCExtend
 from lssvc_tpu_torch.native import rans
 from lssvc_tpu_torch.ops import OD_OFFSET_CAP_SERVING
 from lssvc_tpu_torch.ops import conv_chain as cc
+from lssvc_tpu_torch.ops import int8 as q8
 from lssvc_tpu_torch.ops import warp as plain
 from lssvc_tpu_torch.ops import warp_kernels as wk
 from lssvc_tpu_torch.parallel import scheduler
-from lssvc_tpu_torch.tools import (conv_paths, convchain_bench, synthetic,
+from lssvc_tpu_torch.tools import (conv_paths, convchain_bench,
+                                   int8_bench, int8_calibrate, synthetic,
                                    warp_bench, warp_tier_bench)
 from lssvc_tpu_torch.tools.profile_frame import iframe_flops
 from lssvc_tpu_torch.tools.timing import card, time_ms
@@ -325,7 +349,7 @@ def phase_device():
 def phase_build():
     t0 = time.perf_counter()
     # the two kernel sources with nvcc, the rANS coder with g++, at once
-    names = ("warp", "conv_chain", "lssvc_rans")
+    names = ("warp", "conv_chain", "int8_conv", "lssvc_rans")
     build.build_all(names)
     for name in names:
         build.load(name)
@@ -342,6 +366,14 @@ def phase_build():
     log(f"# conv_chain.cu SASS: {hgmma} HGMMA, {sass.count('HMMA')} HMMA")
     if hgmma == 0:
         raise AssertionError("conv_chain.cu has no HGMMA instruction")
+    # the int8 conv's products: integer tensor-core instructions
+    sass = subprocess.run(
+        [str(Path(build.nvcc_path()).with_name("cuobjdump")), "-sass",
+         str(build.library_path("int8_conv"))],
+        capture_output=True, text=True, check=True).stdout
+    log(f"# int8_conv.cu SASS: {sass.count('IMMA')} IMMA")
+    if sass.count("IMMA") == 0:
+        raise AssertionError("int8_conv.cu has no IMMA instruction")
 
 
 def check_bits(name, out, ref):
@@ -1756,7 +1788,411 @@ def phase_bf16_stream(dev, d, cfg, intra, video):
     return counts
 
 
+# phase 15: the int8 precision
+INT8_SOURCE = "lssvc_tpu_torch/csrc/int8_conv.cu"
+INT8_REPLACES = (
+    "not a Pallas kernel: XLA's s8 conv, lssvc_tpu/ops/int8.py:63-76 "
+    "(int8_conv2d), as lssvc_tpu/models/packed_blocks.py:35-53 "
+    "(_pconv_int8) runs it")
+INT8_CODES = {0: torch.int8, 1: torch.bfloat16, 2: torch.float32}
+# the int8 stream GOP codes the first 3 frames of phase 8's sequence: I P P
+INT8_GOP_FRAMES = 3
+
+
+class Int8Recorder:
+    """Stands in for the int8 kernel's library and records every launch:
+    (n, h, w, cin, ho, wo, cout, kh, kw, stride, pad_t, pad_l, input dtype
+    code, bf16 output)."""
+
+    def __init__(self, lib):
+        self.lib, self.calls = lib, []
+
+    def lssvc_int8_conv(self, *args):
+        self.calls.append(tuple(args[6:13]) + tuple(args[15:22]))
+        return self.lib.lssvc_int8_conv(*args)
+
+
+def int8_input(gen, shape, dtype):
+    if dtype == torch.int8:
+        return torch.randint(-127, 128, shape, generator=gen,
+                             device=gen.device, dtype=torch.int8)
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=dtype) * 2
+
+
+def int8_case(gen, label, x, cout, kh, kw, stride, pad, cases=("s32", "bf16")):
+    """int8_conv against its plain version on x with a random s8 kernel:
+    the s32 accumulator and the bf16 epilogue, bit for bit (a float x is
+    quantized as it loads, by 0.0173)."""
+    dev = gen.device
+    w8 = torch.randint(-127, 128, (cout, x.shape[-1], kh, kw), generator=gen,
+                       device=dev, dtype=torch.int8)
+    mult = uniform(gen, (cout,), 1e-6, 1e-4)
+    bias = uniform(gen, (cout,), -0.1, 0.1)
+    s_in = None if x.dtype == torch.int8 else 0.0173
+    for case in cases:
+        m, b = (mult, bias) if case == "bf16" else (None, None)
+        check_bits(f"{label} {case}",
+                   q8.int8_conv2d(x, w8, stride, pad, s_in=s_in, mult=m,
+                                  bias=b),
+                   q8.int8_conv2d_plain(x, w8, stride, pad, s_in=s_in,
+                                        mult=m, bias=b))
+    return w8, mult, bias, s_in
+
+
+def int8_edges(gen):
+    """Phase 15 (b)'s edge cases, each against the plain version."""
+    bf16 = torch.bfloat16
+    for label, shape, dtype, cout, k, stride, pad in (
+            ("Cin 102", (1, 64, 96, 102), bf16, 96, (3, 3), 1,
+             ((1, 1), (1, 1))),
+            ("Cin 32, 7x3", (1, 64, 96, 32), bf16, 128, (7, 3), 1,
+             ((3, 3), (1, 1))),
+            ("stride 2, padding (1, 0)", (1, 65, 98, 102), bf16, 96, (3, 3),
+             2, ((1, 1), (1, 0))),
+            ("7x3, padding (1, 0)", (1, 70, 50, 128), bf16, 256, (7, 3), 1,
+             ((3, 3), (1, 0))),
+            ("batch 2", (2, 64, 96, 96), bf16, 96, (3, 3), 1,
+             ((1, 1), (1, 1))),
+            ("s8 input", (1, 64, 96, 96), torch.int8, 64, (1, 1), 1,
+             ((0, 0), (0, 0))),
+            ("f32 input, Cin 106", (1, 64, 96, 106), torch.float32, 128,
+             (3, 3), 1, ((1, 1), (1, 1)))):
+        int8_case(gen, f"edge {label} {shape}", int8_input(gen, shape, dtype),
+                  cout, *k, stride, pad)
+
+    # an input and an output one element past 16-byte alignment
+    x = misaligned(int8_input(gen, (1, 64, 96, 96), bf16))
+    w8, mult, bias, s_in = int8_case(gen, "edge misaligned input", x, 96, 3,
+                                     3, 1, ((1, 1), (1, 1)))
+    lay = q8.Int8Weight(w8).layout()
+    for out_bf16, dtype in ((1, bf16), (0, torch.int32)):
+        m, b = (mult, bias) if out_bf16 else (None, None)
+        ref = q8.int8_conv2d_plain(x, w8, 1, ((1, 1), (1, 1)), s_in=s_in,
+                                   mult=m, bias=b)
+        out = torch.empty(ref.numel() + 1, dtype=dtype,
+                          device=x.device)[1:].view(ref.shape)
+        err = q8._lib().lssvc_int8_conv(
+            x.data_ptr(), lay.data_ptr(), out.data_ptr(),
+            None if m is None else m.data_ptr(),
+            None if b is None else b.data_ptr(), float(np.float32(s_in)), 1,
+            64, 96, 96, 64, 96, 96, lay.shape[0], lay.shape[2], 3, 3, 1, 1,
+            1, 1, out_bf16, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise AssertionError(f"misaligned output: CUDA error {err}")
+        check_bits(f"edge misaligned output {dtype}", out, ref)
+    del x, out, ref
+
+    # an input past 2^31 elements: the last rows against the plain version
+    # on a crop (its first output row reads the crop's own zero padding)
+    shape = (1, 4100, 4100, 128)
+    x = int8_input(gen, shape, bf16)
+    w8 = torch.randint(-127, 128, (8, 128, 3, 3), generator=gen,
+                       device=x.device, dtype=torch.int8)
+    mult, bias = uniform(gen, (8,), 1e-6, 1e-4), uniform(gen, (8,), -0.1, 0.1)
+    for m, b, case in ((None, None, "s32"), (mult, bias, "bf16")):
+        out = q8.int8_conv2d(x, w8, 1, ((1, 1), (1, 1)), s_in=0.0173,
+                             mult=m, bias=b)
+        ref = q8.int8_conv2d_plain(x[:, -12:], w8, 1, ((1, 1), (1, 1)),
+                                   s_in=0.0173, mult=m, bias=b)
+        check_bits(f"edge input of {x.numel()} elements {case}, last 11 rows",
+                   out[:, -11:], ref[:, 1:])
+        del out, ref
+    del x
+
+    # all +-127 at the largest K of the path, 7*3*256 = 5376
+    x = torch.full((1, 40, 60, 256), 127, dtype=torch.int8, device=w8.device)
+    for sign in (1, -1):
+        w8 = torch.full((64, 256, 7, 3), sign * 127, dtype=torch.int8,
+                        device=x.device)
+        acc = q8.int8_conv2d(x, w8, 1, ((3, 3), (1, 1)))
+        check_bits(f"edge full scale x {sign} at K = 5376", acc,
+                   q8.int8_conv2d_plain(x, w8, 1, ((3, 3), (1, 1))))
+        if int(acc[0, 20, 30, 0]) != sign * 127 * 127 * 5376:
+            raise AssertionError(f"full scale: {int(acc[0, 20, 30, 0])}")
+
+
+def int8_chain(modes):
+    """Phase 15 (c): the bench twin in int8_packed at 1080p, K=3, without
+    and with the packed pair warp, the counts set to 0 just before each
+    run and read just after."""
+    rows = {}
+    before = os.environ.get("LSSVC_PACKED_CTX")
+    try:
+        for ctx in ("0", "1"):
+            os.environ["LSSVC_PACKED_CTX"] = ctx
+            torch.cuda.synchronize()
+            _reset_counts()
+            q8.int8_conv2d.launches = 0
+            res = bench.bench_chain(EL_HW, k=K, mode="int8_packed",
+                                    device=torch.device("cuda"))
+            torch.cuda.synchronize()
+            counts = dict(_counts(), int8_conv=q8.int8_conv2d.launches)
+            name = "int8_packed" + ("+packed_ctx" if ctx == "1" else "")
+            frames = res["frames_run"]
+            # the calibration's bf16 frames launch the warps too
+            coded = frames + bench.CALIB_FRAMES
+            if not math.isfinite(res["bits"]):
+                raise AssertionError(f"{name}: bits {res['bits']}")
+            if not 0 < counts["int8_conv"] == res["int8_served_calls"]:
+                raise AssertionError(
+                    f"{name}: {counts['int8_conv']} int8_conv launches for "
+                    f"{res['int8_served_calls']} served site calls")
+            if (counts["flow_warp"] != 14 * coded
+                    or counts["grouped_warp"] != coded):
+                raise AssertionError(f"{name}: warp counts {counts} for "
+                                     f"{coded} frames")
+            if counts["flow_warp_packed"] != (frames if ctx == "1" else 0):
+                raise AssertionError(f"{name}: packed stores {counts}")
+            bf16_row = modes["bf16_packed" + name[len("int8_packed"):]]
+            rows[name] = dict(
+                res, launches=counts,
+                int8_conv_launches_per_frame=counts["int8_conv"] / frames,
+                served_site_calls_per_frame=res["int8_served_calls"] / frames,
+                bf16_packed_s_per_frame=bf16_row["s_per_frame"],
+                bf16_packed_peak_gib=bf16_row["peak_gib"],
+                bf16_packed_bits=bf16_row["bits"])
+            log(f"  {name}: {res['s_per_frame']:.4f} s/frame (bf16_packed "
+                f"{bf16_row['s_per_frame']:.4f}), peak {res['peak_gib']:.2f} "
+                f"GiB ({bf16_row['peak_gib']:.2f}), bits {res['bits']:.1f} "
+                f"({bf16_row['bits']:.1f}); {res['int8_served']} of "
+                f"{res['int8_sites']} sites served, int8_conv "
+                f"{counts['int8_conv'] / frames:g} launches a frame = the "
+                f"served site calls a frame, over {frames} frames; {counts}")
+    finally:
+        if before is None:
+            os.environ.pop("LSSVC_PACKED_CTX", None)
+        else:
+            os.environ["LSSVC_PACKED_CTX"] = before
+    return rows
+
+
+def int8_stream(dev, d, cfg, intra, video, table_path, table):
+    """Phase 15 (d): the first 3 frames (I P P) of phase 8's sequence
+    through the CLI in int8, decoded in a fresh subprocess byte for byte;
+    the 1080p closed loop in int8."""
+    bins = d / "bins_int8"
+    pictures = {"x_hat_bl": [], "x_hat_el": []}
+    real_copy = runner.HostCopy
+
+    def recording(tensors):
+        for k in pictures:
+            pictures[k].append(yuv_frame(tensors[k], (0, 0, 0, 0)))
+        return real_copy(tensors)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    q8.int8_conv2d.launches = 0
+    runner.HostCopy = recording
+    t0 = time.perf_counter()
+    try:
+        with StreamTimer() as timer:
+            cli.main(["--test_config", str(cfg), "--i_frame_model_path",
+                      str(intra), "--model_path", str(video),
+                      "--output_path", str(d / "out_int8"), "--ratios", "x2",
+                      "--precision", "int8", "--int8_calib", str(table_path),
+                      "--write_stream", "1",
+                      "--force_frame_num", str(INT8_GOP_FRAMES),
+                      "--stream_path", str(bins)])
+    finally:
+        runner.HostCopy = real_copy
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = dict(_counts(), int8_conv=q8.int8_conv2d.launches)
+    n_p = INT8_GOP_FRAMES - 1
+    want = {"flow_warp": 20 * n_p, "grouped_warp": 2 * n_p}
+    if ({k: counts[k] for k in want} != want or counts["int8_conv"] == 0
+            or counts["flow_warp_packed"] or counts["grouped_warp_packed"]):
+        raise AssertionError(f"int8 stream counts {counts}, expected {want} "
+                             "and int8_conv launches")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    yuv = {layer: d / f"int8_{layer}.yuv" for layer in ("el", "bl")}
+    decode_s = _subprocess(
+        [sys.executable, "-m", "lssvc_tpu_torch.decode", "--bin_dir",
+         str(bins / "seq1" / "0" / "x2"), "--i_frame_model_path", str(intra),
+         "--model_path", str(video), "--height", str(GOP_HW[0]), "--width",
+         str(GOP_HW[1]), "--ratio", "x2", "--gop", str(GOP), "--frame_num",
+         str(INT8_GOP_FRAMES), "--precision", "int8", "--int8_calib",
+         str(table_path), "--yuv_out", str(yuv["el"]), "--yuv_out_bl",
+         str(yuv["bl"])], "the int8 decode CLI")
+    for layer, path in yuv.items():
+        if path.read_bytes() != b"".join(pictures[f"x_hat_{layer}"]):
+            raise AssertionError(f"int8: decoded {layer.upper()} YUV "
+                                 "differs from the encoder's pictures")
+    log(f"  CLI in process {run_s:.2f} s ({counts['int8_conv']} int8_conv "
+        f"launches, {counts['int8_conv'] / n_p:g} a P-frame, encoder and "
+        f"decoder); int8 decode subprocess {decode_s:.2f} s: EL and BL YUV "
+        f"byte-equal to the encoder's {INT8_GOP_FRAMES} frames")
+
+    # the closed loop at 1080p in int8
+    i_net = scheduler.load_intra(str(intra), dev, "int8", table)
+    v_net = scheduler.load_video(str(video), dev, OD_OFFSET_CAP_SERVING,
+                                 "int8", table)
+    for net in (i_net, v_net):
+        net.update(force=True)
+        net.set_scale_information(2.0, GOP_EL_HW, (0, 0, 0, 0))
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def uni(*shape):
+        return torch.rand((1, *shape), generator=gen, device=dev)
+
+    x_bl, x_el = uni(*GOP_BL_HW, 3), uni(*GOP_EL_HW, 3)
+    paths = [d / "loop8_bl.bin", d / "loop8_el.bin"]
+    enc = intra_ss_stream.compress_stream(i_net, x_bl, x_el, *paths,
+                                          *GOP_BL_HW, *GOP_EL_HW)
+    dec = intra_ss_stream.decompress_stream(i_net, *paths)
+    for k in ("x_hat_bl", "x_hat_el", "feature_el"):
+        _equal(enc[k], dec[k], f"int8 I-frame {k}")
+    dpb = {"ref_frame_bl": dec["x_hat_bl"].clamp(0, 1),
+           "ref_feature_bl": None,
+           "ref_frame_el": dec["x_hat_el"].clamp(0, 1),
+           "ref_feature_el": dec["feature_el"]}
+    x_bl, x_el = uni(*GOP_BL_HW, 3), uni(*GOP_EL_HW, 3)
+    n0 = q8.int8_conv2d.launches
+    bl = v_net.base_layer_model
+    enc = bl.compress(x_bl, dpb)
+    dec = bl.decompress(enc["string"], *GOP_BL_HW, dpb)
+    for k in ("ref_frame_bl", "ref_feature_bl"):
+        _equal(enc["dpb"][k], dec["dpb"][k], f"int8 P-frame {k}")
+    dpb_el = dict(dpb, texture=dec["dpb"]["ref_feature_bl"],
+                  y_hat_bl=dec["dpb"]["y_hat_bl"],
+                  mv_hat_bl=dec["dpb"]["mv_hat_bl"])
+    enc = v_net.compress(x_el, dpb_el)
+    dec = v_net.decompress(enc["string"], *GOP_EL_HW, dpb_el)
+    for k in ("ref_frame_el", "ref_feature_el"):
+        _equal(enc["dpb"][k], dec["dpb"][k], f"int8 P-frame {k}")
+    if q8.int8_conv2d.launches == n0:
+        raise AssertionError("the int8 closed loop launched no int8_conv")
+    log("  closed loop at 1080p in int8: I-frame and P-frame DPB of both "
+        f"layers bit-equal between encoder and decoder "
+        f"({q8.int8_conv2d.launches - n0} int8_conv launches)")
+    del i_net, v_net, enc, dec, dpb, dpb_el
+    i_sum, p_sum = timer.summary("I"), timer.summary("P")
+    log(f"  int8 stream: I-frame encode {i_sum['encode_s_per_frame']:.3f} s"
+        f" / decode {i_sum['decode_s_per_frame']:.3f} s, P-frame encode "
+        f"{p_sum['encode_s_per_frame']:.3f} s / decode "
+        f"{p_sum['decode_s_per_frame']:.3f} s (host rANS "
+        f"{p_sum['encode_rans_s_per_frame']:.3f} / "
+        f"{p_sum['decode_rans_s_per_frame']:.3f}), peak {peak_gib:.2f} GiB")
+    return {"frames": INT8_GOP_FRAMES, "iframe": i_sum, "pframe": p_sum,
+            "run_s": run_s,
+            "decode_subprocess_s": decode_s,
+            "decode_subprocess_s_per_frame": decode_s / INT8_GOP_FRAMES,
+            "peak_mem_gib": peak_gib, "launches": counts}
+
+
+def phase_int8(dev, d, cfg, intra, video, modes):
+    """Phase 15: the int8 precision.  (a) calibrate phase 8's video
+    checkpoint with the port's tool (512x512, 3 frames); (b) int8_conv bit
+    for bit against its plain version at every shape a warm-up int8 frame
+    at 1080p launched it with, then the edge cases; (c) the bench twin's
+    int8_packed chain at 1080p, K=3, counted, without and with the packed
+    pair warp; (d) the int8 stream GOP (I P P) through both CLIs and the
+    1080p closed loop; (e) the kernel's times at two sites, beside its
+    bounds, its plain version, cuDNN's bf16 conv and the taps-call
+    torch._int_mm yardstick, then tools/int8_bench.py's stack."""
+    t_phase = time.perf_counter()
+    log("# int8: (a) calibration, python -m "
+        "lssvc_tpu_torch.tools.int8_calibrate on phase 8's video checkpoint")
+    table_path = d / "int8_calib.json"
+    t0 = time.perf_counter()
+    table = int8_calibrate.main(["--out", str(table_path), "--ckpt",
+                                 str(video)])
+    log(f"  {len(table)} conv sites calibrated in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    log("# int8: (b) int8_conv at the shapes of a warm-up int8 frame at "
+        "1080p, bit for bit against its plain version")
+    model = LSSVC(bench.load_params(str(video)), device=dev,
+                  od_offset_cap=OD_OFFSET_CAP_SERVING, precision="int8",
+                  packed_width=2, int8_table=table)
+    model.set_scale_information(2.0, EL_HW, (0, 0, 0, 0))
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def uni(*shape):
+        return torch.rand((1, *shape), generator=gen, device=dev)
+
+    recorder, real_lib = Int8Recorder(q8._lib()), q8._lib
+    q8._lib = lambda: recorder
+    try:
+        model.forward_one_frame(uni(*BL_HW, 3), uni(*EL_HW, 3),
+                                uni(*BL_HW, 3), uni(*EL_HW, 3),
+                                uni(*BL_HW, 64), uni(*EL_HW, 48))
+    finally:
+        q8._lib = real_lib
+    served_calls = model.mode.int8.calls
+    del model
+    if len(recorder.calls) != served_calls or not served_calls:
+        raise AssertionError(f"{len(recorder.calls)} launches for "
+                             f"{served_calls} served site calls")
+    shapes = sorted(set(recorder.calls))
+    log(f"  the frame launched int8_conv {len(recorder.calls)} times at "
+        f"{len(shapes)} shapes")
+    for (n, h, w, cin, ho, wo, cout, kh, kw, stride, pt, pl, code,
+         out_bf16) in shapes:
+        pad = ((pt, (ho - 1) * stride + kh - h - pt),
+               (pl, (wo - 1) * stride + kw - w - pl))
+        int8_case(gen, f"launch {(n, h, w, cin)} -> {cout} {kh}x{kw} "
+                       f"stride {stride} padding {pad} "
+                       f"{INT8_CODES[code]}",
+                  int8_input(gen, (n, h, w, cin), INT8_CODES[code]), cout,
+                  kh, kw, stride, pad)
+    int8_edges(gen)
+    torch.cuda.empty_cache()
+
+    log("# int8: (c) the bench twin's int8_packed chain at 1080p, K=3")
+    chain = int8_chain(modes)
+    log("# int8: (d) the int8 stream: first 3 frames (I P P) of phase 8's "
+        "sequence, --precision int8 --int8_calib --write_stream 1")
+    stream = int8_stream(dev, d, cfg, intra, video, table_path, table)
+
+    log("# int8: (e) times (tools/int8_bench.py)")
+    sites = {name: int8_bench.site_times(name, dev)
+             for name in int8_bench.SITES}
+    for name, r in sites.items():
+        if r["max_abs_err"] != 0:
+            raise AssertionError(f"{name}: not bit-equal ({r})")
+        log(f"  {name} {r['shape']} -> {r['cout']} {r['kernel']}: int8_conv "
+            f"{r['ms']:.4f} ms, bounds {r['bytes_ms']:.4f} (bytes) / "
+            f"{r['ops_ms']:.4f} (operations), plain {r['plain_ms']:.3f}, "
+            f"cuDNN bf16 {r['cudnn_bf16_ms']:.4f}, torch._int_mm x "
+            f"{r['int_mm_calls']} {r['int_mm_ms']:.4f}")
+    stack = int8_bench.stack_variants(dev)
+    log(f"  int8_bench stack (4 layers, 1x1152x960x96): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in stack.items())
+        + " (int8_mm: 9 torch._int_mm calls a layer)")
+    site = sites["packed_3x3_96"]
+    main_run = chain["int8_packed"]
+    entry = {
+        "name": "int8_conv", "route": "cuda", "source": INT8_SOURCE,
+        "replaces": INT8_REPLACES,
+        "launches": main_run["launches"]["int8_conv"],
+        "launches_per_frame": main_run["int8_conv_launches_per_frame"],
+        "max_abs_err": 0.0, "site": "packed_3x3_96",
+        "shape": site["shape"], "cout": site["cout"],
+        "dtype": "bfloat16 in and out (quantized on load, fused epilogue)",
+        "ms": site["ms"], "plain_ms": site["plain_ms"],
+        "bound_ms": site["bound_ms"], "bound_by": site["bound_by"],
+        "library_ms": None,
+        "library_note": "no one PyTorch call computes an s8 conv (F.conv2d "
+                        "refuses int8); cudnn_bf16_ms is the path it "
+                        "replaces, int_mm_ms a taps-call yardstick",
+        "cudnn_bf16_ms": site["cudnn_bf16_ms"],
+        "int_mm_ms": site["int_mm_ms"], "int_mm_calls": site["int_mm_calls"],
+        "spynet_el_conv2": sites["spynet_el_conv2"], "stack_ms": stack,
+        "packed_ctx_launches":
+            chain["int8_packed+packed_ctx"]["launches"]["int8_conv"],
+        "stream_launches": stream["launches"]["int8_conv"],
+        "warm_up_launch_shapes": len(shapes)}
+    log(json.dumps({"int8": {"chain": chain, "stream": stream,
+                             "sites": sites, "table_sites": len(table)}}))
+    log(f"# int8 phase: {time.perf_counter() - t_phase:.1f} s")
+    return entry
+
+
 def main():
+    t_start = time.perf_counter()
     smi = phase_device()
     dev = torch.device("cuda")
     phase_build()
@@ -1776,6 +2212,7 @@ def main():
         phase_precision_gates(dev)
         pair_packed, grouped_packed, _ = phase_packed_stores(dev)
         bf16_stream = phase_bf16_stream(dev, d, *gop)
+        int8_entry = phase_int8(dev, d, *gop, modes)
     n_p = GOP_FRAMES - -(-GOP_FRAMES // GOP)
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -1792,7 +2229,9 @@ def main():
     pair_packed["launches"] = ctx["launches"]["flow_warp_packed"]
     pair_packed["launches_per_frame"] = \
         ctx["launches_per_frame"]["flow_warp_packed"]
-    kernels += [pair_packed, grouped_packed, chain_entry]
+    kernels += [pair_packed, grouped_packed, chain_entry, int8_entry]
+    log(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "
+        "build included")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -17,27 +17,35 @@ outputs, f32 accumulation), `fp32` (the parity mode), `high` (TF32 convs
 and matmuls), `bf16_f32out` (bf16 operands, f32 outputs), `bf16_packed`
 (the width-packed full-res stacks; `LSSVC_PACKED_CTX=1` adds the fused
 packed pair warp), `bf16_einsum` (1x1 convs as matmuls),
-`bf16_packed_einsum`.  OffsetDiversity's offset cap is
-`LSSVC_OD_OFFSET_CAP` px (10 unless set; 0 or empty: none).
+`bf16_packed_einsum`, `int8_packed` (`bf16_packed` with the s8
+convolution at the calibrated sites: it calibrates itself first, at
+512x512 over 2 frames, `harness/calibrate.py`, and prints the table's and
+the served sites' counts to stderr, as `bench.py:192-210,279-281` does).
+OffsetDiversity's offset cap is `LSSVC_OD_OFFSET_CAP` px (10 unless set; 0
+or empty: none).
 
 `vs_baseline` is against the reference's own GPU time, 1.44 s encode +
 1.35 s decode a two-layer 1080p P-frame (`BASELINE.md:23-24`).  Besides the
 root bench's keys the line carries the mode, the seconds a frame, the
-peak device memory (GiB, CUDA only) and the chain's bits.
+peak device memory (GiB, CUDA only), the chain's bits and the frames the
+whole run coded (warm-up and readings); `int8_packed`
+adds the table's sites, the sites served and the served site calls of the
+whole run.
 
-`int8_packed`, `--staged`, `--tier-stats` and `--profile` are not ported
-yet and raise.
+`--staged`, `--tier-stats` and `--profile` are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 
 import numpy as np
 import torch
 
+from .harness.calibrate import calibrate_video
 from .models import LSSVC
 from .models.init import init_lssvc
 from .ops.nn import od_offset_cap_from_env, packed_ctx_from_env
@@ -54,8 +62,11 @@ MODES = {
     "bf16_einsum": dict(precision="bf16", conv1x1_einsum=True),
     "bf16_packed_einsum": dict(precision="bf16", packed_width=2,
                                conv1x1_einsum=True),
+    "int8_packed": dict(precision="int8", packed_width=2),
 }
-UNPORTED = ("int8_packed", "--staged", "--tier-stats", "--profile")
+UNPORTED = ("--staged", "--tier-stats", "--profile")
+# int8_packed's own calibration: EL size and frames (`bench.py:198-201`)
+CALIB_SIZE, CALIB_FRAMES = 512, 2
 SEED = 0
 
 
@@ -82,19 +93,24 @@ def synthetic_motion_frames(el_hw, n_frames, seed=7):
 
 def check_mode(mode):
     if mode not in MODES:
-        if mode in UNPORTED:
-            raise NotImplementedError(f"--mode {mode} is not ported yet")
         raise ValueError(f"--mode {mode!r}: expected one of {list(MODES)}")
 
 
 def model_for(mode, params, device):
-    """The LSSVC of a bench mode, with the CLIs' environment presets."""
+    """The LSSVC of a bench mode, with the CLIs' environment presets;
+    `int8_packed` calibrates first (512x512, 2 frames, the serving cap)."""
     check_mode(mode)
     kw = dict(MODES[mode])
     if kw.get("packed_width") == 2:
         kw["packed_ctx"] = packed_ctx_from_env()
-    return LSSVC(params, device=device, od_offset_cap=od_offset_cap_from_env(),
-                 **kw)
+    cap = od_offset_cap_from_env()
+    if mode == "int8_packed":
+        kw["int8_table"] = calibrate_video(params, size=CALIB_SIZE,
+                                           frames=CALIB_FRAMES, device=device,
+                                           od_offset_cap=cap)
+        print(f"# int8 calibration: {len(kw['int8_table'])} conv sites",
+              file=sys.stderr)
+    return LSSVC(params, device=device, od_offset_cap=cap, **kw)
 
 
 def load_params(ckpt):
@@ -145,9 +161,12 @@ def bench_chain(el_hw=(1152, 1920), k=7, mode="bf16", batch=1, ckpt=None,
     frames, dpb0 = chain_inputs(el_hw, k, batch, video, device)
     cuda = device.type == "cuda"
 
+    frames_run = [0]
+
     def run_chain(n):
         dpb = dpb0
         bits = torch.zeros((), device=device)
+        frames_run[0] += n
         for i in range(n):
             x_bl, x_el = frames[(i + 1) % len(frames)]
             out = model.forward_one_frame(
@@ -167,6 +186,10 @@ def bench_chain(el_hw=(1152, 1920), k=7, mode="bf16", batch=1, ckpt=None,
         return (dt, bits) if dt > 0 else None
 
     run_chain(1)  # warm up: kernels built and loaded, allocator filled
+    sites = model.mode.int8
+    if mode == "int8_packed":
+        print(f"# int8 sites active in step: {len(sites.served)}",
+              file=sys.stderr)
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     got = []
@@ -178,10 +201,16 @@ def bench_chain(el_hw=(1152, 1920), k=7, mode="bf16", batch=1, ckpt=None,
         if (len(got) >= 2 and abs(got[-1][0] - got[-2][0])
                 <= 0.1 * min(got[-1][0], got[-2][0])):
             dt, bits = min(got[-2:])
-            return {"mode": mode, "s_per_frame": dt, "fps": batch / dt,
-                    "bits": bits, "frames": k, "batch": batch,
-                    "peak_gib": (torch.cuda.max_memory_allocated(device)
-                                 / 2 ** 30 if cuda else None)}
+            res = {"mode": mode, "s_per_frame": dt, "fps": batch / dt,
+                   "bits": bits, "frames": k, "frames_run": frames_run[0],
+                   "batch": batch,
+                   "peak_gib": (torch.cuda.max_memory_allocated(device)
+                                / 2 ** 30 if cuda else None)}
+            if mode == "int8_packed":
+                res.update(int8_sites=len(sites.table),
+                           int8_served=len(sites.served),
+                           int8_served_calls=sites.calls)
+            return res
     raise RuntimeError(
         f"no two consecutive positive frame-time readings agreed within "
         f"10% (readings: {[round(r[0], 4) for r in got]})")
@@ -199,14 +228,14 @@ def parse_args(argv=None):
     p.add_argument("--size", default="1152x1920",
                    help="EL height x width (1080p padded to 1152x1920)")
     p.add_argument("--device", default="cuda")
-    for flag in UNPORTED[1:]:
+    for flag in UNPORTED:
         p.add_argument(flag, action="store_true", help="not ported yet")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag in UNPORTED[1:]:
+    for flag in UNPORTED:
         if getattr(args, flag[2:].replace("-", "_")):
             raise NotImplementedError(f"{flag} is not ported yet")
     h, w = (int(v) for v in args.size.split("x"))

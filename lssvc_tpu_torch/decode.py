@@ -14,8 +14,9 @@ frames as the encoder's GOP loop clamps them.
 
 A stream decodes only with what it was encoded with: the same kind of
 device (a stream coded on the card decodes on the card, a CPU stream on
-the CPU), the same `--precision` (a bf16 stream decodes only in bf16),
-and the same OffsetDiversity cap (`LSSVC_OD_OFFSET_CAP`).
+the CPU), the same `--precision` (a bf16 stream decodes only in bf16; an
+int8 stream only in int8 with the encoder's `--int8_calib` table), and the
+same OffsetDiversity cap (`LSSVC_OD_OFFSET_CAP`).
 The decoder derives every scale-index plane as the encoder did, and the
 last bits of the convolutions differ between devices (and between the
 port and the JAX package), so a mismatch flips a scale bucket and
@@ -83,10 +84,10 @@ def parse_args(argv=None):
                         "with: the decoder derives every scale-index plane "
                         "as the encoder did, and another precision flips "
                         "index buckets and desynchronises the stream (a "
-                        "bf16 stream decodes only in bf16); int8 is not "
-                        "ported yet")
+                        "bf16 stream decodes only in bf16)")
     p.add_argument("--int8_calib", default=None,
-                   help="int8's calibration table (not ported yet)")
+                   help="for --precision int8: the SAME calibration table "
+                        "the encoder used")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda): the kind of device "
                         "the stream was encoded on")
@@ -95,7 +96,8 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    precision = precision_from_cli(args.precision, args.int8_calib)
+    precision, int8_table = precision_from_cli(args.precision,
+                                               args.int8_calib)
     device = resolve_device(args.device)
     pad_info = get_interlayer_padding(H_HR=args.height, W_HR=args.width,
                                       ratio=RATIO_FACTORS[args.ratio])
@@ -105,9 +107,10 @@ def main(argv=None):
     hb, wb = pad_info["LR_size"]
     he, we = pad_info["HR_size"]
 
-    i_net = load_intra(args.i_frame_model_path, device, precision)
+    i_net = load_intra(args.i_frame_model_path, device, precision,
+                       int8_table)
     v_net = load_video(args.model_path, device, od_offset_cap_from_env(),
-                       precision)
+                       precision, int8_table)
     for net in (i_net, v_net):
         net.set_scale_information(RATIO_FACTORS[args.ratio], (he_pad, we_pad),
                                   (0, 0, 0, 0))

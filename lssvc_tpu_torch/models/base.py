@@ -15,11 +15,14 @@ model and mode and cached on the model.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
 
 import torch
 from torch import nn
 
+from ..ops.int8 import Int8Sites
 from ..ops.nn import Mode, precision_scope
 from ..utils.platform import resolve_device
 
@@ -48,20 +51,22 @@ def scoped(method):
 
 
 class Model(nn.Module):
-    """`precision`: "fp32" (the parity mode), "high", "bf16" or
-    "bf16_f32out"; `packed_width` 1 or 2; `conv1x1_einsum` runs 1x1 convs
-    as matmuls; `packed_ctx` the EL's fused packed pair warp (LSSVC only).
-    See `ops.nn.Mode`."""
+    """`precision`: "fp32" (the parity mode), "high", "bf16",
+    "bf16_f32out" or "int8"; `packed_width` 1 or 2; `conv1x1_einsum` runs
+    1x1 convs as matmuls; `packed_ctx` the EL's fused packed pair warp
+    (LSSVC only); `int8_table` the calibration table (key -> activation
+    scale) that "int8" serves from.  See `ops.nn.Mode`."""
 
     def __init__(self, params: dict, device="cuda", precision="fp32",
-                 packed_width=1, conv1x1_einsum=False, packed_ctx=False):
+                 packed_width=1, conv1x1_einsum=False, packed_ctx=False,
+                 int8_table=None):
         super().__init__()
         self.device = resolve_device(device)
         for key, value in params.items():
             _register(self, key, value)
         self.to(self.device)
         self.mode = Mode(precision, packed_width, conv1x1_einsum, packed_ctx,
-                         cache={})
+                         cache={}, int8=Int8Sites(dict(int8_table or {})))
 
     @property
     def precision(self) -> str:
@@ -70,6 +75,25 @@ class Model(nn.Module):
     def scope(self):
         """The model's mode as a `precision_scope`."""
         return precision_scope(self.mode)
+
+    def share_int8(self, other: "Model"):
+        """Take `other`'s int8 state (table, served sites, recorder): a
+        base layer shares its two-layer model's."""
+        self.mode = dataclasses.replace(self.mode, int8=other.mode.int8)
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Collect each conv site's input absmax while the block runs (the
+        JAX package's `int8.recording`): yields the dict, key -> 0-d f32
+        tensor, that the sites fill."""
+        sites = self.mode.int8
+        if sites.stats is not None:
+            raise RuntimeError("nested calibration recording")
+        sites.stats = {}
+        try:
+            yield sites.stats
+        finally:
+            sites.stats = None
 
     def flat_params(self) -> dict[str, torch.Tensor]:
         return dict(self.named_parameters())

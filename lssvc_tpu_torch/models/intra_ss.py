@@ -154,15 +154,23 @@ class IntraSS(Model):
     CUDA unless "cpu" is asked for).  The `base_layer_model.` keys form
     the submodule `base_layer_model`, an IntraNoAR, so `state_dict()` has
     the reference's keys.  Every width comes from the weights.  Both
-    layers run in `precision` (`models/base.py`)."""
+    layers run in `precision` (`models/base.py`).  `packed_width` 2 packs
+    the EL's shared components (`feature_extractor_3scale`,
+    `multi_scale_context_fusion`, `recon_generation_simple`), as the JAX
+    package's global packed width does under `--precision int8`; their
+    keys differ from the video model's in channel widths, so they find no
+    scale in its table and run the bf16 path, packed."""
 
-    def __init__(self, params: dict, device="cuda", precision="fp32"):
+    def __init__(self, params: dict, device="cuda", precision="fp32",
+                 packed_width=1, int8_table=None):
         super().__init__({k: v for k, v in params.items()
                           if not k.startswith(BL_PREFIX)}, device=device,
-                         precision=precision)
+                         precision=precision, packed_width=packed_width,
+                         int8_table=int8_table)
         self.base_layer_model = intra_noar.IntraNoAR(
             {k[len(BL_PREFIX):]: v for k, v in params.items()
              if k.startswith(BL_PREFIX)}, device=device, precision=precision)
+        self.base_layer_model.share_int8(self)
         self.shape_hr = (256, 256)
         self.pad_size = (0, 0, 0, 0)
         self._coder = None  # the EL's, built by update()

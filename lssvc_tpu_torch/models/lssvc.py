@@ -295,23 +295,28 @@ class LSSVC(Model):
 
     `od_offset_cap` clips OffsetDiversity's diversity offsets (px): None
     leaves them uncapped, `ops.nn.OD_OFFSET_CAP_SERVING` is the serving
-    preset.  `precision`, `packed_width`, `conv1x1_einsum` and
-    `packed_ctx` are the model's mode (`models/base.py`); the base layer
-    is built in the same mode."""
+    preset.  `precision`, `packed_width`, `conv1x1_einsum`, `packed_ctx`
+    and `int8_table` are the model's mode (`models/base.py`); the base
+    layer is built in the same mode and shares the int8 state."""
 
     BASE_LAYER = dmc.DMC
 
     def __init__(self, params: dict, device="cuda", od_offset_cap=None,
                  precision="fp32", packed_width=1, conv1x1_einsum=False,
-                 packed_ctx=False):
+                 packed_ctx=False, int8_table=None):
         mode = dict(precision=precision, packed_width=packed_width,
                     conv1x1_einsum=conv1x1_einsum)
         super().__init__({k: v for k, v in params.items()
                           if not k.startswith(BL_PREFIX)}, device=device,
-                         packed_ctx=packed_ctx, **mode)
+                         packed_ctx=packed_ctx, int8_table=int8_table, **mode)
         self.base_layer_model = self.BASE_LAYER(
             {k[len(BL_PREFIX):]: v for k, v in params.items()
              if k.startswith(BL_PREFIX)}, device=device, **mode)
+        # one table, served set and recorder for both layers: the BL's keys
+        # carry no `base_layer_model.` (the JAX package's flat table,
+        # `lssvc.py:285-286`), so a BL and an EL site of one prefix and
+        # shape share a key, and their absmax merges by max
+        self.base_layer_model.share_int8(self)
         self.od_offset_cap = od_offset_cap
         self.shape_hr = (256, 256)
         self.scale_factor = 2.0

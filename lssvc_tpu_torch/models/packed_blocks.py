@@ -1,5 +1,5 @@
 """Width-packed variants of the full-resolution conv blocks (the JAX
-package's `models/packed_blocks.py`, without its int8 sites).
+package's `models/packed_blocks.py`), with their int8 sites.
 
 Mirrors of `components.py` blocks that run on width-packed tensors
 (`ops/packed.py`: (N, H, W/p, p*C)), drop-in replacements inside a
@@ -8,6 +8,11 @@ has packed width 2.  The packed kernels are built from the same f32
 weights, once per model and mode: they live in the mode's cache (the
 model's, `models/base.py`), keyed by the weight tensor, the pack factor,
 the stride and the input permutation.
+
+Every packed conv is a site of the int8 precision: its input absmax is
+recorded while the model's recorder is open, and in "int8" a site whose
+key (`ops.int8.calib_key`) has a scale in the model's table runs the s8
+convolution (`_pconv_int8`); any other site runs the float path.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ import numpy as np
 import torch
 
 from ..ops import leaky_relu
+from ..ops.int8 import (Int8Weight, calib_key, f32_scalar, int8_conv2d,
+                        quant_weight)
 from ..ops.nn import current_mode
 from ..ops.packed import (
     pack_bias,
@@ -29,26 +36,76 @@ from ..ops.packed import (
 P = 2  # pack factor: doubles the channel dim, halves rows
 
 
-def _packed(scope, key, w, p, stride, in_perm, pack_fn):
-    """The packed (kernel, bias, padding) of `scope`'s conv, from the mode's
-    cache (built on a miss; a cache entry keeps its weight tensor, so a
-    replaced weight is packed anew)."""
+def _cached(key, w, build):
+    """`build()` through the mode's cache, under `key`; an entry keeps its
+    weight tensor, so a replaced weight is built anew."""
     cache = current_mode().cache
-    # keyed by the weight itself: the BL and the EL share scope names
-    ck = (id(w), p, stride, None if in_perm is None else in_perm.tobytes())
-    hit = None if cache is None else cache.get(ck)
+    hit = None if cache is None else cache.get(key)
     if hit is not None and hit[0] is w:
         return hit[1]
-    pw, pads = pack_fn(w, p, stride)
-    if in_perm is not None:
-        # our input channel j carries what the standard packed layout calls
-        # channel in_perm[j]
-        pw = pw[:, torch.from_numpy(in_perm).to(pw.device)]
-    bias = scope(key + "bias")
-    packed = (pw.contiguous(), pack_bias(bias, p), pads)
+    value = build()
     if cache is not None:
-        cache[ck] = (w, packed)
-    return packed
+        cache[key] = (w, value)
+    return value
+
+
+def _permuted(pw, in_perm):
+    # our input channel j carries what the standard packed layout calls
+    # channel in_perm[j]
+    if in_perm is None:
+        return pw
+    return pw[:, torch.from_numpy(in_perm).to(pw.device)]
+
+
+def _perm_key(in_perm):
+    return None if in_perm is None else in_perm.tobytes()
+
+
+def _packed(scope, key, w, p, stride, in_perm, pack_fn):
+    """The packed (kernel, bias, padding) of `scope`'s conv, from the mode's
+    cache (built on a miss)."""
+    def build():
+        pw, pads = pack_fn(w, p, stride)
+        return (_permuted(pw, in_perm).contiguous(),
+                pack_bias(scope(key + "bias"), p), pads)
+
+    # keyed by the weight itself: the BL and the EL share scope names
+    return _cached((id(w), p, stride, _perm_key(in_perm)), w, build)
+
+
+def _pconv_int8(scope, key, x_pk, w, s_in, p, stride, in_perm, pack_fn):
+    """w8a8 integer conv of a calibrated site (the JAX package's
+    `_pconv_int8`, `packed_blocks.py:35-53`): the kernel quantized per
+    output channel on the unpacked kernel, then packed (a depthwise one
+    densified), then gathered by `in_perm`; the input quantized per tensor
+    by `s_in` as the kernel loads it; y = f32(acc) * (f32(s_in) *
+    tile(w_scale, p)) + packed bias, in bf16."""
+    def build():
+        w8, w_scale = quant_weight(w)
+        pw8, pads = pack_fn(w8, p, stride)
+        mult = f32_scalar(s_in, w.device) * w_scale.repeat(p)
+        return (Int8Weight(_permuted(pw8, in_perm), mult,
+                           pack_bias(scope(key + "bias"), p).float()), pads)
+
+    kern, (pl, pr) = _cached(("int8", id(w), p, stride, _perm_key(in_perm),
+                              s_in), w, build)
+    kh = w.shape[2]
+    return int8_conv2d(x_pk, kern, stride=stride,
+                       padding=((kh // 2, kh // 2), (pl, pr)), s_in=s_in)
+
+
+def _site(scope, key, x_pk, w, p, stride, in_perm, pack_fn):
+    """A packed conv site: recorded, then int8 where calibrated, else the
+    float path."""
+    mode = current_mode()
+    ckey = calib_key(scope.prefix + key, w)
+    mode.int8.record(ckey, x_pk)
+    s_in = mode.int8.scale_for(ckey) if mode.precision == "int8" else None
+    if s_in is not None:
+        return _pconv_int8(scope, key, x_pk, w, s_in, p, stride, in_perm,
+                           pack_fn)
+    pw, pb, pads = _packed(scope, key, w, p, stride, in_perm, pack_fn)
+    return packed_conv2d(x_pk, pw, pb, stride=stride, pad_lr=pads)
 
 
 def pconv(scope, x_pk, stride: int = 1, p: int = P, in_perm=None):
@@ -59,18 +116,14 @@ def pconv(scope, x_pk, stride: int = 1, p: int = P, in_perm=None):
     in_perm[j]; the packed kernel's input dim is gathered accordingly (once,
     in the cache), so a consumer reads a concat of independently packed
     tensors without a relayout."""
-    w = scope("weight")
-    pw, pb, pads = _packed(scope, "", w, p, stride, in_perm,
-                           pack_kernel_oihw)
-    return packed_conv2d(x_pk, pw, pb, stride=stride, pad_lr=pads)
+    return _site(scope, "", x_pk, scope("weight"), p, stride, in_perm,
+                 pack_kernel_oihw)
 
 
 def pconv_dw(scope, x_pk):
     """Packed depthwise 3x3 (densified; see pack_depthwise_kernel)."""
-    w = scope("depth_conv.weight")
-    pw, pb, pads = _packed(scope, "depth_conv.", w, P, 1, None,
-                           pack_depthwise_kernel_oihw)
-    return packed_conv2d(x_pk, pw, pb, pad_lr=pads)
+    return _site(scope, "depth_conv.", x_pk, scope("depth_conv.weight"), P,
+                 1, None, pack_depthwise_kernel_oihw)
 
 
 def p_res_block(scope, x_pk, slope=0.01, start_from_relu=True,

@@ -17,6 +17,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import json
 import os
 import threading
 
@@ -24,8 +25,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .int8 import Int8Sites
 
-PRECISIONS = ("fp32", "high", "bf16", "bf16_f32out")
+PRECISIONS = ("fp32", "high", "bf16", "bf16_f32out", "int8")
+# the precisions whose conv and matmul operands are bf16
+BF16_OPERANDS = ("bf16", "bf16_f32out", "int8")
 
 
 def set_fp32_parity():
@@ -58,20 +62,29 @@ class Mode:
               operands are rounded to bf16 and kept as f32 tensors, and
               the conv runs with TF32 on; a bf16 value is exact in TF32 and
               its products are exact in f32, so this is "bf16 operands, f32
-              accumulation" on the tensor cores.
+              accumulation" on the tensor cores;
+      "int8"  bf16 as above, except at the calibrated packed sites, which
+              run the s8 convolution (`ops/int8.py`, `models/packed_blocks.py`)
+              with the scales of `int8.table`; an uncalibrated site is the
+              bf16 path bit for bit.
     packed_width: 2 routes the full-res stride-1 stacks through the
       width-packed domain (`ops/packed.py`).
     conv1x1_einsum: 1x1 stride-1 ungrouped convs as matmuls.
     packed_ctx: under packed width 2, the EL pair warp stores straight into
       the packed domain and OffsetDiversity reads it there (the JAX
       package's `LSSVC_PACKED_CTX`, `models/lssvc.py:34,159-178`).
-    cache: the model's packed kernels (`models/packed_blocks.py`)."""
+    cache: the model's packed kernels (`models/packed_blocks.py`).
+    int8: the model's calibration table, served sites and absmax recorder
+      (`ops.int8.Int8Sites`); the recorder works in every precision, the
+      table serves only in "int8"."""
 
     precision: str = "fp32"
     packed_width: int = 1
     conv1x1_einsum: bool = False
     packed_ctx: bool = False
     cache: dict | None = dataclasses.field(default=None, compare=False)
+    int8: Int8Sites = dataclasses.field(default_factory=Int8Sites,
+                                        compare=False)
 
     def __post_init__(self):
         if self.precision not in PRECISIONS:
@@ -117,7 +130,7 @@ def precision_scope(mode: Mode):
 
 def compute_dtype() -> torch.dtype:
     """The dtype of conv and matmul operands in the current mode."""
-    return (torch.bfloat16 if current_mode().precision.startswith("bf16")
+    return (torch.bfloat16 if current_mode().precision in BF16_OPERANDS
             else torch.float32)
 
 
@@ -127,12 +140,12 @@ def packed_width() -> int:
 
 def _operands(x, w, b):
     """(x, w, b) as the current mode's conv takes them: bf16 for "bf16"
-    (the bias too: F.conv2d adds it inside the conv, so the output is
-    rounded once, where the JAX package rounds the conv and then the sum,
-    `ops/nn.py:254`); bf16-rounded f32 for "bf16_f32out"; as given
-    otherwise."""
+    and "int8" (the bias too: F.conv2d adds it inside the conv, so the
+    output is rounded once, where the JAX package rounds the conv and then
+    the sum, `ops/nn.py:254`); bf16-rounded f32 for "bf16_f32out"; as
+    given otherwise."""
     prec = current_mode().precision
-    if prec == "bf16":
+    if prec in ("bf16", "int8"):
         bf = torch.bfloat16
         return x.to(bf), w.to(bf), None if b is None else b.to(bf)
     if prec == "bf16_f32out":
@@ -173,18 +186,34 @@ def fp32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = before
 
 
-def precision_from_cli(precision: str, int8_calib=None) -> str:
-    """The CLIs' `--precision`: fp32, high or bf16 (the JAX package's
-    `apply_precision_cli` without int8)."""
-    if precision == "int8" or int8_calib:
-        raise NotImplementedError(
-            "--precision int8 and --int8_calib belong to the int8 slice of "
-            "the port (lssvc_tpu/ops/int8.py, harness/calibrate.py), which "
-            "is not ported yet")
-    if precision not in ("fp32", "high", "bf16"):
-        raise ValueError(f"--precision {precision!r}: expected fp32, high "
-                         "or bf16")
-    return precision
+def precision_from_cli(precision: str, int8_calib=None):
+    """The CLIs' `--precision` and `--int8_calib` (the JAX package's
+    `apply_precision_cli`, `ops/nn.py:83-102`): (precision, int8 table).
+    int8 needs a calibration table (`python -m
+    lssvc_tpu_torch.tools.int8_calibrate`), read here from its JSON; the
+    encoder and the decoder must use the same one.  Other precisions read
+    no table."""
+    if precision not in ("fp32", "high", "bf16", "int8"):
+        raise ValueError(f"--precision {precision!r}: expected fp32, high, "
+                         "bf16 or int8")
+    if precision != "int8":
+        return precision, None
+    if not int8_calib:
+        raise SystemExit(
+            "--precision int8 requires --int8_calib <table.json> "
+            "(produce one with tools/int8_calibrate.py)")
+    with open(int8_calib) as f:
+        return precision, {k: float(v) for k, v in json.load(f).items()}
+
+
+def serving_mode(precision: str, int8_table=None) -> dict:
+    """A model's mode keywords for a CLI precision: int8 adds packed width
+    2 and its table (the JAX package's CLI preset, `ops/nn.py:100-102`)."""
+    if precision == "int8":
+        if int8_table is None:
+            raise ValueError("precision int8 needs a calibration table")
+        return dict(precision="int8", packed_width=2, int8_table=int8_table)
+    return dict(precision=precision)
 
 
 def packed_ctx_from_env() -> bool:

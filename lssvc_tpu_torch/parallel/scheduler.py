@@ -1,10 +1,11 @@
 """Task runner for evaluation sweeps (the JAX package's
 `parallel/scheduler.py:27-112`, one worker).
 
-Models are cached per checkpoint path and precision, so a sweep over
-(dataset x ratio x sequence) loads each network once in each precision.  Under
-`write_stream` a model builds its CDF tables on load, and its bins go to
-`<stream_path>/<sequence>/<model_idx>/<ratio>/{BL,EL}/`.  Tasks run one
+Models are cached per checkpoint path, precision and int8 table (its
+content, not its path), so a sweep over (dataset x ratio x sequence) loads
+each network once in each precision, and two tables never share a model.
+Under `write_stream` a model builds its CDF tables on load, and its bins
+go to `<stream_path>/<sequence>/<model_idx>/<ratio>/{BL,EL}/`.  Tasks run one
 after another on one device; a pool of workers (one a GPU) is a later step.
 """
 
@@ -21,6 +22,7 @@ from ..harness.runner import run_test
 from ..models import IntraSS
 from ..models.init import init_intra_ss, init_lssvc
 from ..models.lssvc_stream import LSSVCExtend
+from ..ops.nn import packed_ctx_from_env, serving_mode
 
 BL_CHANNEL_KEY = "base_layer_model.g_s.0.conv1.weight"
 
@@ -70,44 +72,59 @@ def _checked(sd: dict, shapes: dict, path: str) -> dict:
     return {k: sd[k].float() for k in shapes}
 
 
-def load_intra(path: str, device, precision="fp32") -> IntraSS:
+def load_intra(path: str, device, precision="fp32",
+               int8_table=None) -> IntraSS:
+    """IntraSS in `precision`; "int8" also packs its shared components
+    (packed width 2) and takes the table (`ops.nn.serving_mode`)."""
     sd = _state_dict(path, "intra_ss")
     shapes = _shapes(init_intra_ss, int(sd[BL_CHANNEL_KEY].shape[0]))
     return IntraSS(_checked(sd, shapes, path), device=device,
-                   precision=precision)
+                   **serving_mode(precision, int8_table))
 
 
-def load_video(path: str, device, od_offset_cap,
-               precision="fp32") -> LSSVCExtend:
+def load_video(path: str, device, od_offset_cap, precision="fp32",
+               int8_table=None) -> LSSVCExtend:
     """LSSVCExtend with OffsetDiversity's cap `od_offset_cap` (px, None for
-    no cap), in `precision`."""
+    no cap), in `precision`; "int8" runs at packed width 2 with the table
+    and reads `LSSVC_PACKED_CTX`, as the JAX package's CLI does."""
     params = _checked(_state_dict(path, "lssvc"), _shapes(init_lssvc), path)
+    mode = serving_mode(precision, int8_table)
+    if precision == "int8":
+        mode["packed_ctx"] = packed_ctx_from_env()
     return LSSVCExtend(params, device=device, od_offset_cap=od_offset_cap,
-                       precision=precision)
+                       **mode)
+
+
+def _table_key(table):
+    return None if table is None else tuple(sorted(table.items()))
 
 
 class Runner:
     """Runs tasks on one device, loading each checkpoint once a precision
-    (a task's "precision", else `precision`); the video models take
-    OffsetDiversity's cap `od_offset_cap`."""
+    and int8 table (a task's "precision" and "int8_table", else
+    `precision` and `int8_table`); the video models take OffsetDiversity's
+    cap `od_offset_cap`."""
 
-    def __init__(self, device, od_offset_cap, precision="fp32"):
+    def __init__(self, device, od_offset_cap, precision="fp32",
+                 int8_table=None):
         self.device = device
         self.od_offset_cap = od_offset_cap
         self.precision = precision
+        self.int8_table = int8_table
         self.models = {}
 
     def _models(self, task):
         precision = task.get("precision", self.precision)
+        table = task.get("int8_table", self.int8_table)
         key = (task["i_frame_model_path"],
                None if task.get("force_intra") else task["video_model_path"],
-               precision)
+               precision, _table_key(table))
         if key not in self.models:
             intra = load_intra(task["i_frame_model_path"], self.device,
-                               precision)
+                               precision, table)
             video = (None if task.get("force_intra")
                      else load_video(task["video_model_path"], self.device,
-                                     self.od_offset_cap, precision))
+                                     self.od_offset_cap, precision, table))
             if task.get("write_stream"):
                 for model in (intra, video):
                     if model is not None:

@@ -8,13 +8,17 @@ results, with estimated bits or, with `--write_stream 1`, real bitstreams.
         [--write_stream 1 --stream_path bins [--decoding_profiling 1]]
 
 Runs on `cuda` unless `--device` says otherwise, in `--precision` fp32
-(the parity mode; default), high (TF32 convs and matmuls on the card) or
-bf16 (bf16 conv operands and outputs, f32 accumulation).  Streams go to
+(the parity mode; default), high (TF32 convs and matmuls on the card),
+bf16 (bf16 conv operands and outputs, f32 accumulation) or int8 (bf16 with
+the s8 convolution at the calibrated packed sites, at packed width 2; it
+needs `--int8_calib table.json`, from `python -m
+lssvc_tpu_torch.tools.int8_calibrate`).  Streams go to
 `<stream_path>/<sequence>/<model_idx>/<ratio>/{BL,EL}/<frame>.bin`, and
-`python -m lssvc_tpu_torch.decode` decodes them, in the same precision.
-OffsetDiversity's offset cap is `LSSVC_OD_OFFSET_CAP` px (10 unless set; 0
-or empty: no cap).  Flags of paths that are not ported yet (latent RDO,
-int8, PNG artifacts, more than one worker) raise.
+`python -m lssvc_tpu_torch.decode` decodes them, in the same precision and
+with the same table.  OffsetDiversity's offset cap is
+`LSSVC_OD_OFFSET_CAP` px (10 unless set; 0 or empty: no cap).  Flags of
+paths that are not ported yet (latent RDO, PNG artifacts, more than one
+worker) raise.
 """
 
 from __future__ import annotations
@@ -95,8 +99,13 @@ def parse_args(argv=None):
                         help="fp32 = reference parity, high = TF32 convs "
                              "and matmuls on the GPU, bf16 = bf16 operands "
                              "and outputs (a bf16 stream decodes only in "
-                             "bf16); int8 is not ported yet")
-    parser.add_argument("--int8_calib", type=str, default=None)
+                             "bf16), int8 = s8 convs at the calibrated "
+                             "packed sites (needs --int8_calib)")
+    parser.add_argument("--int8_calib", type=str, default=None,
+                        help="activation-scale table JSON from "
+                             "lssvc_tpu_torch.tools.int8_calibrate "
+                             "(required for --precision int8; the decoder "
+                             "must use the same table)")
     parser.add_argument("--ratios", type=str, nargs="+",
                         default=["x2", "x1_5"],
                         help="BL downscale ratios to evaluate")
@@ -105,7 +114,6 @@ def parse_args(argv=None):
 
 def refuse_unported(args):
     """Raise on a flag whose path is not ported yet."""
-    precision_from_cli(args.precision, args.int8_calib)  # int8 raises
     unported = [flag for flag, on in (
         ("--intra_rdo", args.intra_rdo),
         ("--save_decoded_frame", args.save_decoded_frame),
@@ -192,6 +200,8 @@ def main(argv=None):
     (log_BL, log_EL, log_FL) per task."""
     begin_time = time.time()
     args = parse_args(argv)
+    precision, int8_table = precision_from_cli(args.precision,
+                                               args.int8_calib)
     refuse_unported(args)
     device = resolve_device(args.device)
     if args.force_intra:
@@ -207,8 +217,8 @@ def main(argv=None):
     with open(args.test_config) as f:
         config = json.load(f)
     tasks = build_tasks(args, config)
-    results = Runner(device, od_offset_cap_from_env(),
-                     args.precision).run_tasks(tasks)
+    results = Runner(device, od_offset_cap_from_env(), precision,
+                     int8_table).run_tasks(tasks)
     write_results(args, config, results)
 
     count_frames = sum({(t["ds_name"], t["video_path"]): t["frame_num"]

@@ -23,6 +23,7 @@ from lssvc_tpu_torch.models.intra_ss_stream import (compress_stream,
 from lssvc_tpu_torch.models.lssvc_stream import LSSVCExtend
 from lssvc_tpu_torch.tools.synthetic import write_dataset
 from lssvc_tpu_torch.ops import conv_chain as cc
+from lssvc_tpu_torch.ops import int8 as q8
 from lssvc_tpu_torch.ops import warp as plain
 from lssvc_tpu_torch.ops import warp_kernels as wk
 
@@ -485,3 +486,112 @@ def test_precision_frames_card_agree_with_cpu(dev, precision):
     for k in ("ref_frame_bl", "ref_frame_el"):
         assert card["dpb"][k].dtype == cpu["dpb"][k].dtype
         assert _rel_rms(card["dpb"][k], cpu["dpb"][k]) <= 0.05
+
+
+# ---------------------------------------------------------------------------
+# int8_conv (csrc/int8_conv.cu): the s8 convolution of the int8 precision
+
+# (input (n, h, w, cin), OIHW kernel (cout, kh, kw), stride, padding) at the
+# int8 path's kinds of site: packed 3x3 and 1x1 stacks (96, 128), the
+# 102-channel feature_conv.0, stride 2 with the packed (1, 0) padding,
+# SpyNet's packed 7x3 kernels (Cin 32 -> 128, 128 -> 256, Cout 8), batch 2
+INT8_CASES = [
+    ((1, 19, 37, 96), (96, 3, 3), 1, ((1, 1), (1, 1))),
+    ((1, 19, 37, 96), (64, 1, 1), 1, ((0, 0), (0, 0))),
+    ((1, 17, 33, 128), (128, 3, 3), 1, ((1, 1), (1, 1))),
+    ((1, 21, 35, 102), (96, 3, 3), 1, ((1, 1), (1, 1))),
+    ((1, 21, 35, 102), (96, 3, 3), 2, ((1, 1), (1, 0))),
+    ((1, 23, 29, 32), (128, 7, 3), 1, ((3, 3), (1, 1))),
+    ((1, 23, 29, 128), (256, 7, 3), 1, ((3, 3), (1, 0))),
+    ((1, 23, 29, 64), (8, 7, 3), 1, ((3, 3), (1, 1))),
+    ((2, 12, 40, 96), (96, 3, 3), 1, ((1, 1), (1, 1))),
+]
+
+
+def _int8_inputs(xs, ws, seed, dev):
+    rng = np.random.default_rng(seed)
+    cout, kh, kw = ws
+    w = torch.from_numpy(rng.integers(-127, 128, (cout, xs[3], kh, kw))
+                         .astype(np.int8)).to(dev)
+    x = torch.from_numpy(rng.normal(0, 2, xs).astype(np.float32)).to(dev)
+    mult = torch.from_numpy(rng.uniform(1e-6, 1e-4, cout)
+                            .astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.normal(0, 0.1, cout).astype(np.float32)) \
+        .to(dev)
+    return x, w, mult, bias
+
+
+@pytest.mark.parametrize("in_dtype", [torch.int8, torch.bfloat16,
+                                      torch.float32])
+@pytest.mark.parametrize("xs,ws,stride,pad", INT8_CASES)
+def test_int8_conv_equals_plain(dev, in_dtype, xs, ws, stride, pad):
+    """Bit for bit: the s32 accumulator is exact integer arithmetic; the
+    quantizer on load is an IEEE division and rint as the plain
+    `quant_act`; the bf16 epilogue is a separate multiply and add rounded
+    once.  One launch a call."""
+    x, w, mult, bias = _int8_inputs(xs, ws, sum(xs) + ws[0], dev)
+    s_in = 0.0173
+    if in_dtype == torch.int8:
+        x, s_in = q8.quant_act(x, s_in), None
+    else:
+        x = x.to(in_dtype)
+    n = q8.int8_conv2d.launches
+    acc = q8.int8_conv2d(x, w, stride, pad, s_in=s_in)
+    y = q8.int8_conv2d(x, w, stride, pad, s_in=s_in, mult=mult, bias=bias)
+    assert q8.int8_conv2d.launches == n + 2
+    assert acc.dtype == torch.int32 and y.dtype == torch.bfloat16
+    _bits(acc, q8.int8_conv2d_plain(x, w, stride, pad, s_in=s_in))
+    _bits(y, q8.int8_conv2d_plain(x, w, stride, pad, s_in=s_in, mult=mult,
+                                  bias=bias))
+
+
+@pytest.mark.parametrize("sign", [1, -1])
+def test_int8_conv_full_scale_at_the_largest_k(dev, sign):
+    """All inputs 127 and all weights +-127 at K = 7*3*256 = 5376: the
+    interior accumulator is 127^2 * 5376 = 86,709,504 (s32, exact)."""
+    x = torch.full((1, 16, 20, 256), 127, dtype=torch.int8, device=dev)
+    w = torch.full((64, 256, 7, 3), sign * 127, dtype=torch.int8,
+                   device=dev)
+    acc = q8.int8_conv2d(x, w, 1, ((3, 3), (1, 1)))
+    _bits(acc, q8.int8_conv2d_plain(x, w, 1, ((3, 3), (1, 1))))
+    assert int(acc[0, 8, 10, 0]) == sign * 127 * 127 * 5376
+
+
+def test_int8_conv_of_misaligned_tensors(dev):
+    """An input one element past 16-byte alignment takes the kernel's
+    element loads; an output one element past alignment (through the C
+    entry point: the wrapper allocates its own) its element stores."""
+    x, w, mult, bias = _int8_inputs((1, 19, 37, 96), (96, 3, 3), 5, dev)
+    xb = _misaligned(x.to(torch.bfloat16))
+    pad = ((1, 1), (1, 1))
+    ref = q8.int8_conv2d_plain(xb, w, 1, pad, s_in=0.02, mult=mult,
+                               bias=bias)
+    _bits(q8.int8_conv2d(xb, w, 1, pad, s_in=0.02, mult=mult, bias=bias),
+          ref)
+    kern = q8.Int8Weight(w, mult, bias)
+    lay = kern.layout()
+    for out_bf16, dtype in ((1, torch.bfloat16), (0, torch.int32)):
+        buf = torch.empty(ref.numel() + 1, dtype=dtype, device=dev)
+        out = buf[1:].view(ref.shape)
+        err = q8._lib().lssvc_int8_conv(
+            xb.data_ptr(), lay.data_ptr(), out.data_ptr(), mult.data_ptr(),
+            bias.data_ptr(), float(np.float32(0.02)), 1, 19, 37, 96, 19, 37,
+            96, lay.shape[0], lay.shape[2], 3, 3, 1, 1, 1, 1, out_bf16,
+            torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+        want = ref if out_bf16 else q8.int8_conv2d_plain(xb, w, 1, pad,
+                                                         s_in=0.02)
+        _bits(out, want)
+
+
+def test_int8_conv_rejects_what_the_kernel_does_not_take(dev):
+    w = torch.zeros((8, 16, 3, 3), dtype=torch.int8, device=dev)
+    x = torch.zeros((1, 5, 6, 16), dtype=torch.int8, device=dev)
+    with pytest.raises(TypeError):
+        q8.int8_conv2d(x.float(), w)  # a float input needs s_in
+    with pytest.raises(ValueError):
+        q8.int8_conv2d(x[..., :8], w)
+    with pytest.raises(ValueError):
+        q8.int8_conv2d(x, w.cpu())
+    with pytest.raises(ValueError):
+        q8.int8_conv2d(x, w, stride=(1, 2))

@@ -165,8 +165,7 @@ def test_checkpoints_are_held_to_the_models_keys(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--intra_rdo"], ["--precision", "int8"],
-    ["--int8_calib", "table.json"], ["--save_decoded_frame", "1"],
+    ["--intra_rdo"], ["--save_decoded_frame", "1"],
     ["--save_decoded_mv", "1"], ["--save_warp_frame", "1"],
     ["--save_decoded_context", "1"], ["--worker", "2"]])
 def test_cli_refuses_unported_flags(tmp_path, flags):

@@ -45,6 +45,7 @@ from lssvc_tpu.models import lssvc as jl
 from lssvc_tpu.models import lssvc_blocks as jlb
 from lssvc_tpu.convert import P as JP
 from lssvc_tpu.ops.nn import (
+    apply_precision_cli,
     set_od_offset_cap,
     set_packed_width,
     set_precision_mode,
@@ -145,9 +146,10 @@ def _f32(t):
 
 def test_conv_in_each_mode(rng):
     """fp32 and high are the same conv on the CPU; bf16 gives a bf16 conv
-    of bf16 operands (its bias added inside the conv); bf16_f32out an f32
-    conv of bf16-rounded operands, bit for bit; 1x1 convs as matmuls
-    within 1e-5 of the conv; the backend flags are restored on exit."""
+    of bf16 operands (its bias added inside the conv), and so does int8
+    outside its calibrated sites; bf16_f32out an f32 conv of bf16-rounded
+    operands, bit for bit; 1x1 convs as matmuls within 1e-5 of the conv;
+    the backend flags are restored on exit."""
     x = torch.from_numpy(rng.standard_normal((1, 6, 8, 16), np.float32))
     w3 = torch.from_numpy(rng.standard_normal((8, 16, 3, 3), np.float32))
     w1 = torch.from_numpy(rng.standard_normal((8, 16, 1, 1), np.float32))
@@ -177,8 +179,10 @@ def test_conv_in_each_mode(rng):
                                    atol=1e-5 if prec == "fp32" else 5e-2)
     assert flags == (torch.backends.cudnn.allow_tf32,
                      torch.backends.cuda.matmul.allow_tf32)
+    # int8 outside a calibrated packed site is the bf16 conv, bit for bit
+    assert torch.equal(run(Mode("int8"), w3), out)
     with pytest.raises(ValueError):
-        Mode("int8")
+        Mode("int4")
 
 
 def test_high_equals_fp32_on_cpu(video_params, intra_params):
@@ -400,19 +404,25 @@ def test_cli_bf16_streams_decode_in_a_fresh_process(tmp_path, monkeypatch):
 
 
 def test_clis_refuse_int8(tmp_path):
+    """`--precision int8` without a calibration table: both CLIs exit with
+    the JAX package's message (its `apply_precision_cli` raises before it
+    sets a mode) before they load anything; the int8 path itself is
+    tests/test_torch_int8.py's."""
+    with pytest.raises(SystemExit) as jax_exit:
+        apply_precision_cli("int8", None)
     cfg = write_dataset(tmp_path / "ds", 64, 64, frames=1, gop=1, seed=0)
     base = ["--test_config", str(cfg), "--i_frame_model_path", "i.pth",
             "--model_path", "v.pth", "--output_path", str(tmp_path / "o"),
-            "--device", "cpu"]
-    for extra in (["--precision", "int8"], ["--int8_calib", "t.json"]):
-        with pytest.raises(NotImplementedError, match="int8"):
-            cli.main(base + extra)
+            "--device", "cpu", "--precision", "int8"]
+    with pytest.raises(SystemExit) as port_exit:
+        cli.main(base)
+    assert str(port_exit.value) == str(jax_exit.value)
     dec = ["--bin_dir", "b", "--i_frame_model_path", "i.pth", "--model_path",
            "v.pth", "--height", "64", "--width", "64", "--frame_num", "1",
-           "--yuv_out", "o.yuv", "--device", "cpu"]
-    for extra in (["--precision", "int8"], ["--int8_calib", "t.json"]):
-        with pytest.raises(NotImplementedError, match="int8"):
-            dec_cli.main(dec + extra)
+           "--yuv_out", "o.yuv", "--device", "cpu", "--precision", "int8"]
+    with pytest.raises(SystemExit) as port_exit:
+        dec_cli.main(dec)
+    assert str(port_exit.value) == str(jax_exit.value)
 
 
 def test_scheduler_caches_models_per_precision(tmp_path, monkeypatch):
@@ -461,7 +471,6 @@ def test_bench_twin_runs_on_the_cpu(monkeypatch, capsys):
         assert line["s_per_frame"] == 0.5 and line["value"] == 2.0
         assert line["vs_baseline"] == pytest.approx(2.0 * (1.44 + 1.35))
         assert np.isfinite(line["bits"]) and line["bits"] > 0
-    for argv in (["--mode", "int8_packed"], ["--staged"], ["--tier-stats"],
-                 ["--profile"]):
+    for argv in (["--staged"], ["--tier-stats"], ["--profile"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             bench.main(argv + ["--device", "cpu", "--size", "128x128"])
