@@ -9,7 +9,9 @@ Phases (any failure exits non-zero; nothing is caught):
 2. Build: compiles the kernels of lssvc_tpu_torch/csrc with nvcc (sm_90a)
    and its rANS coder with g++, one compiler per source, all at once;
    counts the tensor-core instructions (HGMMA, HMMA) in conv_chain's SASS
-   and IMMA in int8_conv's (cuobjdump), and fails without HGMMA or IMMA.
+   and the integer wgmma (IGMMA) in int8_conv's (cuobjdump), and fails
+   without HGMMA or IGMMA; prints ptxas's report (registers, shared
+   memory, spills) of the int8 kernels.
 3. Main path: LSSVC from the port's random init, fp32 (TF32 off in the
    model's scope), offset cap
    10 px, EL 1152x1920 / BL 576x960 from a random decoded-picture buffer.
@@ -121,13 +123,19 @@ Phases (any failure exits non-zero; nothing is caught):
    launch a served site call), then edge cases: Cin 102 and 32, stride 2,
    7x3 with padding (1, 0), batch 2, s8 and f32 inputs, an input and an
    output one element past 16-byte alignment, an input past 2^31
-   elements, all +-127 at K = 5376; (c) the bench twin's int8_packed
+   elements, all +-127 at K = 5376; then int8_conv's time at each launch
+   shape of the frame (tools/int8_bench.py's `time_launches`): ms, the
+   launches a frame, the bound (bytes or operations), cuDNN's bf16 conv of
+   the same packed shape, and the frame's sums of launches x ms by class
+   of site; (c) the bench twin's int8_packed
    chain at 1080p, K=3, without and with LSSVC_PACKED_CTX=1, the counts
    set to 0 just before and read just after: int8_conv launches equal the
    served site calls, > 0, the warps launch 14 and 1 a frame (its own
    calibration's frames included), the packed pair store once a frame
    with the packed pair warp; s/frame, peak GiB and bits beside phase
-   11's bf16_packed; (d) the first 3 frames (I P P) of phase 8's sequence
+   11's bf16_packed; the first of the two runs and one of bf16_packed
+   profile a chain of 3 frames (`bench.py --profile`): device ms a frame
+   and int8_conv's share; (d) the first 3 frames (I P P) of phase 8's sequence
    through the CLI, `--precision int8 --int8_calib <table>
    --write_stream 1`, decoded by `python -m lssvc_tpu_torch.decode
    --precision int8 --int8_calib <table>` in a fresh subprocess byte for
@@ -152,6 +160,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -366,14 +375,22 @@ def phase_build():
     log(f"# conv_chain.cu SASS: {hgmma} HGMMA, {sass.count('HMMA')} HMMA")
     if hgmma == 0:
         raise AssertionError("conv_chain.cu has no HGMMA instruction")
-    # the int8 conv's products: integer tensor-core instructions
+    # the int8 conv's products: integer wgmma (IGMMA) in its SASS
     sass = subprocess.run(
         [str(Path(build.nvcc_path()).with_name("cuobjdump")), "-sass",
          str(build.library_path("int8_conv"))],
         capture_output=True, text=True, check=True).stdout
-    log(f"# int8_conv.cu SASS: {sass.count('IMMA')} IMMA")
-    if sass.count("IMMA") == 0:
-        raise AssertionError("int8_conv.cu has no IMMA instruction")
+    igmma = sorted(set(re.findall(r"IGMMA[.\w]*", sass)))
+    log(f"# int8_conv.cu SASS: {sass.count('IGMMA')} IGMMA "
+        f"({', '.join(igmma)}), {sass.count('IMMA')} IMMA")
+    if not igmma:
+        raise AssertionError("int8_conv.cu has no IGMMA instruction")
+    # ptxas's report of the int8 kernels: registers, shared memory, spills
+    report = build.BUILD_LOG.get("int8_conv", "")
+    for line in report.splitlines():
+        if re.search(r"Compiling entry|registers|spill", line):
+            log("#   " + re.sub(r"_ZN\w*int8_conv_kernel", "int8_conv_kernel",
+                               line.strip())[:160])
 
 
 def check_bits(name, out, ref):
@@ -1799,19 +1816,6 @@ INT8_CODES = {0: torch.int8, 1: torch.bfloat16, 2: torch.float32}
 INT8_GOP_FRAMES = 3
 
 
-class Int8Recorder:
-    """Stands in for the int8 kernel's library and records every launch:
-    (n, h, w, cin, ho, wo, cout, kh, kw, stride, pad_t, pad_l, input dtype
-    code, bf16 output)."""
-
-    def __init__(self, lib):
-        self.lib, self.calls = lib, []
-
-    def lssvc_int8_conv(self, *args):
-        self.calls.append(tuple(args[6:13]) + tuple(args[15:22]))
-        return self.lib.lssvc_int8_conv(*args)
-
-
 def int8_input(gen, shape, dtype):
     if dtype == torch.int8:
         return torch.randint(-127, 128, shape, generator=gen,
@@ -1865,7 +1869,8 @@ def int8_edges(gen):
     x = misaligned(int8_input(gen, (1, 64, 96, 96), bf16))
     w8, mult, bias, s_in = int8_case(gen, "edge misaligned input", x, 96, 3,
                                      3, 1, ((1, 1), (1, 1)))
-    lay = q8.Int8Weight(w8).layout()
+    kern = q8.Int8Weight(w8)
+    lay = kern.layout()
     for out_bf16, dtype in ((1, bf16), (0, torch.int32)):
         m, b = (mult, bias) if out_bf16 else (None, None)
         ref = q8.int8_conv2d_plain(x, w8, 1, ((1, 1), (1, 1)), s_in=s_in,
@@ -1876,7 +1881,7 @@ def int8_edges(gen):
             x.data_ptr(), lay.data_ptr(), out.data_ptr(),
             None if m is None else m.data_ptr(),
             None if b is None else b.data_ptr(), float(np.float32(s_in)), 1,
-            64, 96, 96, 64, 96, 96, lay.shape[0], lay.shape[2], 3, 3, 1, 1,
+            64, 96, 96, 64, 96, 96, kern.cout_pad, kern.cinp, 3, 3, 1, 1,
             1, 1, out_bf16, torch.cuda.current_stream().cuda_stream)
         if err:
             raise AssertionError(f"misaligned output: CUDA error {err}")
@@ -1912,11 +1917,18 @@ def int8_edges(gen):
             raise AssertionError(f"full scale: {int(acc[0, 20, 30, 0])}")
 
 
-def int8_chain(modes):
+def int8_chain(modes, d):
     """Phase 15 (c): the bench twin in int8_packed at 1080p, K=3, without
     and with the packed pair warp, the counts set to 0 just before each
-    run and read just after."""
+    run and read just after; the run without it profiles one chain of 3
+    frames (`--profile`), and so does a bf16_packed run: int8_conv's share
+    of the int8 frame's device time beside the bf16 frame's."""
     rows = {}
+    profile_dir = d / "profile"
+    bf16 = bench.bench_chain(EL_HW, k=K, mode="bf16_packed",
+                             device=torch.device("cuda"),
+                             profile=profile_dir)
+    rows["bf16_packed_profile"] = bf16["profile"]
     before = os.environ.get("LSSVC_PACKED_CTX")
     try:
         for ctx in ("0", "1"):
@@ -1924,8 +1936,9 @@ def int8_chain(modes):
             torch.cuda.synchronize()
             _reset_counts()
             q8.int8_conv2d.launches = 0
-            res = bench.bench_chain(EL_HW, k=K, mode="int8_packed",
-                                    device=torch.device("cuda"))
+            res = bench.bench_chain(
+                EL_HW, k=K, mode="int8_packed", device=torch.device("cuda"),
+                profile=profile_dir if ctx == "0" else None)
             torch.cuda.synchronize()
             counts = dict(_counts(), int8_conv=q8.int8_conv2d.launches)
             name = "int8_packed" + ("+packed_ctx" if ctx == "1" else "")
@@ -1959,6 +1972,13 @@ def int8_chain(modes):
                 f"{res['int8_sites']} sites served, int8_conv "
                 f"{counts['int8_conv'] / frames:g} launches a frame = the "
                 f"served site calls a frame, over {frames} frames; {counts}")
+            if "profile" in res:
+                prof, ref = res["profile"], bf16["profile"]
+                log(f"  {name} profiled: {prof['ms_per_frame']:.3f} ms of "
+                    f"device time a frame, int8_conv "
+                    f"{prof['int8_conv_ms_per_frame']:.3f} ms "
+                    f"({prof['int8_conv_share']:.1%}); bf16_packed "
+                    f"{ref['ms_per_frame']:.3f} ms a frame")
     finally:
         if before is None:
             os.environ.pop("LSSVC_PACKED_CTX", None)
@@ -2086,9 +2106,11 @@ def phase_int8(dev, d, cfg, intra, video, modes):
     """Phase 15: the int8 precision.  (a) calibrate phase 8's video
     checkpoint with the port's tool (512x512, 3 frames); (b) int8_conv bit
     for bit against its plain version at every shape a warm-up int8 frame
-    at 1080p launched it with, then the edge cases; (c) the bench twin's
+    at 1080p launched it with, then the edge cases, then its time at each
+    shape beside its bound and cuDNN's bf16 conv; (c) the bench twin's
     int8_packed chain at 1080p, K=3, counted, without and with the packed
-    pair warp; (d) the int8 stream GOP (I P P) through both CLIs and the
+    pair warp, and one chain of it and of bf16_packed profiled; (d) the
+    int8 stream GOP (I P P) through both CLIs and the
     1080p closed loop; (e) the kernel's times at two sites, beside its
     bounds, its plain version, cuDNN's bf16 conv and the taps-call
     torch._int_mm yardstick, then tools/int8_bench.py's stack."""
@@ -2113,21 +2135,16 @@ def phase_int8(dev, d, cfg, intra, video, modes):
     def uni(*shape):
         return torch.rand((1, *shape), generator=gen, device=dev)
 
-    recorder, real_lib = Int8Recorder(q8._lib()), q8._lib
-    q8._lib = lambda: recorder
-    try:
-        model.forward_one_frame(uni(*BL_HW, 3), uni(*EL_HW, 3),
-                                uni(*BL_HW, 3), uni(*EL_HW, 3),
-                                uni(*BL_HW, 64), uni(*EL_HW, 48))
-    finally:
-        q8._lib = real_lib
+    calls = int8_bench.record_launches(lambda: model.forward_one_frame(
+        uni(*BL_HW, 3), uni(*EL_HW, 3), uni(*BL_HW, 3), uni(*EL_HW, 3),
+        uni(*BL_HW, 64), uni(*EL_HW, 48)))
     served_calls = model.mode.int8.calls
     del model
-    if len(recorder.calls) != served_calls or not served_calls:
-        raise AssertionError(f"{len(recorder.calls)} launches for "
-                             f"{served_calls} served site calls")
-    shapes = sorted(set(recorder.calls))
-    log(f"  the frame launched int8_conv {len(recorder.calls)} times at "
+    if len(calls) != served_calls or not served_calls:
+        raise AssertionError(f"{len(calls)} launches for {served_calls} "
+                             "served site calls")
+    shapes = sorted(set(calls))
+    log(f"  the frame launched int8_conv {len(calls)} times at "
         f"{len(shapes)} shapes")
     for (n, h, w, cin, ho, wo, cout, kh, kw, stride, pt, pl, code,
          out_bf16) in shapes:
@@ -2140,9 +2157,16 @@ def phase_int8(dev, d, cfg, intra, video, modes):
                   kh, kw, stride, pad)
     int8_edges(gen)
     torch.cuda.empty_cache()
+    log("# int8: (b) int8_conv's time at each launch shape of the frame "
+        "(tools/int8_bench.py --frame), beside its bound and cuDNN's bf16 "
+        "conv of the same packed shape")
+    frame = int8_bench.time_launches(calls, dev)
+    int8_bench.log_frame_times(frame, out=sys.stdout)
+    torch.cuda.empty_cache()
 
-    log("# int8: (c) the bench twin's int8_packed chain at 1080p, K=3")
-    chain = int8_chain(modes)
+    log("# int8: (c) the bench twin's int8_packed chain at 1080p, K=3, "
+        "and bf16_packed's, each with one profiled chain of 3 frames")
+    chain = int8_chain(modes, d)
     log("# int8: (d) the int8 stream: first 3 frames (I P P) of phase 8's "
         "sequence, --precision int8 --int8_calib --write_stream 1")
     stream = int8_stream(dev, d, cfg, intra, video, table_path, table)
@@ -2184,7 +2208,11 @@ def phase_int8(dev, d, cfg, intra, video, modes):
         "packed_ctx_launches":
             chain["int8_packed+packed_ctx"]["launches"]["int8_conv"],
         "stream_launches": stream["launches"]["int8_conv"],
-        "warm_up_launch_shapes": len(shapes)}
+        "warm_up_launch_shapes": len(shapes),
+        "frame_launch_shapes": frame["shapes"],
+        "frame_sums_ms": frame["sums"],
+        "int8_frame_profile": chain["int8_packed"]["profile"],
+        "bf16_frame_profile": chain["bf16_packed_profile"]}
     log(json.dumps({"int8": {"chain": chain, "stream": stream,
                              "sites": sites, "table_sites": len(table)}}))
     log(f"# int8 phase: {time.perf_counter() - t_phase:.1f} s")

@@ -32,7 +32,15 @@ whole run coded (warm-up and readings); `int8_packed`
 adds the table's sites, the sites served and the served site calls of the
 whole run.
 
-`--staged`, `--tier-stats` and `--profile` are not ported yet and raise.
+`--profile DIR` (`bench.py:282-286`) runs one steady chain of min(K, 3)
+frames after the warm-up under torch.profiler (CPU activity, and CUDA on
+the card), writes its Chrome trace to `DIR/<mode>_trace.json`, prints the
+top kernels by device time (on the CPU: the top operators by CPU time) to
+stderr, adds a `profile` summary to the line (the device time of all
+kernels, of `int8_conv`'s and its share; per frame), and goes on with the
+readings.
+
+`--staged` and `--tier-stats` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import argparse
 import json
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -64,7 +73,8 @@ MODES = {
                                conv1x1_einsum=True),
     "int8_packed": dict(precision="int8", packed_width=2),
 }
-UNPORTED = ("--staged", "--tier-stats", "--profile")
+UNPORTED = ("--staged", "--tier-stats")
+PROFILE_FRAMES, PROFILE_TOP = 3, 15
 # int8_packed's own calibration: EL size and frames (`bench.py:198-201`)
 CALIB_SIZE, CALIB_FRAMES = 512, 2
 SEED = 0
@@ -150,10 +160,59 @@ def chain_inputs(el_hw, k, batch, video, device):
     return frames, dpb
 
 
+def _self_us(evt, cuda):
+    if not cuda:
+        return evt.self_cpu_time_total
+    # torch renamed cuda_* timing attributes to device_* in 2.4
+    return getattr(evt, "self_device_time_total",
+                   getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def profile_chain(run_chain, frames, trace_dir, mode, cuda):
+    """`frames` frames of the chain under torch.profiler: the Chrome trace
+    into `trace_dir`, the top kernels (operators on the CPU) to stderr,
+    and a summary: the summed device time of the kernels (CPU time of the
+    operators on the CPU), int8_conv's part and share, per frame."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        run_chain(frames)
+    trace = Path(trace_dir) / f"{mode}_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    kind = torch.autograd.DeviceType.CUDA if cuda else \
+        torch.autograd.DeviceType.CPU
+    rows = [e for e in prof.key_averages()
+            if e.device_type == kind and _self_us(e, cuda) > 0]
+    total = sum(_self_us(e, cuda) for e in rows) / 1e3
+    int8 = sum(_self_us(e, cuda) for e in rows if "int8_conv" in e.key) / 1e3
+    top = sorted(rows, key=lambda e: _self_us(e, cuda),
+                 reverse=True)[:PROFILE_TOP]
+    clock = "device" if cuda else "CPU"
+    print(f"# profile: {frames} frames of {mode} -> {trace}; {clock} time "
+          f"{total / frames:.3f} ms a frame, int8_conv {int8 / frames:.3f} "
+          f"ms ({int8 / total if total else 0.0:.1%}); top by {clock} time:",
+          file=sys.stderr)
+    for e in top:
+        print(f"#   {_self_us(e, cuda) / 1e3 / frames:9.3f} ms a frame "
+              f"{e.count / frames:7.1f} calls  {e.key[:100]}",
+              file=sys.stderr)
+    return {"trace": str(trace), "frames": frames, "clock": clock,
+            "ms_per_frame": total / frames,
+            "int8_conv_ms_per_frame": int8 / frames,
+            "int8_conv_share": int8 / total if total else 0.0,
+            "top": [{"name": e.key[:100],
+                     "ms_per_frame": _self_us(e, cuda) / 1e3 / frames,
+                     "calls_per_frame": e.count / frames} for e in top]}
+
+
 def bench_chain(el_hw=(1152, 1920), k=7, mode="bf16", batch=1, ckpt=None,
-                video=None, device="cuda", readings=8):
+                video=None, device="cuda", readings=8, profile=None):
     """Run the chain benchmark; returns its result dict (see the module
-    docstring), or raises if no two readings agree."""
+    docstring), or raises if no two readings agree.  With `profile` (a
+    directory) one steady chain of min(k, 3) frames runs under
+    torch.profiler first (`profile_chain`)."""
     check_mode(mode)
     device = resolve_device(device)
     model = model_for(mode, load_params(ckpt), device)
@@ -190,6 +249,10 @@ def bench_chain(el_hw=(1152, 1920), k=7, mode="bf16", batch=1, ckpt=None,
     if mode == "int8_packed":
         print(f"# int8 sites active in step: {len(sites.served)}",
               file=sys.stderr)
+    prof = None
+    if profile is not None:
+        prof = profile_chain(run_chain, min(k, PROFILE_FRAMES), profile,
+                             mode, cuda)
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     got = []
@@ -206,6 +269,8 @@ def bench_chain(el_hw=(1152, 1920), k=7, mode="bf16", batch=1, ckpt=None,
                    "batch": batch,
                    "peak_gib": (torch.cuda.max_memory_allocated(device)
                                 / 2 ** 30 if cuda else None)}
+            if prof is not None:
+                res["profile"] = prof
             if mode == "int8_packed":
                 res.update(int8_sites=len(sites.table),
                            int8_served=len(sites.served),
@@ -228,6 +293,8 @@ def parse_args(argv=None):
     p.add_argument("--size", default="1152x1920",
                    help="EL height x width (1080p padded to 1152x1920)")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="profile one steady chain of min(K, 3) frames")
     for flag in UNPORTED:
         p.add_argument(flag, action="store_true", help="not ported yet")
     return p.parse_args(argv)
@@ -241,7 +308,7 @@ def main(argv=None):
     h, w = (int(v) for v in args.size.split("x"))
     res = bench_chain((h, w), k=args.frames, mode=args.mode,
                       batch=args.batch, ckpt=args.ckpt, video=args.video,
-                      device=args.device)
+                      device=args.device, profile=args.profile)
     tag = {(1152, 1920): "1080p", (768, 1280): "720p"}.get((h, w),
                                                            f"{h}x{w}")
     line = {"metric": f"two_layer_{tag}_fps_per_chip", "value": res["fps"],

@@ -1,7 +1,9 @@
 """Build the native sources of `csrc/` into shared libraries, loaded with ctypes.
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
-`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`;
+`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+-Xptxas -v` (ptxas's report of each kernel's registers, shared memory and
+spills is kept in `BUILD_LOG`);
 each `csrc/<name>.cpp` (host code: the rANS coder) by
 `g++ -O3 -std=c++17 -shared -fPIC`.  Both build at first use into
 `lssvc_tpu_torch/_build/` (listed in .gitignore).  The library's file name
@@ -27,13 +29,16 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 # seconds each library took to build in this process (0.0 when a built
 # library was found on disk)
 BUILD_SECONDS: dict[str, float] = {}
+# the compiler's output of each library built in this process (nvcc: ptxas's
+# -v report)
+BUILD_LOG: dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -86,6 +91,7 @@ def build(name: str) -> Path:
                         f"{src.name}:\n{proc.stdout}\n{proc.stderr}")
                 os.replace(tmp, lib)
                 BUILD_SECONDS[name] = time.perf_counter() - t0
+                BUILD_LOG[name] = proc.stdout + proc.stderr
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     BUILD_SECONDS.setdefault(name, 0.0)

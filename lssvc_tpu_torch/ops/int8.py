@@ -41,8 +41,10 @@ import torch.nn.functional as F
 
 from .. import build
 
-CIN_ALIGN = 32    # the kernel's K step: one m16n8k32 s8 MMA
-COUT_ALIGN = 128  # the kernel's widest tile of output channels
+CIN_ALIGN = 32  # the kernel's K step: one wgmma m64nNk32 s8
+# the kernel's Cout chunks (the N of one wgmma), narrowest first; a Cout
+# past the widest runs in several chunks of it
+CHUNK_NS = (16, 32, 64, 96, 128)
 # float64 elements of the plain version's im2col in one band of rows (2 GiB)
 PLAIN_BAND = 1 << 28
 _IN_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
@@ -54,9 +56,11 @@ def _lib():
     if _LIB is None:
         lib = build.load("int8_conv")
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.lssvc_int8_conv.argtypes = [vp, vp, vp, vp, vp, ctypes.c_float,
-                                        *([i32] * 16), vp]
+        args = [vp, vp, vp, vp, vp, ctypes.c_float, *([i32] * 16)]
+        lib.lssvc_int8_conv.argtypes = [*args, vp]
         lib.lssvc_int8_conv.restype = i32
+        lib.lssvc_int8_plan.argtypes = [*args, ctypes.POINTER(i32)]
+        lib.lssvc_int8_plan.restype = i32
         _LIB = lib
     return _LIB
 
@@ -91,6 +95,12 @@ def quant_weight(w):
     return q.clamp_(-127, 127).to(torch.int8), scale
 
 
+def chunk_n(cout: int) -> int:
+    """The kernel's Cout chunk for a Cout (`chunk_n` of csrc/int8_conv.cu):
+    the narrowest of `CHUNK_NS` that holds it, else the widest."""
+    return next((n for n in CHUNK_NS if cout <= n), CHUNK_NS[-1])
+
+
 def _padding(kh, kw, padding):
     """JAX-style padding -> ((top, bottom), (left, right))."""
     if padding is None:
@@ -105,9 +115,13 @@ def _padding(kh, kw, padding):
 class Int8Weight:
     """An s8 OIHW kernel, and for a calibrated site its epilogue: `mult`
     (Cout,) f32, the dequantizing multiplier s_in * w_scale, and `bias`
-    (Cout,) f32.  `layout()` is the kernel's copy, (cout_pad, kh*kw, cinp)
-    s8 with Cin padded to a multiple of 32 and Cout to one of 128, built
-    once on the weight's device."""
+    (Cout,) f32.  `layout()` is the kernel's copy, built once on the
+    weight's device: B of wgmma in its K-major core-matrix layout without
+    swizzle, (cout_pad / N, kh*kw, cinp / 16, N, 16) s8, N = `chunk_n`
+    (Cout), Cin padded with zeros to `cinp` (a multiple of 32) and Cout to
+    `cout_pad` (a multiple of N).  Element [j, ky*kw + kx, c, o, i] is
+    w[j*N + o, 16*c + i, ky, kx]: Cout chunks outermost, then taps, so one
+    tap of a chunk (or a run of taps) is one contiguous copy."""
 
     def __init__(self, w_q: torch.Tensor, mult=None, bias=None):
         if w_q.dtype != torch.int8 or w_q.dim() != 4:
@@ -118,17 +132,23 @@ class Int8Weight:
         self.w_q = w_q.contiguous()
         self.mult = None if mult is None else mult.float().contiguous()
         self.bias = None if bias is None else bias.float().contiguous()
+        cout, cin = self.w_q.shape[:2]
+        self.n_chunk = chunk_n(cout)
+        self.cout_pad = -(-cout // self.n_chunk) * self.n_chunk
+        self.cinp = -(-cin // CIN_ALIGN) * CIN_ALIGN
         self._layout = None
 
     def layout(self) -> torch.Tensor:
         if self._layout is None:
             cout, cin, kh, kw = self.w_q.shape
-            cinp = -(-cin // CIN_ALIGN) * CIN_ALIGN
-            coutp = -(-cout // COUT_ALIGN) * COUT_ALIGN
-            lay = self.w_q.new_zeros((coutp, kh * kw, cinp))
-            lay[:cout, :, :cin] = self.w_q.permute(0, 2, 3, 1).reshape(
-                cout, kh * kw, cin)
-            self._layout = lay
+            n = self.n_chunk
+            pad = self.w_q.new_zeros((self.cout_pad, self.cinp, kh, kw))
+            pad[:cout, :cin] = self.w_q
+            self._layout = pad.view(
+                self.cout_pad // n, n, self.cinp // 16, 16, kh, kw).permute(
+                0, 4, 5, 2, 1, 3).reshape(
+                self.cout_pad // n, kh * kw, self.cinp // 16, n, 16) \
+                .contiguous()
         return self._layout
 
 
@@ -195,6 +215,42 @@ def int8_conv2d(x, w, stride=1, padding=None, s_in=None, mult=None,
     or bf16(f32(acc) * mult + bias) with `mult` and `bias` ((Cout,) f32)."""
     if x.device.type == "cpu":
         return int8_conv2d_plain(x, w, stride, padding, s_in, mult, bias)
+    args, out = _kernel_args(x, w, stride, padding, s_in, mult, bias)
+    err = _lib().lssvc_int8_conv(
+        *args, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int8_conv kernel launch failed: CUDA error {err}")
+    int8_conv2d.launches += 1
+    return out
+
+
+int8_conv2d.launches = 0
+
+# the fields of the kernel's plan (`lssvc_int8_plan` of csrc/int8_conv.cu)
+PLAN_FIELDS = ("ring", "staging", "stages", "taps_a_stage", "pitch", "th",
+               "tw", "mtiles", "tiles", "grid", "smem", "vec_in",
+               "vec_store")
+
+
+def int8_conv_plan(x, w, stride=1, padding=None, s_in=None, mult=None,
+                   bias=None) -> dict:
+    """The plan the kernel would launch `int8_conv2d` with on these CUDA
+    tensors, launching nothing: weights in a ring of `stages` (else
+    resident), the raw halo staged (else loaded directly), the tile and the
+    grid (`PLAN_FIELDS`)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"x on {x.device}: the kernel plans CUDA tensors")
+    args, _ = _kernel_args(x, w, stride, padding, s_in, mult, bias)
+    info = (ctypes.c_int * len(PLAN_FIELDS))()
+    err = _lib().lssvc_int8_plan(*args, info)
+    if err != 0:
+        raise RuntimeError(f"int8_conv has no plan: CUDA error {err}")
+    return dict(zip(PLAN_FIELDS, info))
+
+
+def _kernel_args(x, w, stride, padding, s_in, mult, bias):
+    """The C entry point's arguments but the last, and the output they
+    write."""
     w_q, mult, bias = _weight_args(w, mult, bias)
     kern = w if isinstance(w, Int8Weight) else Int8Weight(w_q, mult, bias)
     dev = x.device
@@ -231,18 +287,9 @@ def int8_conv2d(x, w, stride=1, padding=None, s_in=None, mult=None,
                           device=dev)
         mp, bp = mult.data_ptr(), bias.data_ptr()
     s = 0.0 if s_in is None else float(np.float32(s_in))
-    err = _lib().lssvc_int8_conv(
-        x.data_ptr(), lay.data_ptr(), out.data_ptr(), mp, bp, s, n, h, wd,
-        cin, ho, wo, cout, lay.shape[0], lay.shape[2], kh, kw, stride, pt,
-        pl, _IN_DTYPES[x.dtype], int(mult is not None),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"int8_conv kernel launch failed: CUDA error {err}")
-    int8_conv2d.launches += 1
-    return out
-
-
-int8_conv2d.launches = 0
+    return (x.data_ptr(), lay.data_ptr(), out.data_ptr(), mp, bp, s, n, h,
+            wd, cin, ho, wo, cout, kern.cout_pad, kern.cinp, kh, kw, stride,
+            pt, pl, _IN_DTYPES[x.dtype], int(mult is not None)), out
 
 
 def dequant(acc, act_scale, w_scale, b=None):

@@ -1,8 +1,9 @@
 """The int8 convolution on the GPU: the conv-stack microbench of the JAX
-package's `tools/int8_bench.py`, and the kernel at two sites of the int8
-P-frame.
+package's `tools/int8_bench.py`, the kernel at two sites of the int8
+P-frame, and at every launch shape of a whole int8 P-frame.
 
     python -m lssvc_tpu_torch.tools.int8_bench
+    python -m lssvc_tpu_torch.tools.int8_bench --frame
 
 Stack variants, at the JAX tool's shape (the width-packed full-res EL
 domain, 1x1152x960x96, four 3x3 layers with a ReLU, weights normal x 0.05
@@ -28,16 +29,36 @@ kernel and the f32 epilogue read once) over 3.35 TB/s, and operations (2 x
 the MACs) over 1,979 int8 TOP/s (NVIDIA's H100 SXM data sheet).  Times are
 CUDA-event means (`tools/timing.py`); one JSON line with the card's name
 and power limit.
+
+`--frame` builds the int8_packed LSSVC of the bench twin (its random init,
+calibrated at 512x512 over 2 frames), records every
+`int8_conv2d` launch of one warm-up two-layer P-frame at EL 1152x1920 / BL
+576x960 (`record_launches`), and times the kernel once at each distinct
+launch shape on fresh random inputs of that shape (`time_launches`):
+the kernel's plan (`plan_path`), CUDA-event ms, the launches a frame at
+the shape, the bound and whether
+bytes or operations bind (bytes: the input in its own dtype read once,
+the output written once, the s8 kernel and a bf16 epilogue's f32
+multiplier and bias read once), and cuDNN's bf16 conv of the same packed
+shape (symmetric padding (pad_t, pad_l), NCHW over the NHWC input).  One
+line a shape, one a class of site (1x1, 3x3 at the EL's or the BL's
+resolution, SpyNet's 7x3), then the frame's sums of launches x ms
+against the sums of the bounds and of cuDNN, and one JSON line.  Shapes
+whose tensors fit in the 50 MB L2 (SpyNet's small levels) read warm.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import sys
+from collections import Counter
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import int8 as q8
 from ..ops.int8 import (Int8Weight, fixed_point_multiplier, int8_conv2d,
                         int8_conv2d_plain, requant_fixed)
 from .timing import card, require_cuda, time_ms
@@ -134,9 +155,7 @@ def site_cost(n, h, w, cin, cout, kh, kw, pad):
     f32 multiplier and bias; 2 x MACs (stride 1)."""
     (pt, pb), (pl, pr) = pad
     ho, wo = h + pt + pb - kh + 1, w + pl + pr - kw + 1
-    nbytes = (2 * n * h * w * cin + 2 * n * ho * wo * cout
-              + cout * cin * kh * kw + 8 * cout)
-    return nbytes, 2 * n * ho * wo * cout * cin * kh * kw
+    return launch_cost((n, h, w, cin, ho, wo, cout, kh, kw, 1, pt, pl, 1, 1))
 
 
 def site_inputs(n, h, w, cin, cout, kh, kw, pad, dev, seed=1):
@@ -187,7 +206,194 @@ def site_times(name, dev):
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def main():
+# the fields of a launch record, the C entry point's arguments but the
+# pointers, scale, padded widths and stream
+LAUNCH_FIELDS = ("n", "h", "w", "cin", "ho", "wo", "cout", "kh", "kw",
+                 "stride", "pad_t", "pad_l", "in_dtype", "out_bf16")
+IN_DTYPES = {0: torch.int8, 1: torch.bfloat16, 2: torch.float32}
+FRAME_EL, FRAME_BL = (1152, 1920), (576, 960)
+
+
+class Int8Recorder:
+    """Stands in for the int8 kernel's library and records every launch
+    (a tuple of `LAUNCH_FIELDS`)."""
+
+    def __init__(self, lib):
+        self.lib, self.calls = lib, []
+
+    def lssvc_int8_conv(self, *args):
+        self.calls.append(tuple(args[6:13]) + tuple(args[15:22]))
+        return self.lib.lssvc_int8_conv(*args)
+
+
+def record_launches(fn):
+    """fn() with every int8_conv launch recorded; the list of launches."""
+    recorder, real = Int8Recorder(q8._lib()), q8._lib
+    q8._lib = lambda: recorder
+    try:
+        fn()
+    finally:
+        q8._lib = real
+    return recorder.calls
+
+
+def launch_padding(launch):
+    """((top, bottom), (left, right)) of a launch record."""
+    d = dict(zip(LAUNCH_FIELDS, launch))
+    s = d["stride"]
+    return ((d["pad_t"], (d["ho"] - 1) * s + d["kh"] - d["h"] - d["pad_t"]),
+            (d["pad_l"], (d["wo"] - 1) * s + d["kw"] - d["w"] - d["pad_l"]))
+
+
+def launch_class(launch):
+    """The frame's classes of site: SpyNet's 7x3, else kernel size at the
+    EL's full-resolution packed height (1152) or below (the BL's)."""
+    d = dict(zip(LAUNCH_FIELDS, launch))
+    if (d["kh"], d["kw"]) == (7, 3):
+        return "SpyNet 7x3"
+    return f"{d['kh']}x{d['kw']} at {'EL' if d['h'] >= 1152 else 'BL'}"
+
+
+def launch_cost(launch):
+    """(bytes, operations) of one launch: the input in its dtype read once,
+    the output (s32 or bf16) written once, the s8 kernel and, with a bf16
+    output, the f32 multiplier and bias read once; 2 x the MACs."""
+    d = dict(zip(LAUNCH_FIELDS, launch))
+    elt = IN_DTYPES[d["in_dtype"]].itemsize
+    out_px = d["n"] * d["ho"] * d["wo"]
+    taps_k = d["cin"] * d["kh"] * d["kw"]
+    nbytes = (elt * d["n"] * d["h"] * d["w"] * d["cin"]
+              + (2 if d["out_bf16"] else 4) * out_px * d["cout"]
+              + d["cout"] * taps_k + (8 * d["cout"] if d["out_bf16"] else 0))
+    return nbytes, 2 * out_px * d["cout"] * taps_k
+
+
+def launch_inputs(launch, dev, seed=0):
+    """Random inputs of a launch's shape: x, its Int8Weight (with a bf16
+    epilogue's multiplier and bias), stride, padding and s_in."""
+    d = dict(zip(LAUNCH_FIELDS, launch))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dtype = IN_DTYPES[d["in_dtype"]]
+    shape = (d["n"], d["h"], d["w"], d["cin"])
+    if dtype == torch.int8:
+        x = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+    else:
+        x = (torch.randn(shape, generator=gen, device=dev) * 2).to(dtype)
+    w8 = torch.randint(-127, 128, (d["cout"], d["cin"], d["kh"], d["kw"]),
+                       generator=gen, device=dev, dtype=torch.int8)
+    mult = bias = None
+    if d["out_bf16"]:
+        mult = torch.rand(d["cout"], generator=gen, device=dev) * 1e-4
+        bias = torch.randn(d["cout"], generator=gen, device=dev) * 0.1
+    return (x, Int8Weight(w8, mult, bias), d["stride"], launch_padding(launch),
+            None if dtype == torch.int8 else 0.0173)
+
+
+def _bound(nbytes, ops):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT8_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def plan_path(plan):
+    """A kernel plan (`int8_conv_plan`) in short: the weights' mode, the
+    halo's, and the tile (rows x stored columns)."""
+    mode = f"ring{plan['stages']}" if plan["ring"] else "resident"
+    halo = "staged" if plan["staging"] else "direct"
+    return f"{mode} {halo} {plan['th']}x{plan['tw']}"
+
+
+def time_launches(calls, dev, iters=10):
+    """The kernel at each distinct launch shape of `calls`: one row a shape
+    (its launches in `calls`, the kernel's plan, ms, bound, cuDNN's bf16
+    conv), the sums of launches x ms by class and in all."""
+    rows = []
+    for launch, count in sorted(Counter(calls).items()):
+        x, kern, stride, pad, s_in = launch_inputs(launch, dev)
+        (pt, _), (pl, _) = pad
+        x16 = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        w16 = kern.w_q.to(torch.bfloat16)
+        path = plan_path(q8.int8_conv_plan(x, kern, stride, pad, s_in=s_in))
+        ms = time_ms(lambda: int8_conv2d(x, kern, stride, pad, s_in=s_in),
+                     iters=iters)
+        cudnn_ms = time_ms(lambda: F.conv2d(x16, w16, stride=stride,
+                                            padding=(pt, pl)), iters=iters)
+        nbytes, ops = launch_cost(launch)
+        bound_ms, bound_by = _bound(nbytes, ops)
+        rows.append(dict(zip(LAUNCH_FIELDS, launch), launches=count,
+                         cls=launch_class(launch), path=path, ms=ms,
+                         cudnn_bf16_ms=cudnn_ms, bytes=nbytes, ops=ops,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        del x, kern, x16, w16
+    sums = {}
+    for r in rows:
+        for key in (r["cls"], "all"):
+            acc = sums.setdefault(key, dict(launches=0, shapes=0, ms=0.0,
+                                            bound_ms=0.0, cudnn_bf16_ms=0.0))
+            acc["launches"] += r["launches"]
+            acc["shapes"] += 1
+            for k in ("ms", "bound_ms", "cudnn_bf16_ms"):
+                acc[k] += r["launches"] * r[k]
+    return {"shapes": rows, "sums": sums}
+
+
+def frame_inputs(dev, seed=15):
+    """A two-layer P-frame's inputs at 1080p (uniform noise)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def uni(*shape):
+        return torch.rand((1, *shape), generator=gen, device=dev)
+
+    return (uni(*FRAME_BL, 3), uni(*FRAME_EL, 3), uni(*FRAME_BL, 3),
+            uni(*FRAME_EL, 3), uni(*FRAME_BL, 64), uni(*FRAME_EL, 48))
+
+
+def log_frame_times(res, out=sys.stdout):
+    """One line a shape, a class, and the frame's sums."""
+    for r in res["shapes"]:
+        print(f"  {r['launches']:3d} x ({r['n']}, {r['h']}, {r['w']}, "
+              f"{r['cin']}) -> {r['cout']} {r['kh']}x{r['kw']} stride "
+              f"{r['stride']} {IN_DTYPES[r['in_dtype']]} [{r['path']}]: "
+              f"{r['ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ({r['bound_by']}), cuDNN bf16 "
+              f"{r['cudnn_bf16_ms']:.4f}", file=out, flush=True)
+    for key, acc in sorted(res["sums"].items()):
+        print(f"  {key}: {acc['launches']} launches at {acc['shapes']} "
+              f"shapes, sum of launches x ms {acc['ms']:.3f}, of bounds "
+              f"{acc['bound_ms']:.3f}, of cuDNN bf16 "
+              f"{acc['cudnn_bf16_ms']:.3f}",
+              file=out, flush=True)
+
+
+def frame_main():
+    from .. import bench
+
+    dev = require_cuda()
+    smi = card()
+    model = bench.model_for("int8_packed", bench.load_params(None), dev)
+    model.set_scale_information(2.0, FRAME_EL, (0, 0, 0, 0))
+    inputs = frame_inputs(dev)
+    calls = record_launches(lambda: model.forward_one_frame(*inputs))
+    del model, inputs
+    torch.cuda.empty_cache()
+    res = time_launches(calls, dev)
+    print(f"# int8_conv at the {len(calls)} launches of a 1080p int8 "
+          f"P-frame ({smi})", flush=True)
+    log_frame_times(res)
+    line = {"int8_frame": res, "card": smi}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--frame", action="store_true",
+                   help="time every launch shape of a 1080p int8 P-frame")
+    args = p.parse_args(argv)
+    if args.frame:
+        return frame_main()
     dev = require_cuda()
     stack = stack_variants(dev)
     for name, ms in stack.items():

@@ -16,6 +16,10 @@ from lssvc_tpu_torch.convert import (
 from lssvc_tpu_torch.models import DMC, LSSVC
 from lssvc_tpu_torch.models.init import init_dmc
 
+from torch_threads import share_cores
+
+share_cores()
+
 REPO = Path(__file__).resolve().parents[1]
 
 

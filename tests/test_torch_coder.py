@@ -34,6 +34,10 @@ from lssvc_tpu_torch.entropy import models as tent
 from lssvc_tpu_torch.utils import checks as tchecks
 from lssvc_tpu_torch.utils import stream as tstream
 
+from torch_threads import share_cores
+
+share_cores()
+
 
 def _equal_tables(port, ref):
     for a in ("cdfs", "sizes", "offsets"):

@@ -22,6 +22,10 @@ from lssvc_tpu_torch.convert import chain_specs_from_jax
 from lssvc_tpu_torch.ops import conv_chain as tchain
 from lssvc_tpu_torch.tools import convchain_bench
 
+from torch_threads import share_cores
+
+share_cores()
+
 DTYPES = {"f32": (jnp.float32, torch.float32, 1e-5),
           "bf16": (jnp.bfloat16, torch.bfloat16, 2.0 ** -7)}
 

@@ -27,6 +27,10 @@ from lssvc_tpu_torch.ops import int8 as q8
 from lssvc_tpu_torch.ops import warp as plain
 from lssvc_tpu_torch.ops import warp_kernels as wk
 
+from torch_threads import share_cores
+
+share_cores()
+
 pytestmark = pytest.mark.cuda
 REPO = Path(__file__).resolve().parents[1]
 
@@ -545,6 +549,126 @@ def test_int8_conv_equals_plain(dev, in_dtype, xs, ws, stride, pad):
                                   bias=bias))
 
 
+# Cases that reach each branch of the kernel's plan (csrc/int8_conv.cu
+# `make_plan`), each with the path its plan must take on an H100 (132 SMs):
+# (input, OIHW kernel (cout, kh, kw), stride, padding, input dtype, path).
+# A path names the weights' mode (`resident`, or a ring of 2 or 3 stages:
+# `ring2`, `ring3`), the halo's (`staged`, or `direct` loads), and where it
+# is the case's point: `half` (half of the M tiles busy), `linear` (a 1x1
+# as one GEMM over the batch's pixels), `under` (fewer tiles than SMs: a
+# block a tile), `over` (more tiles than the grid and no multiple of it:
+# blocks take one or two, the prefetch and the ring run across tiles),
+# `elements` (element loads of an input whose rows are no whole 16-byte
+# units).  Cout 384 and 512 run 3 and 4 chunks over one quantized halo, as
+# SpyNet's 128 -> 256 runs 2 with its weights in a ring; Cout 4, 6 and 8,
+# Cin 32 (f32), 106 and 512, stride 2, and the 72x30 SpyNet level.
+INT8_PATHS = [
+    ((1, 64, 96, 96), (96, 3, 3), 1, ((1, 1), (1, 1)), torch.bfloat16,
+     "resident staged half under"),
+    ((2, 12, 40, 96), (96, 1, 1), 1, ((0, 0), (0, 0)), torch.bfloat16,
+     "resident staged linear under"),
+    ((1, 48, 64, 128), (256, 7, 3), 1, ((3, 3), (1, 1)), torch.bfloat16,
+     "ring3 staged under"),
+    ((1, 72, 30, 128), (256, 7, 3), 1, ((3, 3), (1, 1)), torch.bfloat16,
+     "ring3 staged under"),
+    ((1, 288, 120, 128), (256, 7, 3), 1, ((3, 3), (1, 1)), torch.bfloat16,
+     "ring2 staged over"),
+    ((1, 40, 50, 256), (128, 7, 3), 1, ((3, 3), (1, 1)), torch.bfloat16,
+     "ring2 staged under"),
+    ((1, 24, 40, 512), (128, 1, 1), 1, ((0, 0), (0, 0)), torch.bfloat16,
+     "resident direct linear"),
+    ((1, 24, 40, 96), (384, 1, 1), 1, ((0, 0), (0, 0)), torch.bfloat16,
+     "resident staged linear"),
+    ((1, 24, 40, 128), (512, 1, 1), 1, ((0, 0), (0, 0)), torch.int8,
+     "resident staged linear"),
+    ((1, 30, 44, 128), (4, 3, 3), 1, ((1, 1), (1, 1)), torch.bfloat16,
+     "resident staged"),
+    ((1, 30, 44, 96), (6, 3, 3), 1, ((1, 1), (1, 1)), torch.bfloat16,
+     "resident staged"),
+    ((1, 30, 44, 64), (8, 7, 3), 1, ((3, 3), (1, 1)), torch.bfloat16,
+     "resident staged"),
+    ((1, 30, 44, 32), (128, 7, 3), 1, ((3, 3), (1, 1)), torch.float32,
+     "resident staged"),
+    ((1, 65, 98, 106), (128, 3, 3), 2, ((1, 1), (1, 0)), torch.bfloat16,
+     "resident direct elements"),
+    ((1, 64, 96, 96), (96, 3, 3), 2, ((1, 1), (1, 0)), torch.bfloat16,
+     "ring2 staged"),
+    ((1, 272, 150, 96), (96, 3, 3), 1, ((1, 1), (1, 1)), torch.bfloat16,
+     "resident staged over"),
+    ((1, 40, 60, 192), (96, 3, 3), 1, ((1, 1), (1, 1)), torch.float32,
+     "ring3 staged"),
+    ((1, 288, 120, 256), (128, 7, 3), 1, ((3, 3), (1, 1)), torch.bfloat16,
+     "ring3 direct over"),
+    ((1, 288, 120, 128), (64, 7, 3), 1, ((3, 3), (1, 1)), torch.bfloat16,
+     "ring2 direct under"),
+]
+
+
+def _plan_path(plan, cout, kh, kw):
+    """The words of `INT8_PATHS` that a plan (`int8_conv_plan`) takes."""
+    words = {f"ring{plan['stages']}" if plan["ring"] else "resident",
+             "staged" if plan["staging"] else "direct"}
+    n = q8.chunk_n(cout)
+    if plan["mtiles"] < 4 * (2 if n <= 64 else 1):
+        words.add("half")
+    if (kh, kw) == (1, 1) and plan["th"] == 1:
+        words.add("linear")
+    if plan["grid"] == plan["tiles"]:
+        words.add("under")
+    elif plan["tiles"] % plan["grid"]:
+        words.add("over")
+    if not plan["vec_in"]:
+        words.add("elements")
+    return words
+
+
+@pytest.mark.parametrize("xs,ws,stride,pad,in_dtype,path", INT8_PATHS)
+def test_int8_conv_plan_paths_equal_plain(dev, xs, ws, stride, pad,
+                                          in_dtype, path):
+    """The kernel's plan takes the case's path; bit for bit against the
+    plain version there, s32 and the bf16 epilogue; one launch a call."""
+    x, w, mult, bias = _int8_inputs(xs, ws, sum(xs) + ws[0] + stride, dev)
+    s_in = 0.0173
+    if in_dtype == torch.int8:
+        x, s_in = q8.quant_act(x, s_in), None
+    else:
+        x = x.to(in_dtype)
+    for m, b in ((None, None), (mult, bias)):
+        plan = q8.int8_conv_plan(x, w, stride, pad, s_in=s_in, mult=m,
+                                 bias=b)
+        assert set(path.split()) <= _plan_path(plan, *ws), plan
+    n = q8.int8_conv2d.launches
+    acc = q8.int8_conv2d(x, w, stride, pad, s_in=s_in)
+    y = q8.int8_conv2d(x, w, stride, pad, s_in=s_in, mult=mult, bias=bias)
+    assert q8.int8_conv2d.launches == n + 2
+    _bits(acc, q8.int8_conv2d_plain(x, w, stride, pad, s_in=s_in))
+    _bits(y, q8.int8_conv2d_plain(x, w, stride, pad, s_in=s_in, mult=mult,
+                                  bias=bias))
+
+
+@pytest.mark.parametrize("in_dtype,s_in", [(torch.float32, 0.0173),
+                                           (torch.bfloat16, 2.0 ** -6)])
+def test_int8_conv_quantizes_ties_as_the_plain_version(dev, in_dtype, s_in):
+    """Inputs at and next to v / s = k + 1/2 (and +-inf): the kernel's
+    quantizer multiplies by 1/s and divides where the product lies near a
+    half-integer; its s8 values equal `quant_act`'s (a 1x1 identity conv
+    reads them back through the s32 accumulator).  In bf16 the scale is a
+    power of two, so that the ties survive bf16's rounding."""
+    rng = np.random.default_rng(9)
+    k = rng.integers(-140, 140, (1, 40, 64, 32)).astype(np.float32)
+    nudge = rng.choice([-2, -1, 0, 1, 2], k.shape).astype(np.float32)
+    v = (k + 0.5) * np.float32(s_in)
+    v = np.nextafter(v, np.where(nudge > 0, np.inf, np.where(
+        nudge < 0, -np.inf, v)), dtype=np.float32)
+    v = np.where(nudge == 2, (k + 0.5) * np.float32(s_in) * 1.00001, v)
+    v.reshape(-1)[:4] = [np.inf, -np.inf, 0.5 * s_in, -0.5 * s_in]
+    x = torch.from_numpy(v.astype(np.float32)).to(dev, in_dtype)
+    w = torch.eye(32, dtype=torch.int8, device=dev).view(32, 32, 1, 1)
+    acc = q8.int8_conv2d(x, w, 1, 0, s_in=s_in)
+    _bits(acc, q8.quant_act(x, s_in).to(torch.int32))
+    _bits(acc, q8.int8_conv2d_plain(x, w, 1, 0, s_in=s_in))
+
+
 @pytest.mark.parametrize("sign", [1, -1])
 def test_int8_conv_full_scale_at_the_largest_k(dev, sign):
     """All inputs 127 and all weights +-127 at K = 7*3*256 = 5376: the
@@ -576,7 +700,7 @@ def test_int8_conv_of_misaligned_tensors(dev):
         err = q8._lib().lssvc_int8_conv(
             xb.data_ptr(), lay.data_ptr(), out.data_ptr(), mult.data_ptr(),
             bias.data_ptr(), float(np.float32(0.02)), 1, 19, 37, 96, 19, 37,
-            96, lay.shape[0], lay.shape[2], 3, 3, 1, 1, 1, 1, out_bf16,
+            96, kern.cout_pad, kern.cinp, 3, 3, 1, 1, 1, 1, out_bf16,
             torch.cuda.current_stream().cuda_stream)
         assert err == 0
         want = ref if out_bf16 else q8.int8_conv2d_plain(xb, w, 1, pad,

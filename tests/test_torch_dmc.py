@@ -27,6 +27,10 @@ from lssvc_tpu_torch.convert import params_from_jax
 from lssvc_tpu_torch.models import DMC
 from lssvc_tpu_torch.models.lssvc_blocks import offset_diversity as t_od
 
+from torch_threads import share_cores
+
+share_cores()
+
 
 @pytest.fixture(scope="module")
 def dmc_pair():

@@ -43,6 +43,10 @@ from lssvc_tpu_torch.ops import OD_OFFSET_CAP_SERVING
 from lssvc_tpu_torch.parallel import scheduler
 from lssvc_tpu_torch.tools.synthetic import write_dataset, write_sequence
 
+from torch_threads import share_cores
+
+share_cores()
+
 YUV_KEYS = {"ave_i_frame_YUV_psnr", "ave_p_frame_YUV_psnr",
             "ave_all_frame_YUV_psnr"}
 REPO = Path(__file__).resolve().parents[1]

@@ -33,9 +33,6 @@ Tolerances:
 
 import contextlib
 import json
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -55,12 +52,8 @@ from lssvc_tpu.ops.nn import (
     set_packed_width,
     set_precision_mode,
 )
-from lssvc_tpu_torch import bench
-from lssvc_tpu_torch import test as cli
 from lssvc_tpu_torch.convert import P, params_from_jax
-from lssvc_tpu_torch.decode import yuv_frame
 from lssvc_tpu_torch.harness import calibrate
-from lssvc_tpu_torch.harness import runner as trunner
 from lssvc_tpu_torch.models import LSSVC
 from lssvc_tpu_torch.models import packed_blocks as tpb
 from lssvc_tpu_torch.models.init import init_intra_ss, init_lssvc
@@ -68,10 +61,12 @@ from lssvc_tpu_torch.ops import OD_OFFSET_CAP_SERVING
 from lssvc_tpu_torch.ops import int8 as q8
 from lssvc_tpu_torch.ops.nn import Mode, precision_from_cli, precision_scope
 from lssvc_tpu_torch.parallel import scheduler
-from lssvc_tpu_torch.tools.synthetic import write_dataset
+
+from torch_threads import share_cores
+
+share_cores()
 
 EL, BL = (128, 128), (64, 64)
-REPO = Path(__file__).resolve().parents[1]
 
 
 def _tpu_flow_warp(x, flow):
@@ -525,57 +520,14 @@ def test_calibrate_video_keys_equal_the_recorder(video_params, table):
     assert set(got) == set(table) and min(got.values()) > 0
 
 
-# --- the CLIs, the scheduler and the bench twin ---------------------------
+# --- the scheduler (the CLIs' and the bench twin's tests, which share
+# this file's fixtures, are in test_torch_int8_stream.py and _bench.py) ----
 
 def _checkpoints(tmp_path):
     intra, video = tmp_path / "intra.pth", tmp_path / "video.pth"
     torch.save(init_intra_ss(torch.Generator().manual_seed(1), 192), intra)
     torch.save(init_lssvc(torch.Generator().manual_seed(2)), video)
     return intra, video
-
-
-def test_int8_streams_round_trip_through_both_clis(tmp_path, monkeypatch,
-                                                   table):
-    """`--precision int8 --int8_calib t.json --write_stream 1` on a 3-frame
-    GOP (I P P), then `python -m lssvc_tpu_torch.decode --precision int8
-    --int8_calib t.json` in a fresh process rebuilds the run's EL and BL
-    pictures byte for byte; the P-frames went through the int8 sites."""
-    h, w, frames = 128, 128, 3
-    cfg = write_dataset(tmp_path / "ds", h, w, frames=frames, gop=3, seed=5)
-    intra, video = _checkpoints(tmp_path)
-    calib = tmp_path / "t.json"
-    calib.write_text(json.dumps(table, indent=2, sort_keys=True))
-    pictures = {"x_hat_bl": [], "x_hat_el": []}
-    real_copy = trunner.HostCopy
-
-    def recording(tensors):
-        for k in pictures:
-            pictures[k].append(tensors[k].clone())
-        return real_copy(tensors)
-
-    monkeypatch.setattr(trunner, "HostCopy", recording)
-    bins = tmp_path / "bins"
-    with counting_sites() as calls:
-        cli.main(["--test_config", str(cfg), "--i_frame_model_path",
-                  str(intra), "--model_path", str(video), "--output_path",
-                  str(tmp_path / "out"), "--ratios", "x2", "--device", "cpu",
-                  "--precision", "int8", "--int8_calib", str(calib),
-                  "--write_stream", "1", "--stream_path", str(bins)])
-    assert calls[0] > 0
-    dec = subprocess.run(
-        [sys.executable, "-m", "lssvc_tpu_torch.decode", "--bin_dir",
-         str(bins / "seq1" / "0" / "x2"), "--i_frame_model_path",
-         str(intra), "--model_path", str(video), "--height", str(h),
-         "--width", str(w), "--ratio", "x2", "--gop", "3", "--frame_num",
-         str(frames), "--precision", "int8", "--int8_calib", str(calib),
-         "--yuv_out", str(tmp_path / "el.yuv"), "--yuv_out_bl",
-         str(tmp_path / "bl.yuv"), "--device", "cpu"], cwd=REPO,
-        capture_output=True, text=True, timeout=600)
-    assert dec.returncode == 0, dec.stderr
-    for layer in ("el", "bl"):
-        want = b"".join(yuv_frame(x, (0, 0, 0, 0))
-                        for x in pictures[f"x_hat_{layer}"])
-        assert (tmp_path / f"{layer}.yuv").read_bytes() == want, layer
 
 
 def test_scheduler_caches_models_per_table(tmp_path):
@@ -597,39 +549,3 @@ def test_scheduler_caches_models_per_table(tmp_path):
             assert net.precision == "int8"
             assert net.mode.packed_width == 2 and net.mode.int8.table == t
             assert net.base_layer_model.mode.int8 is net.mode.int8
-
-
-def test_bench_twin_int8_packed_on_the_cpu(monkeypatch, capsys):
-    """`--mode int8_packed` calibrates (here at 128x128, not 512: the
-    size is the only change), prints the JAX bench's two stderr lines and
-    serves every site; one int8 convolution a served site call."""
-    real = calibrate.calibrate_video
-
-    def small(params, size, frames, **kw):
-        assert (size, frames) == (512, 2)
-        return real(params, size=128, frames=1, **kw)
-
-    frames = [0]
-    real_fwd = LSSVC.forward_one_frame
-
-    def counted(self, *args):
-        frames[0] += 1
-        return real_fwd(self, *args)
-
-    class Clock:
-        @staticmethod
-        def perf_counter():
-            return 0.5 * frames[0]
-
-    monkeypatch.setattr(bench, "calibrate_video", small)
-    monkeypatch.setattr(LSSVC, "forward_one_frame", counted)
-    monkeypatch.setattr(bench, "time", Clock)
-    with counting_sites() as calls:
-        line = bench.main(["--mode", "int8_packed", "--device", "cpu",
-                           "--size", "128x128", "--frames", "1"])
-    err = capsys.readouterr().err
-    assert "# int8 calibration: 102 conv sites" in err
-    assert "# int8 sites active in step: 102" in err
-    assert line["mode"] == "int8_packed" and np.isfinite(line["bits"])
-    assert line["int8_sites"] == line["int8_served"] == 102
-    assert calls[0] == line["int8_served_calls"] > 0

@@ -32,6 +32,10 @@ from lssvc_tpu_torch.models import IntraNoAR, IntraSS
 from lssvc_tpu_torch.models import components as tcomp
 from lssvc_tpu_torch.models.init import init_intra_noar, init_intra_ss
 
+from torch_threads import share_cores
+
+share_cores()
+
 BL_PREFIX = "base_layer_model."
 
 

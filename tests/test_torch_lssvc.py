@@ -30,6 +30,10 @@ from lssvc_tpu_torch.ops.nn import od_offset_cap_from_env
 from lssvc_tpu_torch.parallel import scheduler
 from lssvc_tpu_torch.tools.synthetic import write_dataset
 
+from torch_threads import share_cores
+
+share_cores()
+
 EL, BL = (128, 128), (64, 64)
 DPB_KEYS = ("ref_frame_bl", "ref_frame_el", "ref_feature_bl",
             "ref_feature_el")

@@ -21,6 +21,10 @@ from lssvc_tpu_torch.convert import P as TP
 from lssvc_tpu_torch.convert import params_from_jax
 from lssvc_tpu_torch.entropy import models as tent
 
+from torch_threads import share_cores
+
+share_cores()
+
 RTOL = 1e-5
 
 

@@ -42,6 +42,10 @@ from lssvc_tpu_torch.ops import packed as tpk
 from lssvc_tpu_torch.ops import warp_kernels as wk
 from lssvc_tpu_torch.ops.nn import Mode, conv2d, precision_scope
 
+from torch_threads import share_cores
+
+share_cores()
+
 EL, BL = (128, 128), (64, 64)
 DPB = ("ref_frame_bl", "ref_frame_el", "ref_feature_bl", "ref_feature_el")
 PACKED_TOL = 2e-4  # the JAX package's packed-vs-plain bound

@@ -65,6 +65,10 @@ from lssvc_tpu_torch.ops.nn import Mode, conv2d, precision_scope
 from lssvc_tpu_torch.parallel import scheduler
 from lssvc_tpu_torch.tools.synthetic import write_dataset
 
+from torch_threads import share_cores
+
+share_cores()
+
 EL, BL = (128, 128), (64, 64)
 DPB = ("ref_frame_bl", "ref_frame_el", "ref_feature_bl", "ref_feature_el")
 REPO = Path(__file__).resolve().parents[1]
@@ -471,6 +475,6 @@ def test_bench_twin_runs_on_the_cpu(monkeypatch, capsys):
         assert line["s_per_frame"] == 0.5 and line["value"] == 2.0
         assert line["vs_baseline"] == pytest.approx(2.0 * (1.44 + 1.35))
         assert np.isfinite(line["bits"]) and line["bits"] > 0
-    for argv in (["--staged"], ["--tier-stats"], ["--profile"]):
+    for argv in (["--staged"], ["--tier-stats"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             bench.main(argv + ["--device", "cpu", "--size", "128x128"])

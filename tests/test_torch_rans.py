@@ -21,6 +21,10 @@ from lssvc_tpu.native import rans as jrans
 from lssvc_tpu_torch import build
 from lssvc_tpu_torch.native import rans as trans
 
+from torch_threads import share_cores
+
+share_cores()
+
 REPO = Path(__file__).resolve().parents[1]
 
 

@@ -34,6 +34,10 @@ from lssvc_tpu_torch.models.dmc_stream import DMCExtend
 from lssvc_tpu_torch.models.intra_ss_stream import compress_stream
 from lssvc_tpu_torch.utils.stream import filesize
 
+from torch_threads import share_cores
+
+share_cores()
+
 BL_PREFIX = "base_layer_model."
 DPB_BL = ("ref_frame_bl", "ref_feature_bl", "y_hat_bl", "mv_hat_bl")
 

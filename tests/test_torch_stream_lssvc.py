@@ -31,6 +31,10 @@ from lssvc_tpu_torch.models.lssvc_stream import LSSVCExtend
 from lssvc_tpu_torch.ops import OD_OFFSET_CAP_SERVING
 from lssvc_tpu_torch.utils.stream import filesize
 
+from torch_threads import share_cores
+
+share_cores()
+
 EL, BL = (128, 128), (64, 64)
 DPB = ("ref_frame_bl", "ref_feature_bl", "ref_frame_el", "ref_feature_el")
 

@@ -29,6 +29,10 @@ from lssvc_tpu_torch.utils import msssim_rgb as tmsssim
 from lssvc_tpu_torch.utils import padding as tpad
 from lssvc_tpu_torch.utils import resize as tresize
 
+from torch_threads import share_cores
+
+share_cores()
+
 
 def test_ratio_factors_equal():
     assert RATIO_FACTORS == J_RATIO_FACTORS

@@ -19,6 +19,10 @@ from lssvc_tpu.ops import warp_pallas as jwp
 from lssvc_tpu_torch.ops import warp as twarp
 from lssvc_tpu_torch.ops import warp_kernels as wk
 
+from torch_threads import share_cores
+
+share_cores()
+
 ATOL = 2e-6
 # kernel window parameters as tests/test_warp_pallas.py uses them:
 # (2*d_h+2) % 128 == 0 and (2*d_v+2) % 8 == 0

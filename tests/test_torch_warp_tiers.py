@@ -30,6 +30,10 @@ from lssvc_tpu_torch.ops import warp as twarp
 from lssvc_tpu_torch.ops import warp_kernels as wk
 from lssvc_tpu_torch.tools import warp_tier_bench
 
+from torch_threads import share_cores
+
+share_cores()
+
 ATOL = 2e-6
 D_V, D_H = 3, 63
 
