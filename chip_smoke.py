@@ -144,19 +144,44 @@ Phases (any failure exits non-zero; nothing is caught):
    plain version, cuDNN's bf16 conv of the same packed shape and the
    taps-call torch._int_mm yardstick, then tools/int8_bench.py's stack.
 
+16. Serving: (a) the streambench twin (`python -m
+   lssvc_tpu_torch.tools.streambench`) at 1152x1920 / 576x960, bf16, 6
+   P-frames: the pipelined encoder's bins byte-equal to the sequential
+   encoder's, ms a frame of each; (b) in the same run `decode_sequence`
+   (the overlapped decoder) on those bins, its final DPB bit-equal to the
+   encoders' (and the sequential decoder's), ms a frame of both decoders;
+   the warp counts set to 0 just before the pipelined encode and read just
+   after the overlapped decode: 20 flow_warp and 2 grouped_warp a P-frame;
+   (c) `harness.serving.encode_gop` in bf16 on the first 3 frames (I P P)
+   of phase 8's sequence, its bins byte-equal to phase 14's CLI bins; (d)
+   the bench twin `--staged` at batch 1 and `--batch 2` in bf16 (K capped
+   at 2) beside phase 11's fused bf16 chain, s/frame and peak GiB, then one
+   1080p bf16 frame fused, four-stage and two-stage from the same inputs:
+   DPB bit-equal, bits within 1e-6 relative, the four-stage frame's warp
+   launches counted; (e) the CLI on the first 3 frames of phase 8's
+   sequence with two copies of its video checkpoint as two `--model_path`
+   entries, at `--worker 1` and at `--worker 2` (the latter with all four
+   `--save_*` flags): equal results, the wall seconds and the card's idle
+   share of each (1 - the union of the models' device spans / the CLI's
+   wall time), and every PNG the JAX package's layout names exists and
+   parses.
+
 Then one JSON line {"kernels": [...]}: each kernel's launches counted on its
 path (the warps on the P-frame chain of phase 3, with their GOP path,
 stream path, warp-tier path, bf16 chain and bf16 stream counts beside
 them; the pair's packed store on the bf16_packed chain with
 LSSVC_PACKED_CTX=1; the grouped packed store on warp_bench's packed_run;
 conv_chain on the conv-chain path of phase 6; int8_conv on the
-int8_packed chain of phase 15), its times, bound and errors, after a line
+int8_packed chain of phase 15; the warps also with their launches a
+P-frame on phase 16's pipelined encode and overlapped decode and a frame
+on its four-stage frame), its times, bound and errors, after a line
 with the script's total seconds.  The last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -164,6 +189,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -174,9 +200,10 @@ import torch.nn.functional as F
 from lssvc_tpu_torch import bench, build
 from lssvc_tpu_torch import test as cli
 from lssvc_tpu_torch.decode import yuv_frame
-from lssvc_tpu_torch.harness import runner
+from lssvc_tpu_torch.harness import runner, serving
 from lssvc_tpu_torch.harness.results import RESULT_KEYS
-from lssvc_tpu_torch.models import LSSVC, IntraSS, intra_ss_stream
+from lssvc_tpu_torch.models import LSSVC, IntraSS, intra_ss_stream, \
+    lssvc_stream
 from lssvc_tpu_torch.models.dmc_stream import DMCExtend
 from lssvc_tpu_torch.models.init import init_intra_ss, init_lssvc
 from lssvc_tpu_torch.models.lssvc_stream import LSSVCExtend
@@ -188,8 +215,9 @@ from lssvc_tpu_torch.ops import warp as plain
 from lssvc_tpu_torch.ops import warp_kernels as wk
 from lssvc_tpu_torch.parallel import scheduler
 from lssvc_tpu_torch.tools import (conv_paths, convchain_bench,
-                                   int8_bench, int8_calibrate, synthetic,
-                                   warp_bench, warp_tier_bench)
+                                   int8_bench, int8_calibrate, streambench,
+                                   synthetic, warp_bench, warp_tier_bench)
+from lssvc_tpu_torch.utils.png import read_png
 from lssvc_tpu_torch.tools.profile_frame import iframe_flops
 from lssvc_tpu_torch.tools.timing import card, time_ms
 from lssvc_tpu_torch.tools.warp_bench import (bound_ms, flow_warp_cost,
@@ -1034,9 +1062,11 @@ def phase_gop(flops, d, cfg, intra, video):
 class StreamTimer:
     """While installed: per coded frame, the wall seconds of its encode
     and decode halves (IntraSS: `compress_stream` / `decompress_stream`;
-    a P-frame: both layers' `compress` / `decompress`), each ended by a
-    synchronize, and inside each half the seconds and symbols of the host
-    rANS calls (the C coder's encode, flush and decode)."""
+    a P-frame: both layers' `compress` / the two-layer
+    `decode_frame_overlapped`), each ended by a synchronize, and inside
+    each half the seconds and symbols of the host rANS calls (the C
+    coder's encode, flush and decode; a P-frame's decode counts those on
+    its worker thread too, though they overlap the card)."""
 
     def __init__(self):
         self.frames, self.half, self.real = [], None, []
@@ -1053,9 +1083,8 @@ class StreamTimer:
                 (intra_ss_stream, "compress_stream", "enc"),
                 (intra_ss_stream, "decompress_stream", "dec"),
                 (DMCExtend, "compress", "enc"),
-                (DMCExtend, "decompress", "dec"),
                 (LSSVCExtend, "compress", "enc"),
-                (LSSVCExtend, "decompress", "dec")):
+                (lssvc_stream, "decode_frame_overlapped", "dec")):
             self._patch(owner, name, self._half(half))
         for owner, name, counts in (
                 (rans.BufferedRansEncoder, "encode_with_indexes", True),
@@ -2219,6 +2248,268 @@ def phase_int8(dev, d, cfg, intra, video, modes):
     return entry
 
 
+# phase 16: the serving path
+SERVE_FRAMES = 6  # streambench's P-frames
+SERVE_GOP_FRAMES = 3  # encode_gop and the worker runs: I P P
+
+
+@contextlib.contextmanager
+def counted(into):
+    """The warp counts set to 0 on entry and read into `into` on exit."""
+    torch.cuda.synchronize()
+    _reset_counts()
+    yield
+    torch.cuda.synchronize()
+    into.update(_counts())
+
+
+class SpanTimer:
+    """While installed: CUDA events around every call of the models'
+    frame methods (IntraSS.forward, LSSVC.forward_one_frame) on any
+    thread.  `busy_s()` is the union of those spans on the card's
+    timeline: with two workers on one stream the spans of one thread's
+    calls hold the other's work too, so they are merged, not summed."""
+
+    METHODS = ((IntraSS, "forward"), (LSSVC, "forward_one_frame"))
+
+    def __init__(self):
+        self.spans, self.real = [], {}
+        self.lock = threading.Lock()
+
+    def __enter__(self):
+        self.origin = torch.cuda.Event(enable_timing=True)
+        self.origin.record()
+        for cls, name in self.METHODS:
+            self.real[cls] = real = getattr(cls, name)
+            setattr(cls, name, self._timed(real))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name in self.METHODS:
+            setattr(cls, name, self.real[cls])
+
+    def _timed(self, real):
+        def timed(model, *args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(model, *args, **kwargs)
+            end.record()
+            with self.lock:
+                self.spans.append((start, end))
+            return out
+        return timed
+
+    def busy_s(self):
+        torch.cuda.synchronize()
+        spans = sorted((self.origin.elapsed_time(s) / 1e3,
+                        self.origin.elapsed_time(e) / 1e3)
+                       for s, e in self.spans)
+        busy, reach = 0.0, -math.inf
+        for a, b in spans:
+            if b > reach:
+                busy += b - max(a, reach)
+                reach = b
+        return busy
+
+
+def _same_results(a, b, where="results"):
+    """Equal CLI results, NaN equal to NaN; wall-clock seconds skipped."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{where}: keys {sorted(a)} != {sorted(b)}")
+        for k in a:
+            if not k.endswith("_time"):
+                _same_results(a[k], b[k], f"{where}.{k}")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{where}: lengths {len(a)} != {len(b)}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_results(x, y, f"{where}[{i}]")
+    elif not (a == b or (isinstance(a, float) and isinstance(b, float)
+                         and math.isnan(a) and math.isnan(b))):
+        raise AssertionError(f"{where}: {a!r} != {b!r}")
+
+
+def phase_serving(dev, d, cfg, intra, video, modes):
+    """Phase 16: the serving path (module docstring).  Returns the warps'
+    launches a P-frame of the pipelined encode plus the overlapped decode,
+    and a frame of the four-stage frame."""
+    t_phase = time.perf_counter()
+    log(f"# serving: (a)-(b) lssvc_tpu_torch.tools.streambench at "
+        f"{EL_HW[1]}x{EL_HW[0]}, bf16, {SERVE_FRAMES} P-frames")
+    pipe_counts = {}
+    res = streambench.run(EL_HW, SERVE_FRAMES, "bf16", dev,
+                          folder=d / "streambench",
+                          counted=lambda: counted(pipe_counts))
+    want = {"flow_warp": 20 * SERVE_FRAMES, "flow_warp_packed": 0,
+            "grouped_warp": 2 * SERVE_FRAMES, "grouped_warp_packed": 0}
+    if pipe_counts != want:
+        raise AssertionError(f"pipelined encode + overlapped decode counts "
+                             f"{pipe_counts}, expected {want}")
+    ms = res["ms_per_frame"]
+    log(f"  bins byte-equal, final DPBs bit-equal; ms/frame: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+        + f"; encode speedup {res['encode_speedup']:.3f}x, decode speedup "
+        f"{res['decode_speedup']:.3f}x; launches {pipe_counts}")
+    del res["final_dpb"]
+
+    # (c) encode_gop on phase 14's frames, against phase 14's CLI bins
+    frames, hw_bl, hw_el = serving.read_frames(
+        d / "ds" / "seq1" / "x1.yuv", *GOP_HW, "x2", SERVE_GOP_FRAMES, dev)
+    i_net = scheduler.load_intra(str(intra), dev, "bf16")
+    v_net = scheduler.load_video(str(video), dev, OD_OFFSET_CAP_SERVING,
+                                 "bf16")
+    for net in (i_net, v_net):
+        net.update(force=True)
+        net.set_scale_information(2.0, hw_el, (0, 0, 0, 0))
+    gop_dir = d / "serving_gop"
+    gop_paths = {layer: [gop_dir / layer / f"{t}.bin"
+                         for t in range(SERVE_GOP_FRAMES)]
+                 for layer in ("BL", "EL")}
+    for layer in gop_paths:
+        (gop_dir / layer).mkdir(parents=True)
+    serving.encode_gop(i_net, v_net, [f[0] for f in frames],
+                       [f[1] for f in frames], GOP, gop_paths["BL"],
+                       gop_paths["EL"], hw_bl, hw_el)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, gop_bits = serving.encode_gop(
+        i_net, v_net, [f[0] for f in frames], [f[1] for f in frames], GOP,
+        gop_paths["BL"], gop_paths["EL"], hw_bl, hw_el)
+    torch.cuda.synchronize()
+    gop_s = time.perf_counter() - t0
+    cli_bins = _bins(d / "bins_bf16" / "seq1" / "0" / "x2")
+    if _bins(gop_dir) != cli_bins:
+        raise AssertionError("encode_gop's bins differ from phase 14's CLI "
+                             "bins")
+    log(f"  (c) encode_gop, bf16, {SERVE_GOP_FRAMES} frames (I P P): bins "
+        f"byte-equal to phase 14's CLI; {gop_s:.3f} s "
+        f"({gop_s / SERVE_GOP_FRAMES:.4f} s/frame, encode only)")
+    del i_net, v_net, frames
+
+    # (d) the staged frame: the bench twin, then one frame against fused
+    log(f"# serving: (d) lssvc_tpu_torch.bench --staged at 1080p, bf16")
+    staged = {}
+    for name, kw in (("staged", dict(staged=True)),
+                     ("staged_batch2", dict(batch=2))):
+        r = bench.bench_chain(EL_HW, k=K, mode="bf16", device=dev, **kw)
+        if not (r["staged"] and r["frames"] == 2 and math.isfinite(r["bits"])):
+            raise AssertionError(f"{name}: {r}")
+        staged[name] = r
+        log(f"  {name}: {r['s_per_frame']:.4f} s/frame (batch {r['batch']}, "
+            f"{r['fps']:.3f} frames/s), peak {r['peak_gib']:.2f} GiB")
+    fused = modes["bf16"]
+    log(f"  fused bf16 (phase 11): {fused['s_per_frame']:.4f} s/frame, peak "
+        f"{fused['peak_gib']:.2f} GiB")
+    model = LSSVC(init_lssvc(torch.Generator().manual_seed(0)), device=dev,
+                  od_offset_cap=OD_OFFSET_CAP_SERVING, precision="bf16")
+    model.set_scale_information(2.0, EL_HW, (0, 0, 0, 0))
+    gen = torch.Generator(device=dev).manual_seed(16)
+
+    def uni(*shape):
+        return torch.rand((1, *shape), generator=gen, device=dev)
+
+    args = (uni(*BL_HW, 3), uni(*EL_HW, 3), uni(*BL_HW, 3), uni(*EL_HW, 3),
+            uni(*BL_HW, 64), uni(*EL_HW, 48))
+    ref = model.forward_one_frame(*args)
+    staged_counts = {}
+    with counted(staged_counts):
+        out3 = model.forward_one_frame_staged3(*args)
+    out2 = model.forward_one_frame_staged(*args)
+    for name, out in (("four-stage", out3), ("two-stage", out2)):
+        for k, v in out["dpb"].items():
+            if not torch.equal(v, ref["dpb"][k]):
+                raise AssertionError(f"{name} frame: {k} differs from the "
+                                     "fused frame's")
+        if not torch.equal(out["bit_bl"], ref["bit_bl"]):
+            raise AssertionError(f"{name} frame: bit_bl differs")
+        rel = abs(float(out["bit_el"]) / float(ref["bit_el"]) - 1)
+        if rel > 1e-6:
+            raise AssertionError(f"{name} frame: bit_el off by {rel:.2e}")
+    if staged_counts != {"flow_warp": 14, "flow_warp_packed": 0,
+                         "grouped_warp": 1, "grouped_warp_packed": 0}:
+        raise AssertionError(f"four-stage frame counts {staged_counts}")
+    log(f"  one 1080p bf16 frame: four-stage and two-stage DPB bit-equal to "
+        f"the fused frame's; four-stage launches {staged_counts}")
+    del model, ref, out3, out2, args
+
+    # (e) the CLI with two models at --worker 1 and --worker 2
+    log(f"# serving: (e) lssvc_tpu_torch.test, two copies of phase 8's video "
+        f"checkpoint, {SERVE_GOP_FRAMES} frames, --worker 1 and --worker 2")
+    copies = [d / "worker" / tag / "video.pth" for tag in ("a", "b")]
+    for path in copies:
+        path.parent.mkdir(parents=True)
+        path.write_bytes(Path(video).read_bytes())
+    art = d / "artifacts"
+    save = [arg for a in runner.ARTIFACTS
+            for arg in (f"--save_{a}", "1", f"--{a}_path", str(art / a))]
+    workers = {}
+    for n in (1, 2):
+        argv = ["--test_config", str(cfg), "--i_frame_model_path",
+                str(intra), str(intra), "--model_path", *map(str, copies),
+                "--output_path", str(d / f"out_worker{n}"), "--ratios", "x2",
+                "--force_frame_num", str(SERVE_GOP_FRAMES), "--worker",
+                str(n)] + (save if n == 2 else [])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with SpanTimer() as spans:
+            t0 = time.perf_counter()
+            results = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = spans.busy_s()
+        workers[n] = {"wall_s": wall, "busy_s": busy,
+                      "idle_share": 1 - busy / wall,
+                      "peak_mem_gib": torch.cuda.max_memory_allocated()
+                      / 2 ** 30, "results": results}
+        log(f"  --worker {n}: {wall:.2f} s wall for 2 sequences of "
+            f"{SERVE_GOP_FRAMES} frames, models' device spans {busy:.2f} s, "
+            f"idle share {1 - busy / wall:.3f}, peak "
+            f"{workers[n]['peak_mem_gib']:.2f} GiB")
+    _same_results(workers[2].pop("results"), workers[1].pop("results"))
+    pngs = []
+    for model_idx in (0, 1):
+        roots = {a: art / f"{a}_IntraNoAR_LSSVC" / "seq1" / str(model_idx)
+                 / "x2" for a in runner.ARTIFACTS}
+        for i in range(SERVE_GOP_FRAMES):
+            pngs += [(roots["decoded_frame"] / layer / f"{i}.png",
+                      hw) for layer, hw in (("BL", (GOP_HW[0] // 2,
+                                                    GOP_HW[1] // 2)),
+                                            ("EL", GOP_HW))]
+            if i % GOP:
+                pngs += [(roots["decoded_mv"] / f"{i}.png", GOP_EL_HW),
+                         (roots["warp_frame"] / f"{i}.png", GOP_HW),
+                         (roots["decoded_context"] / f"{i}.png", GOP_EL_HW)]
+    for path, hw in pngs:
+        img = read_png(path)
+        if img.shape[:2] != tuple(hw):
+            raise AssertionError(f"{path}: {img.shape}, expected {hw}")
+    n_png = sum(1 for _ in art.rglob("*.png"))
+    if n_png != len(pngs):
+        raise AssertionError(f"{n_png} PNGs written, {len(pngs)} expected")
+    log(f"  --worker 2 equals --worker 1 (NaN equal to NaN); {len(pngs)} "
+        f"PNGs of the JAX package's layout written and parsed")
+
+    out = {"serving": {
+        "streambench": dict(res, launches=pipe_counts),
+        "encode_gop": {"frames": SERVE_GOP_FRAMES, "precision": "bf16",
+                       "seconds": gop_s, "s_per_frame": gop_s
+                       / SERVE_GOP_FRAMES, "bits": gop_bits,
+                       "bins_equal_phase14_cli": True},
+        "staged": {k: {f: r[f] for f in ("s_per_frame", "fps", "batch",
+                                         "frames", "peak_gib", "bits")}
+                   for k, r in staged.items()},
+        "fused_bf16_phase11": {f: fused[f] for f in ("s_per_frame", "fps",
+                                                     "peak_gib")},
+        "staged_frame_launches": staged_counts,
+        "workers": workers,
+        "seconds": time.perf_counter() - t_phase}}
+    log(json.dumps(out))
+    return ({k: v / SERVE_FRAMES for k, v in pipe_counts.items()},
+            staged_counts)
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2241,6 +2532,7 @@ def main():
         pair_packed, grouped_packed, _ = phase_packed_stores(dev)
         bf16_stream = phase_bf16_stream(dev, d, *gop)
         int8_entry = phase_int8(dev, d, *gop, modes)
+        pipelined, staged = phase_serving(dev, d, *gop, modes)
     n_p = GOP_FRAMES - -(-GOP_FRAMES // GOP)
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -2251,12 +2543,17 @@ def main():
         k["warp_tier_bench"] = tiers[k["name"]]
         k["bf16_launches"] = modes["bf16"]["launches"][k["name"]]
         k["bf16_stream_launches"] = bf16_stream[k["name"]]
+        k["pipelined_launches_per_p_frame"] = pipelined[k["name"]]
+        k["staged_launches_per_frame"] = staged[k["name"]]
     # the pair's packed store on its path, the bf16_packed chain with
     # LSSVC_PACKED_CTX=1
     ctx = modes["bf16_packed+packed_ctx"]
     pair_packed["launches"] = ctx["launches"]["flow_warp_packed"]
     pair_packed["launches_per_frame"] = \
         ctx["launches_per_frame"]["flow_warp_packed"]
+    for k in (pair_packed, grouped_packed):
+        k["pipelined_launches_per_p_frame"] = pipelined[k["name"]]
+        k["staged_launches_per_frame"] = staged[k["name"]]
     kernels += [pair_packed, grouped_packed, chain_entry, int8_entry]
     log(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "
         "build included")

@@ -1,9 +1,9 @@
 """The two-layer P-frame chain benchmark of the port (the twin of the root
 `bench.py`): frames a second, one JSON line.
 
-    python -m lssvc_tpu_torch.bench [--mode bf16] [--batch 1]
-        [--video synthetic] [--ckpt video.pth] [--frames 7]
-        [--size 1152x1920] [--device cuda]
+    python -m lssvc_tpu_torch.bench [--mode bf16_packed] [--batch 1]
+        [--staged] [--tier-stats] [--video synthetic] [--ckpt video.pth]
+        [--frames 7] [--size 1152x1920] [--device cuda]
 
 Method (`bench.py:1-33`): K sequential two-layer frame forwards (BL DMC +
 EL LSSVC, encoder and decoder network math with estimated bits) with the
@@ -12,10 +12,11 @@ read at the end, which waits for all K frames.  A reading is
 (t(1 + K frames) - t(1 frame)) / K, so fixed costs cancel; readings repeat
 until two in a row agree within 10%.
 
-Modes (`bench.py:86-115`): `bf16` (default: bf16 conv operands and
-outputs, f32 accumulation), `fp32` (the parity mode), `high` (TF32 convs
-and matmuls), `bf16_f32out` (bf16 operands, f32 outputs), `bf16_packed`
-(the width-packed full-res stacks; `LSSVC_PACKED_CTX=1` adds the fused
+Modes (`bench.py:86-115`): `bf16` (bf16 conv operands and outputs, f32
+accumulation), `fp32` (the parity mode), `high` (TF32 convs and
+matmuls), `bf16_f32out` (bf16 operands, f32 outputs), `bf16_packed`
+(the command line's default, as the root bench's: `bf16` with the
+width-packed full-res stacks; `LSSVC_PACKED_CTX=1` adds the fused
 packed pair warp), `bf16_einsum` (1x1 convs as matmuls),
 `bf16_packed_einsum`, `int8_packed` (`bf16_packed` with the s8
 convolution at the calibrated sites: it calibrates itself first, at
@@ -40,7 +41,17 @@ stderr, adds a `profile` summary to the line (the device time of all
 kernels, of `int8_conv`'s and its share; per frame), and goes on with the
 readings.
 
-`--staged` and `--tier-stats` are not ported yet and raise.
+`--staged`, or `--batch` > 1 (`bench.py:133-138`), times the four-stage
+frame (`LSSVC.forward_one_frame_staged3`: BL | EL contexts | EL residual
+| EL recon) with K capped at 2; the line says `"staged": true`.  In the
+port that frame is the fused frame (eager PyTorch has no program
+boundary to stage at, `models/lssvc.py`), so `--staged` differs only by
+its K cap; the JAX package stages to fit a batch into a 16 GB chip.  `--tier-stats` (`bench.py:222-244`) first codes 3 frames and
+prints to stderr, for each, max |mv_x| and max |mv_y| of the EL's
+decoded motion with the warp tier the JAX package would pick for it:
+`tiny` (both <= 2 px), `windowed` (<= 62 px across, <= 26 px down) or
+`fallback`.  The port's `flow_warp` is one exact kernel for every
+magnitude, so the tier is only a label.
 """
 
 from __future__ import annotations
@@ -73,7 +84,9 @@ MODES = {
                                conv1x1_einsum=True),
     "int8_packed": dict(precision="int8", packed_width=2),
 }
-UNPORTED = ("--staged", "--tier-stats")
+# `--staged` and `--batch` > 1 cap K here (`bench.py:133-138`)
+STAGED_MAX_K = 2
+TIER_STATS_FRAMES = 3
 PROFILE_FRAMES, PROFILE_TOP = 3, 15
 # int8_packed's own calibration: EL size and frames (`bench.py:198-201`)
 CALIB_SIZE, CALIB_FRAMES = 512, 2
@@ -99,6 +112,17 @@ def synthetic_motion_frames(el_hw, n_frames, seed=7):
         f[y0:y0 + sq, x0:x0 + sq] = rng.random(3).astype(np.float32)
         frames.append(np.clip(f, 0.0, 1.0))
     return frames
+
+
+def warp_tier(mv_x, mv_y):
+    """The JAX package's warp tier for flows of these largest magnitudes
+    (px): tiny <= 2, windowed <= 62 across and <= 26 down, else fallback
+    (`bench.py:222-244`)."""
+    if max(mv_x, mv_y) <= 2.0:
+        return "tiny"
+    if mv_x <= 62 and mv_y <= 26:
+        return "windowed"
+    return "fallback"
 
 
 def check_mode(mode):
@@ -208,32 +232,52 @@ def profile_chain(run_chain, frames, trace_dir, mode, cuda):
 
 
 def bench_chain(el_hw=(1152, 1920), k=7, mode="bf16", batch=1, ckpt=None,
-                video=None, device="cuda", readings=8, profile=None):
+                video=None, device="cuda", readings=8, profile=None,
+                staged=False, tier_stats=False):
     """Run the chain benchmark; returns its result dict (see the module
-    docstring), or raises if no two readings agree.  With `profile` (a
-    directory) one steady chain of min(k, 3) frames runs under
-    torch.profiler first (`profile_chain`)."""
+    docstring), or raises if no two readings agree.  `staged` (implied by
+    `batch` > 1) times the four-stage frame with K capped at 2;
+    `tier_stats` prints the EL motion's tiers over 3 frames first.  With
+    `profile` (a directory) one steady chain of min(k, 3) frames runs
+    under torch.profiler first (`profile_chain`)."""
     check_mode(mode)
     device = resolve_device(device)
+    staged = staged or batch > 1
+    if staged:
+        k = min(k, STAGED_MAX_K)
     model = model_for(mode, load_params(ckpt), device)
     model.set_scale_information(2.0, el_hw, (0, 0, 0, 0))
     frames, dpb0 = chain_inputs(el_hw, k, batch, video, device)
     cuda = device.type == "cuda"
+    step = (model.forward_one_frame_staged3 if staged
+            else model.forward_one_frame)
 
     frames_run = [0]
 
-    def run_chain(n):
+    def run_frames(n):
         dpb = dpb0
-        bits = torch.zeros((), device=device)
         frames_run[0] += n
         for i in range(n):
             x_bl, x_el = frames[(i + 1) % len(frames)]
-            out = model.forward_one_frame(
-                x_bl, x_el, dpb["ref_frame_bl"], dpb["ref_frame_el"],
-                dpb["ref_feature_bl"], dpb["ref_feature_el"])
+            out = step(x_bl, x_el, dpb["ref_frame_bl"], dpb["ref_frame_el"],
+                       dpb["ref_feature_bl"], dpb["ref_feature_el"])
             dpb = out["dpb"]
+            yield out
+
+    def run_chain(n):
+        bits = torch.zeros((), device=device)
+        for out in run_frames(n):
             bits = bits + out["bit_bl"] + out["bit_el"]
         return float(bits)  # resolves only after all n frames
+
+    if tier_stats:
+        for i, out in enumerate(run_frames(TIER_STATS_FRAMES)):
+            mv = out["mv_hat"].float().abs()
+            fx, fy = float(mv[..., 0].max()), float(mv[..., 1].max())
+            print(f"# tier-stats frame {i + 1}: max|mv_x|={fx:.2f} "
+                  f"max|mv_y|={fy:.2f} -> EL warp tier: {warp_tier(fx, fy)} "
+                  "(a label: one exact flow_warp kernel serves every tier)",
+                  file=sys.stderr)
 
     def measure():
         t0 = time.perf_counter()
@@ -266,7 +310,7 @@ def bench_chain(el_hw=(1152, 1920), k=7, mode="bf16", batch=1, ckpt=None,
             dt, bits = min(got[-2:])
             res = {"mode": mode, "s_per_frame": dt, "fps": batch / dt,
                    "bits": bits, "frames": k, "frames_run": frames_run[0],
-                   "batch": batch,
+                   "batch": batch, "staged": staged,
                    "peak_gib": (torch.cuda.max_memory_allocated(device)
                                 / 2 ** 30 if cuda else None)}
             if prof is not None:
@@ -283,8 +327,15 @@ def bench_chain(el_hw=(1152, 1920), k=7, mode="bf16", batch=1, ckpt=None,
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--mode", default="bf16")
-    p.add_argument("--batch", type=int, default=1)
+    p.add_argument("--mode", default="bf16_packed")
+    p.add_argument("--batch", type=int, default=1,
+                   help="sequences a frame; > 1 implies --staged")
+    p.add_argument("--staged", action="store_true",
+                   help="the four-stage frame, K capped at 2")
+    p.add_argument("--tier-stats", action="store_true",
+                   help="print the EL motion's largest magnitudes over 3 "
+                        "frames and the JAX warp tier they would take (a "
+                        "label: the port has one exact kernel for all)")
     p.add_argument("--video", default=None,
                    help="'synthetic': a moving-texture sequence, BL by "
                         "bicubic; default uniform noise")
@@ -295,20 +346,16 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="profile one steady chain of min(K, 3) frames")
-    for flag in UNPORTED:
-        p.add_argument(flag, action="store_true", help="not ported yet")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag in UNPORTED:
-        if getattr(args, flag[2:].replace("-", "_")):
-            raise NotImplementedError(f"{flag} is not ported yet")
     h, w = (int(v) for v in args.size.split("x"))
     res = bench_chain((h, w), k=args.frames, mode=args.mode,
                       batch=args.batch, ckpt=args.ckpt, video=args.video,
-                      device=args.device, profile=args.profile)
+                      device=args.device, profile=args.profile,
+                      staged=args.staged, tier_stats=args.tier_stats)
     tag = {(1152, 1920): "1080p", (768, 1280): "720p"}.get((h, w),
                                                            f"{h}x{w}")
     line = {"metric": f"two_layer_{tag}_fps_per_chip", "value": res["fps"],

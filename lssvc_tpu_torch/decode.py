@@ -9,8 +9,11 @@
 Decodes the per-frame bins `<bin_dir>/{BL,EL}/<t>.bin` that
 `python -m lssvc_tpu_torch.test --write_stream 1` writes back to 8-bit
 4:2:0 YUV, without the encoder: host rANS and the models' decoder stages,
-the DPB on the device, the reference frames clamped to [0, 1] between
-frames as the encoder's GOP loop clamps them.
+a P-frame's two layers through the two-layer decoder
+(`lssvc_stream.decode_frame_overlapped`: one layer's planes rANS-decode
+on a worker thread while the card runs the other's stages), the DPB on
+the device, the reference frames clamped to [0, 1] between frames as the
+encoder's GOP loop clamps them.
 
 A stream decodes only with what it was encoded with: the same kind of
 device (a stream coded on the card decodes on the card, a CPU stream on
@@ -28,12 +31,14 @@ from __future__ import annotations
 import argparse
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from .harness.runner import RATIO_FACTORS
 from .models.intra_ss_stream import decompress_stream
+from .models.lssvc_stream import decode_frame_overlapped
 from .ops import pad_nhwc
 from .ops.nn import od_offset_cap_from_env, precision_from_cli
 from .parallel.scheduler import load_intra, load_video
@@ -120,6 +125,8 @@ def main(argv=None):
     writer_bl = YUVWriter(args.yuv_out_bl, wb, hb) if args.yuv_out_bl \
         else None
     dpb = None
+    # the two-layer decoder's worker (host rANS beside the card's stages)
+    pool = ThreadPoolExecutor(max_workers=1)
     t0 = time.perf_counter()
     try:
         for t in range(args.frame_num):
@@ -132,17 +139,9 @@ def main(argv=None):
                        "ref_feature_bl": None,
                        "ref_feature_el": res["feature_el"]}
             else:
-                bl = v_net.base_layer_model.decompress(
-                    decode_p(bin_bl), hb_pad, wb_pad, dpb)["dpb"]
-                el = v_net.decompress(
-                    decode_p(bin_el), he_pad, we_pad,
-                    dict(dpb, texture=bl["ref_feature_bl"],
-                         y_hat_bl=bl["y_hat_bl"],
-                         mv_hat_bl=bl["mv_hat_bl"]))["dpb"]
-                dpb = {"ref_frame_bl": bl["ref_frame_bl"],
-                       "ref_feature_bl": bl["ref_feature_bl"],
-                       "ref_frame_el": el["ref_frame_el"],
-                       "ref_feature_el": el["ref_feature_el"]}
+                dpb = decode_frame_overlapped(
+                    v_net, decode_p(bin_bl), decode_p(bin_el), hb_pad,
+                    wb_pad, he_pad, we_pad, dpb, pool)["dpb"]
             # the encoder's GOP loop clamps the reference frames in place
             dpb["ref_frame_bl"].clamp_(0, 1)
             dpb["ref_frame_el"].clamp_(0, 1)
@@ -152,6 +151,7 @@ def main(argv=None):
                 writer_bl.write_one_frame(yuv_frame(dpb["ref_frame_bl"],
                                                     p_size_bl))
     finally:
+        pool.shutdown()
         writer_el.close()
         if writer_bl is not None:
             writer_bl.close()

@@ -213,21 +213,30 @@ def channel_indexes(shape_nhwc) -> np.ndarray:
 
 
 class _StreamDecodeMixin:
-    """rANS decode methods over `self.decoder` and `self.gaussian_table`;
-    the decoded planes land on `device` as float32 NHWC."""
+    """rANS decode methods over `self.decoder` and `self.gaussian_table`:
+    `*_symbols` decode on the host only (the NCHW-flat int32 values; a
+    worker thread may run them), `decode_*` also put the plane on `device`
+    as float32 NHWC."""
+
+    def factorized_symbols(self, shape_nhwc, table: CdfTable) -> np.ndarray:
+        return self.decoder.decode_stream(channel_indexes(shape_nhwc),
+                                          table.cdfs, table.sizes,
+                                          table.offsets)
+
+    def gaussian_symbols(self, index_flat: np.ndarray) -> np.ndarray:
+        """`index_flat`: the scale indexes in symbol order
+        (`to_symbol_order`)."""
+        table = self.gaussian_table
+        return self.decoder.decode_stream(index_flat, table.cdfs,
+                                          table.sizes, table.offsets)
 
     def decode_factorized(self, shape_nhwc, table: CdfTable,
                           device) -> torch.Tensor:
-        vals = self.decoder.decode_stream(channel_indexes(shape_nhwc),
-                                          table.cdfs, table.sizes,
-                                          table.offsets)
-        return from_symbol_order(vals, shape_nhwc, device)
+        return from_symbol_order(self.factorized_symbols(shape_nhwc, table),
+                                 shape_nhwc, device)
 
     def decode_gaussian(self, index_nhwc: torch.Tensor) -> torch.Tensor:
-        table = self.gaussian_table
-        vals = self.decoder.decode_stream(to_symbol_order(index_nhwc),
-                                          table.cdfs, table.sizes,
-                                          table.offsets)
+        vals = self.gaussian_symbols(to_symbol_order(index_nhwc))
         return from_symbol_order(vals, index_nhwc.shape, index_nhwc.device)
 
 

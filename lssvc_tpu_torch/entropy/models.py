@@ -28,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.nn import fp32_matmul, ste_round
+from ..ops.nn import matmul_highest, ste_round
 
 LOG2 = math.log(2.0)
 
@@ -106,13 +106,12 @@ def entropy_bottleneck_logits(p, inputs, filters=(3, 3, 3, 3)):
     """_logits_cumulative: inputs (C, 1, N); matrices (C, fo, fi).  The
     products run in full f32 (the JAX package's `Precision.HIGHEST`)."""
     logits = inputs
-    with fp32_matmul():
-        for i in range(len(filters) + 1):
-            logits = torch.bmm(F.softplus(p(f"_matrices.{i}")), logits)
-            logits = logits + p(f"_biases.{i}")
-            if i < len(filters):
-                logits = logits + (torch.tanh(p(f"_factors.{i}"))
-                                   * torch.tanh(logits))
+    for i in range(len(filters) + 1):
+        logits = matmul_highest(F.softplus(p(f"_matrices.{i}")), logits)
+        logits = logits + p(f"_biases.{i}")
+        if i < len(filters):
+            logits = logits + (torch.tanh(p(f"_factors.{i}"))
+                               * torch.tanh(logits))
     return logits
 
 

@@ -9,6 +9,15 @@ decoded-picture buffer (DPB) stays on the device between frames.  With
 through the models' `encode_decode`, which decodes the files again: the
 bits are the files' sizes and the DPB is the decoder's.
 
+With the task's `save_decoded_frame`, `save_decoded_mv`, `save_warp_frame`
+or `save_decoded_context`, each frame's artifacts go to PNGs, as the JAX
+package writes them (`harness/runner.py:245-291`):
+`<decoded_frame_folder>/<ratio>/{BL,EL}/<i>.png` (the decoded pictures),
+and for P-frames `<decoded_mv_folder>/<ratio>/<i>.png` (the EL motion,
+Middlebury colours), `<warp_frame_folder>/<ratio>/<i>.png` (the EL warped
+reference) and `<decoded_context_folder>/<ratio>/<i>.png` (the channel
+mean of the EL context c1, min-max normalised).
+
 Host metrics run one frame behind the device: right after frame i is
 enqueued, its reconstructions and bit counts are copied to pinned host
 buffers (non-blocking, behind a CUDA event), so that frame i's metrics,
@@ -29,23 +38,70 @@ import torch
 
 from ..ops import pad_nhwc
 from ..utils.color import rgb_to_ycbcr420, ycbcr420_to_rgb
+from ..utils import host
+from ..utils.flow_vis import flow_to_image
 from ..utils.io import YUVReader
 from ..utils.metrics import calc_msssim, mse_to_psnr
 from ..utils.msssim_rgb import ms_ssim_rgb
 from ..utils.padding import get_interlayer_padding, inverse_padding_size
+from ..utils.png import write_png
 from ..utils.resize import imresize
 from .results import FrameMetrics, aggregate_layer_log
 
 RATIO_FACTORS = {"x1": 1.0, "x1_5": 1.5, "x2": 2.0, "x3": 3.0, "x4": 4.0}
-# task keys of paths that are not ported yet (PNG artifacts, latent RDO);
-# run_test raises when one is set
-UNPORTED_TASK_KEYS = ("save_decoded_frame", "save_decoded_mv",
-                      "save_warp_frame", "save_decoded_context", "intra_rdo")
+# task keys of paths that are not ported yet (latent RDO); run_test raises
+# when one is set
+UNPORTED_TASK_KEYS = ("intra_rdo",)
+# the artifacts: the task's "save_<a>" turns one on, "<a>_folder" is where
+# it goes (the CLI's --save_<a> and --<a>_path)
+ARTIFACTS = ("decoded_frame", "decoded_mv", "warp_frame", "decoded_context")
 
 
 def _to_device_nhwc(rgb_chw: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(
         np.ascontiguousarray(rgb_chw[None].transpose(0, 2, 3, 1))).to(device)
+
+
+def layer_inputs(y_el, uv_el, pad_info, device):
+    """One frame's coder inputs, as the reference's `test.py` makes them
+    from the EL's YUV planes: (x_bl, x_el, rgb_el), the EL RGB padded and
+    the BL by MATLAB bicubic to its padded size, clamped, both NHWC on
+    `device`; rgb_el the EL's CHW RGB on the host."""
+    rgb_el = ycbcr420_to_rgb(y_el, uv_el)
+    x_el = pad_nhwc(_to_device_nhwc(rgb_el, device), pad_info["P_HR"])
+    x_bl = torch.clamp(imresize(x_el.permute(0, 3, 1, 2),
+                                sizes=tuple(pad_info["LR_padded_size"])),
+                       0, 1).permute(0, 2, 3, 1).contiguous()
+    return x_bl, x_el, rgb_el
+
+
+def _png_8bit(img: np.ndarray) -> np.ndarray:
+    return np.clip(np.rint(img * 255), 0, 255).astype(np.uint8)
+
+
+def save_artifacts(args_dict, ratio, frame_idx, out):
+    """The PNGs of one frame (module docstring) from its host arrays:
+    x_hat_bl / x_hat_el / warp_frame CHW in [0, 1], mv (H, W, 2), context
+    (H, W), the last three for P-frames only."""
+    def folder(artifact, *sub):
+        path = os.path.join(args_dict[f"{artifact}_folder"], ratio, *sub)
+        os.makedirs(path, exist_ok=True)
+        return os.path.join(path, f"{frame_idx}.png")
+
+    if args_dict.get("save_decoded_frame"):
+        for tag in ("BL", "EL"):
+            write_png(folder("decoded_frame", tag),
+                      _png_8bit(out[f"x_hat_{tag.lower()}"].transpose(1, 2, 0)))
+    if args_dict.get("save_decoded_mv") and "mv" in out:
+        write_png(folder("decoded_mv"), flow_to_image(out["mv"]))
+    if args_dict.get("save_warp_frame") and "warp_frame" in out:
+        write_png(folder("warp_frame"),
+                  _png_8bit(out["warp_frame"].transpose(1, 2, 0)))
+    if args_dict.get("save_decoded_context") and "context" in out:
+        ctx = out["context"]
+        lo, hi = float(ctx.min()), float(ctx.max())
+        norm = (ctx - lo) / (hi - lo) if hi > lo else np.zeros_like(ctx)
+        write_png(folder("decoded_context"), _png_8bit(norm))
 
 
 def _psnr_rgb(a: np.ndarray, b: np.ndarray) -> float:
@@ -69,29 +125,15 @@ def _layer_metrics(bit, rgb_ref, y_ref, u_ref, v_ref, x_hat_chw, win_size):
                         msssim, rgb_ms)
 
 
-class HostCopy:
-    """One frame's outputs on their way to the host.  The copies of CUDA
-    tensors into pinned buffers are enqueued at once, behind an event;
-    `get()` waits for that event only.  CPU tensors are kept."""
-
-    def __init__(self, tensors: dict):
-        self.host = dict(tensors)
-        on_card = [k for k, t in tensors.items() if t.device.type == "cuda"]
-        for k in on_card:
-            self.host[k] = torch.empty(tensors[k].shape,
-                                       dtype=tensors[k].dtype, pin_memory=True)
-            self.host[k].copy_(tensors[k], non_blocking=True)
-        self.event = None
-        if on_card:
-            self.event = torch.cuda.Event()
-            self.event.record()
+class HostCopy(host.HostCopy):
+    """One frame's outputs (a dict of tensors) on their way to the host:
+    the copies of CUDA tensors into pinned buffers are enqueued at once,
+    behind an event; `get()` waits for that event only."""
 
     def get(self) -> dict:
         """name -> numpy array (a bf16 model's pictures as f32, exactly);
         images as CHW (batch 0)."""
-        if self.event is not None:
-            self.event.synchronize()
-        arrays = {k: v.float().numpy() for k, v in self.host.items()}
+        arrays = {k: v.float().numpy() for k, v in super().get().items()}
         return {k: (a[0].transpose(2, 0, 1) if a.ndim == 4 else a)
                 for k, a in arrays.items()}
 
@@ -139,23 +181,21 @@ def run_test(video_net, i_frame_net, args_dict):
     pending = None  # the previous frame, whose metrics are still to do
     start_time = time.time()
 
-    def process_metrics(copy, rgb_bl, rgb_el, planes_bl, planes_el):
+    def process_metrics(frame_idx, copy, rgb_bl, rgb_el, planes_bl,
+                        planes_el):
         out = copy.get()
         frames_bl.append(_layer_metrics(float(out["bit_bl"]), rgb_bl,
                                         *planes_bl, out["x_hat_bl"], win_size))
         frames_el.append(_layer_metrics(float(out["bit_el"]), rgb_el,
                                         *planes_el, out["x_hat_el"], win_size))
-        if "warp_frame" in out:
+        if verbose and "warp_frame" in out:
             print("warp psnr:", _psnr_rgb(out["warp_frame"], rgb_el))
+        save_artifacts(args_dict, ratio, frame_idx, out)
 
     for frame_idx in range(frame_num):
         y_el, uv_el = reader.read_one_frame()
-        rgb_el = ycbcr420_to_rgb(y_el, uv_el)
-
-        x_el_padded = pad_nhwc(_to_device_nhwc(rgb_el, device), p_size_el)
-        x_bl_padded = torch.clamp(
-            imresize(x_el_padded.permute(0, 3, 1, 2), sizes=(hb_pad, wb_pad)),
-            0, 1).permute(0, 2, 3, 1).contiguous()
+        x_bl_padded, x_el_padded, rgb_el = layer_inputs(y_el, uv_el, pad_info,
+                                                        device)
         # the frame's one sync point: the BL reference's YUV planes
         rgb_bl = pad_nhwc(x_bl_padded, inverse_padding_size(p_size_bl)) \
             .cpu().numpy()[0].transpose(2, 0, 1)
@@ -170,7 +210,6 @@ def run_test(video_net, i_frame_net, args_dict):
         if write_stream:
             bin_bl, bin_el = (os.path.join(bin_dirs[layer], f"{frame_idx}.bin")
                               for layer in ("BL", "EL"))
-        warp_frame = None
         if frame_idx % gop_size == 0:
             if write_stream:
                 result = i_frame_net.encode_decode(
@@ -200,7 +239,6 @@ def run_test(video_net, i_frame_net, args_dict):
                     dpb["ref_frame_el"], dpb["ref_feature_bl"],
                     dpb["ref_feature_el"])
             dpb = result["dpb"]
-            warp_frame = result.get("warp_frame")
             frame_types.append(1)
 
         # the reference clamps the DPB frames in place (`test.py:249-250`),
@@ -213,10 +251,18 @@ def run_test(video_net, i_frame_net, args_dict):
             "bit_el": torch.as_tensor(result["bit_el"]),
             "x_hat_bl": pad_nhwc(ref_bl, inverse_padding_size(p_size_bl)),
             "x_hat_el": pad_nhwc(ref_el, inverse_padding_size(p_size_el))}
-        if verbose and warp_frame is not None:
-            outputs["warp_frame"] = pad_nhwc(torch.clamp(warp_frame, 0, 1),
-                                             inverse_padding_size(p_size_el))
-        this = (HostCopy(outputs), rgb_bl, rgb_el,
+        p_frame = "warp_frame" in result
+        if p_frame and (verbose or args_dict.get("save_warp_frame")):
+            outputs["warp_frame"] = pad_nhwc(
+                torch.clamp(result["warp_frame"], 0, 1),
+                inverse_padding_size(p_size_el))
+        if p_frame and args_dict.get("save_decoded_mv"):
+            outputs["mv"] = result["mv_hat"][0]
+        if p_frame and args_dict.get("save_decoded_context"):
+            # the channel mean in f32 on the device (the JAX package takes
+            # it on the host): a (H, W) plane crosses, not 48 channels
+            outputs["context"] = result["context"][0].float().mean(dim=-1)
+        this = (frame_idx, HostCopy(outputs), rgb_bl, rgb_el,
                 (y_bl[0], uv_bl[0], uv_bl[1]), (y_el[0], uv_el[0], uv_el[1]))
         if pending is not None:
             process_metrics(*pending)

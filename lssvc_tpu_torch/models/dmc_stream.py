@@ -150,10 +150,12 @@ def write_planes(coder, planes) -> bytes:
 
 
 class StageTimer:
-    """Wall-clock stage brackets for the decode-profiling dict.  With
+    """Wall-clock stage brackets for the decode-profiling dicts.  With
     `profiling` None it does nothing; else each mark synchronises the
     device first (`torch.cuda.synchronize`), so a stage's time is its
-    device work."""
+    device work.  A mark may charge another layer's dict (`into`): the
+    two-layer decoder times both layers' stages on one timeline, and
+    `finish(other)` adds the frame's seconds to each dict's "overall"."""
 
     def __init__(self, profiling: dict | None, device):
         self.profiling = profiling
@@ -167,20 +169,22 @@ class StageTimer:
             torch.cuda.synchronize(self.device)
         return time.perf_counter()
 
-    def mark(self, key):
+    def mark(self, key, into: dict | None = None):
         if self.profiling is None:
             return
         now = self._now()
         if self.current is not None:
-            self.profiling[self.current[0]] += now - self.current[1]
-        self.current = (key, now)
+            target, name, since = self.current
+            target[name] += now - since
+        self.current = (self.profiling if into is None else into, key, now)
 
-    def finish(self):
+    def finish(self, *others: dict):
         if self.profiling is None:
             return
         self.mark(None)
-        self.profiling["overall"] += self.current[1] - self.t_start
-        self.profiling["frames"] += 1
+        for profiling in (self.profiling, *others):
+            profiling["overall"] += self.current[2] - self.t_start
+            profiling["frames"] += 1
 
 
 class DecodeProfilingMixin:
@@ -235,11 +239,15 @@ class DMCExtend(DecodeProfilingMixin, DMC):
             self._coder = VideoCoder(self.flat_params())
 
     @scoped
-    def compress(self, x, dpb):
+    def encode_planes(self, x, dpb):
+        """The device half of `compress`: (planes, dpb), nothing read on
+        the host (`models/pipeline.py` writes the planes on a worker)."""
         dpb = sanitize_dpb(dpb)
-        planes, out_dpb = encode_device(self.flat_params(), x,
-                                        dpb["ref_frame_bl"],
-                                        dpb["ref_feature_bl"])
+        return encode_device(self.flat_params(), x, dpb["ref_frame_bl"],
+                             dpb["ref_feature_bl"])
+
+    def compress(self, x, dpb):
+        planes, out_dpb = self.encode_planes(x, dpb)
         return {"string": write_planes(self._coder, planes), "dpb": out_dpb}
 
     @scoped

@@ -212,15 +212,29 @@ def el_motion_coding(p, x_el, ref_el, mv_bl_hat, shape_hr, scale_factor):
     }
 
 
-def el_forward(params, x_el, ref_el, feature_el, texture_bl, mv_bl_hat,
-               y_bl_hat, shape_hr, scale_factor, od_offset_cap=None):
-    """Full EL P-frame forward (estimated bits)."""
+# --- the EL P-frame, in the JAX package's three EL stages (`lssvc.py:319-363`,
+# which run each as its own XLA program so that a batch of 1080p sequences
+# fits a 16 GB chip).  In eager PyTorch a stage boundary is no boundary at
+# all, so the fused and the staged frames are these same calls.
+
+def _el_stage_ctx(params, x_el, ref_el, feature_el, texture_bl, mv_bl_hat,
+                  shape_hr, scale_factor, od_offset_cap=None):
+    """EL motion coding and hybrid context fusion (the stage that holds the
+    warps, OffsetDiversity and the feature pyramids)."""
     p = P(params)
     mc = el_motion_coding(p, x_el, ref_el, mv_bl_hat, shape_hr, scale_factor)
     c1, c2, c3, warp_frame = hybrid_context_fusion(
         p, texture_bl, mc["mv_hat"], ref_el, feature_el, shape_hr,
         od_offset_cap)
+    bits_mv_y, _ = laplace_bits(mc["mv_y_q"], mc["mv_scales_hat"])
+    bits_mv_z, _ = factorized_bits(p.sub("bit_estimator_z_mv"), mc["mv_z_hat"])
+    return c1, c2, c3, warp_frame, mc["mv_hat"], bits_mv_y + bits_mv_z
 
+
+def _el_stage_res(params, x_el, c1, c2, c3, y_bl_hat, shape_hr):
+    """Residual AE, priors and the four-part prior: y_hat and the residual
+    bits."""
+    p = P(params)
     y = el_res_encoder(p.sub("res_encoder"), x_el, c1, c2, c3)
     z = res_prior_encoder(p.sub("res_prior_encoder"), y)
     z_hat = ste_round(z)
@@ -231,42 +245,58 @@ def el_forward(params, x_el, ref_el, feature_el, texture_bl, mv_bl_hat,
         (shape_hr[0] // 16, shape_hr[1] // 16))
     common_params = prior_fusion(p.sub("prior_fusion_net"), hierarchical,
                                  temporal, layer_prior)
-
     _, y_q, y_hat, scales_hat = forward_four_part_prior(p, y, common_params)
+    bits_y, _ = laplace_bits(y_q, scales_hat)
+    bits_z, _ = factorized_bits(p.sub("bit_estimator_z"), z_hat)
+    return y_hat, bits_y + bits_z
 
+
+def _el_stage_recon(params, y_hat, c1, c2, c3):
+    """The residual decoder and the recon generation: (recon, feature)."""
+    p = P(params)
     recon_feature = el_res_decoder(p.sub("res_decoder"), y_hat, c2, c3)
     feature, recon_el = el_recon_generation(p.sub("recon_generation_net"),
                                             recon_feature, c1)
+    return recon_el, feature
 
-    bits_y, _ = laplace_bits(y_q, scales_hat)
-    bits_mv_y, _ = laplace_bits(mc["mv_y_q"], mc["mv_scales_hat"])
-    bits_z, _ = factorized_bits(p.sub("bit_estimator_z"), z_hat)
-    bits_mv_z, _ = factorized_bits(p.sub("bit_estimator_z_mv"),
-                                   mc["mv_z_hat"])
-    bits_el = bits_y + bits_mv_y + bits_z + bits_mv_z
 
+def el_forward(params, x_el, ref_el, feature_el, texture_bl, mv_bl_hat,
+               y_bl_hat, shape_hr, scale_factor, od_offset_cap=None):
+    """Full EL P-frame forward (estimated bits): the three EL stages."""
+    c1, c2, c3, warp_frame, mv_hat, bits_mv = _el_stage_ctx(
+        params, x_el, ref_el, feature_el, texture_bl, mv_bl_hat, shape_hr,
+        scale_factor, od_offset_cap)
+    y_hat, bits_res = _el_stage_res(params, x_el, c1, c2, c3, y_bl_hat,
+                                    shape_hr)
+    recon_el, feature = _el_stage_recon(params, y_hat, c1, c2, c3)
     return {
         "recon_el": recon_el,
         "feature_el": feature,
-        "bits_el": bits_el,
-        "mv_hat": mc["mv_hat"],
+        "bits_el": bits_mv + bits_res,
+        "mv_hat": mv_hat,
         "warp_frame": warp_frame,
         "context": c1,
     }
+
+
+def _bl_stage(params, x_bl, ref_frame_bl, ref_feature_bl, pad_size):
+    """The BL frame, and its texture, motion and latent padded onto the EL
+    grids."""
+    bl_params = {k[len(BL_PREFIX):]: v for k, v in params.items()
+                 if k.startswith(BL_PREFIX)}
+    bl = dmc.forward_inter(bl_params, x_bl, ref_frame_bl, ref_feature_bl)
+    texture = pad_nhwc(bl["feature"], pad_size)
+    mv_bl_hat = pad_nhwc(bl["mv_hat"], pad_size)
+    y_bl_hat = pad_nhwc(bl["y_hat"], tuple(int(v / 16) for v in pad_size))
+    return bl, texture, mv_bl_hat, y_bl_hat
 
 
 def forward_one_frame(params, x_bl, x_el, ref_frame_bl, ref_frame_el,
                       ref_feature_bl, ref_feature_el, shape_hr, scale_factor,
                       pad_size, od_offset_cap=None):
     """Two-layer P-frame forward (`LSSVC_net.py:445-528`)."""
-    bl_params = {k[len(BL_PREFIX):]: v for k, v in params.items()
-                 if k.startswith(BL_PREFIX)}
-    bl = dmc.forward_inter(bl_params, x_bl, ref_frame_bl, ref_feature_bl)
-
-    texture = pad_nhwc(bl["feature"], pad_size)
-    mv_bl_hat = pad_nhwc(bl["mv_hat"], pad_size)
-    y_bl_hat = pad_nhwc(bl["y_hat"], tuple(int(v / 16) for v in pad_size))
-
+    bl, texture, mv_bl_hat, y_bl_hat = _bl_stage(
+        params, x_bl, ref_frame_bl, ref_feature_bl, pad_size)
     el = el_forward(params, x_el, ref_frame_el, ref_feature_el, texture,
                     mv_bl_hat, y_bl_hat, shape_hr, scale_factor,
                     od_offset_cap)
@@ -285,6 +315,19 @@ def forward_one_frame(params, x_bl, x_el, ref_frame_bl, ref_frame_el,
         "warp_frame_bl": bl["warp_frame"],
         "context": el["context"],
     }
+
+
+def forward_one_frame_staged3(*args, **kwargs):
+    """The four-stage P-frame of the JAX package (`lssvc.py:364-400`: BL |
+    EL contexts | EL residual | EL recon) with its keys: here the fused
+    frame, whose EL already runs the three stages, less `warp_frame_bl`."""
+    out = forward_one_frame(*args, **kwargs)
+    del out["warp_frame_bl"]
+    return out
+
+
+# the two-stage frame (`lssvc.py:403-436`: BL | EL) is the same frame here
+forward_one_frame_staged = forward_one_frame_staged3
 
 
 class LSSVC(Model):
@@ -334,3 +377,14 @@ class LSSVC(Model):
                                  ref_frame_el, ref_feature_bl, ref_feature_el,
                                  self.shape_hr, self.scale_factor,
                                  self.pad_size, self.od_offset_cap)
+
+    @scoped
+    def forward_one_frame_staged3(self, x_bl, x_el, ref_frame_bl,
+                                  ref_frame_el, ref_feature_bl,
+                                  ref_feature_el):
+        return forward_one_frame_staged3(
+            self.flat_params(), x_bl, x_el, ref_frame_bl, ref_frame_el,
+            ref_feature_bl, ref_feature_el, self.shape_hr, self.scale_factor,
+            self.pad_size, self.od_offset_cap)
+
+    forward_one_frame_staged = forward_one_frame_staged3

@@ -17,17 +17,20 @@ analysis fronts (EL SpyNet + mv AE, the residual AE) are the encoder's.
 from __future__ import annotations
 
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 from ..convert import P
-from ..entropy.coder import VideoCoder
+from ..entropy.coder import VideoCoder, from_symbol_order, to_symbol_order
 from ..entropy.models import build_indexes_video
 from ..ops import pad_nhwc
 from ..utils.checks import finite_flags, raise_if_nonfinite, sanitize_dpb
+from ..utils.host import HostCopy, Stamps
 from ..utils.stream import decode_p, encode_p, filesize, \
     get_downsampled_shape
 from .components import cat, me_spynet
+from . import dmc_stream as ds
 from .dmc_stream import DecodeProfilingMixin, DMCExtend, _sync, quantize_i
 from .four_part_prior import PASS_MASKS, checkerboard_masks, \
     spatial_prior_net
@@ -218,6 +221,152 @@ def write_planes(coder, planes) -> bytes:
     return coder.flush()
 
 
+def _gaussian_host(dec, index: HostCopy):
+    """Host half of a gaussian plane's decode (worker-safe): the symbols of
+    the index plane once its copy has landed."""
+    return dec.gaussian_symbols(to_symbol_order(index.get()))
+
+
+def decode_frame_overlapped(model, string_bl, string_el, h_bl, w_bl, h_el,
+                            w_el, dpb, pool, stamps: Stamps | None = None):
+    """The two-layer P-frame decoder (the JAX package's
+    `models/pipeline.py:128`): both layers' stage functions, the same as
+    `DMCExtend.decompress` then `LSSVCExtend.decompress` run on the same
+    planes, so the DPB is theirs bit for bit, ordered so that the host
+    rANS overlaps the card:
+
+      * the factorized planes (BL z, EL mv_z and z), whose indexes are
+        static, decode while a context stage runs on the card;
+      * the BL y plane and the EL mv_y plane, in different streams,
+        rANS-decode on `pool`'s worker thread (the C calls drop the GIL)
+        while the card runs the other layer's stages;
+      * each index plane's copy to the host starts on the main thread
+        behind an event, and the planes decoded on the host go back to
+        the card from the main thread.
+
+    model: an LSSVCExtend with its tables built and its scale set; dpb:
+    the DPB after the runner's clamp.  With the model's `profile_decoding`
+    each stage is charged to its layer's profiling dict on one timeline
+    (a plane decoded on the worker counts only the wait for it), and each
+    layer's "overall" is the two-layer frame's seconds.  `stamps`, if
+    given, is stamped once the BL picture is enqueued.  Returns {"dpb",
+    "bl_dpb", "mv_hat", "context"}."""
+    bl = model.base_layer_model
+    coder_bl, coder_el = bl._coder, model._coder
+    dec_bl = coder_bl.open_stream(string_bl)
+    dec_el = coder_el.open_stream(string_el)
+    p_bl, p_el = P(bl.flat_params()), P(model.flat_params())
+    device = model.device
+    zb = (1, *get_downsampled_shape(h_bl, w_bl, 64), bl.channel_N)
+    zh_e, zw_e = get_downsampled_shape(h_el, w_el, 64)
+    pad = model.pad_size
+    shape_hr = model.shape_hr
+    dpb = sanitize_dpb(dpb)
+    timer = model._stage_timer()
+
+    def bl_stage(key):
+        timer.mark(key, bl.decoding_profiling)
+
+    def on_card(vals, shape):
+        return from_symbol_order(vals, shape, device)
+
+    with torch.no_grad():
+        # --- BL head; the EL's mv_z decodes on the worker meanwhile
+        bl_stage("entropy_dec_mv_z")
+        mv_z = dec_bl.decode_factorized(zb, coder_bl.z_mv_table, device)
+        el_mvz_shape = (1, zh_e, zw_e, model.channel_mv)
+        el_mvz = pool.submit(dec_el.factorized_symbols, el_mvz_shape,
+                             coder_el.z_mv_table)
+        bl_stage("mv_y_prior_dec")
+        with bl.scope():
+            mv_idx, mv_means = ds.dec_mv_prior(p_bl, mv_z)
+        bl_stage("entropy_dec_mv_y")
+        mv_y_q = on_card(_gaussian_host(dec_bl, HostCopy(mv_idx)),
+                         mv_idx.shape)
+        bl_stage("mv_dec")
+        with bl.scope():
+            mv_hat_bl = ds.dec_mv(p_bl, mv_y_q, mv_means)
+        bl_stage("motion_compensation_ctx_refine")
+        with bl.scope():
+            c1b, c2b, c3b = ds.dec_contexts(p_bl, mv_hat_bl,
+                                            dpb["ref_frame_bl"],
+                                            dpb["ref_feature_bl"])
+        # BL z: static indexes, decodes while the context stage runs
+        bl_stage("entropy_dec_z")
+        z = dec_bl.decode_factorized(zb, coder_bl.z_table, device)
+        bl_stage("y_prior")
+        with bl.scope():
+            y_idx, y_means = ds.dec_y_prior(p_bl, z, c1b, c2b, c3b)
+        y_idx_host = HostCopy(y_idx)
+
+        # --- EL motion setup: needs only the BL's mv_hat
+        timer.mark("mv_setup")
+        mv_bl_hat = pad_nhwc(
+            sanitize_dpb({"mv_hat_bl": mv_hat_bl})["mv_hat_bl"], pad)
+        with model.scope():
+            mv_ctx, mv_ctx_prior = dec_mv_setup(p_el, mv_bl_hat, shape_hr,
+                                                model.scale_factor)
+        timer.mark("entropy_dec_mv_z")
+        mv_z_el = on_card(el_mvz.result(), el_mvz_shape)
+        timer.mark("mv_prior_dec")
+        with model.scope():
+            el_mv_idx, el_mv_means = dec_mv_prior(p_el, mv_z_el,
+                                                  mv_ctx_prior)
+
+        # --- the BL's y plane, then the EL's mv_y (two streams), decode on
+        # the worker: BL y while the card runs the EL's motion setup and
+        # prior, EL mv_y while it runs the BL's recon
+        bl_y = pool.submit(_gaussian_host, dec_bl, y_idx_host)
+        el_mv_y = pool.submit(_gaussian_host, dec_el, HostCopy(el_mv_idx))
+        bl_stage("entropy_dec_y")
+        y_q = on_card(bl_y.result(), y_idx.shape)
+        bl_stage("res_dec")
+        with bl.scope():
+            recon_bl, feature_bl, y_hat_bl = ds.dec_recon(
+                p_bl, y_q, y_means, c1b, c2b, c3b)
+        if stamps is not None:
+            stamps.stamp()
+        bl_dpb = {"ref_frame_bl": recon_bl, "ref_feature_bl": feature_bl,
+                  "y_hat_bl": y_hat_bl, "mv_hat_bl": mv_hat_bl}
+        timer.mark("entropy_dec_mv_y")
+        el_mv_y = on_card(el_mv_y.result(), el_mv_idx.shape)
+
+        # --- EL contexts, then the residual's four passes
+        timer.mark("mv_dec_ctx")
+        layer = sanitize_dpb({"texture": feature_bl, "y_hat_bl": y_hat_bl,
+                              "mv_hat_bl": mv_hat_bl})
+        texture, _, y_bl_hat = _depad(layer, pad)
+        with model.scope():
+            mv_hat_el, c1, c2, c3, _ = dec_contexts(
+                p_el, el_mv_y, el_mv_means, mv_ctx, texture,
+                dpb["ref_frame_el"], dpb["ref_feature_el"], shape_hr,
+                model.od_offset_cap)
+        # EL z: static indexes, decodes while the context stage runs
+        timer.mark("entropy_dec_z")
+        z_el = dec_el.decode_factorized((1, zh_e, zw_e, EL_Z_CHANNELS),
+                                        coder_el.z_table, device)
+        timer.mark("y_prior")
+        with model.scope():
+            common = dec_common_params(p_el, z_el, c3, y_bl_hat, shape_hr)
+            idx, means_4 = dec_pass0(common)
+        y_hat = None
+        for pass_idx in range(4):
+            timer.mark("entropy_dec_y")
+            y_q_r = on_card(_gaussian_host(dec_el, HostCopy(idx)), idx.shape)
+            timer.mark("spatial_prior_update")
+            with model.scope():
+                y_hat, idx, means_4 = dec_pass_update(
+                    p_el, pass_idx, y_q_r, y_hat, common, means_4)
+        timer.mark("res_dec")
+        with model.scope():
+            recon_el, feature_el = dec_recon(p_el, y_hat, c1, c2, c3)
+        timer.finish(bl.decoding_profiling)
+
+    return {"dpb": {"ref_frame_bl": recon_bl, "ref_feature_bl": feature_bl,
+                    "ref_frame_el": recon_el, "ref_feature_el": feature_el},
+            "bl_dpb": bl_dpb, "mv_hat": mv_hat_el, "context": c1}
+
+
 class LSSVCExtend(DecodeProfilingMixin, LSSVC):
     """The two-layer P-frame codec with real bitstreams
     (`LSSVC_net_extend.py`); its base layer is a DMCExtend."""
@@ -247,13 +396,18 @@ class LSSVCExtend(DecodeProfilingMixin, LSSVC):
             self.base_layer_model.update(force=force)
 
     @scoped
-    def compress(self, x_el, dpb):
+    def encode_planes(self, x_el, dpb):
+        """The device half of `compress`: (planes, dpb), nothing read on
+        the host (`models/pipeline.py` writes the planes on a worker)."""
         dpb = sanitize_dpb(dpb)
         texture, mv_bl_hat, y_bl_hat = _depad(dpb, self.pad_size)
-        planes, out_dpb = encode_device(
+        return encode_device(
             self.flat_params(), x_el, dpb["ref_frame_el"],
             dpb["ref_feature_el"], texture, mv_bl_hat, y_bl_hat,
             self.shape_hr, self.scale_factor, self.od_offset_cap)
+
+    def compress(self, x_el, dpb):
+        planes, out_dpb = self.encode_planes(x_el, dpb)
         return {"string": write_planes(self._coder, planes), "dpb": out_dpb}
 
     @scoped
@@ -301,36 +455,42 @@ class LSSVCExtend(DecodeProfilingMixin, LSSVC):
     @scoped
     def encode_decode(self, x_bl, x_el, dpb, output_path_bl, output_path_el,
                       pic_width, pic_height, pic_width_bl, pic_height_bl):
-        """Both layers: the BL's stream, then the EL's, each written and
-        decoded from its file.  Bits from the file sizes, the four encode
-        and decode timers, and the decoded DPB."""
-        bl = self.base_layer_model.encode_decode(
-            x_bl, dpb, output_path_bl, pic_width_bl, pic_height_bl)
-        layer_dpb = bl["dpb"]
-        dpb = dict(dpb, texture=layer_dpb["ref_feature_bl"],
-                   y_hat_bl=layer_dpb["y_hat_bl"],
-                   mv_hat_bl=layer_dpb["mv_hat_bl"])
-
+        """Both layers: the BL's stream, then the EL's, each written; then
+        both files decoded by the two-layer decoder
+        (`decode_frame_overlapped`).  Bits from the file sizes, the four
+        timers (a layer's decoding time is the decoder's time up to its
+        picture: the BL's, then the rest, the EL's) and the decoded
+        DPB."""
+        bl = self.base_layer_model
         t0 = time.perf_counter()
-        encoded = self.compress(x_el, dpb)
-        encode_p(encoded["string"], output_path_el)
+        encoded_bl = bl.compress(x_bl, dpb)
+        encode_p(encoded_bl["string"], output_path_bl)
         _sync(self.device)
         t1 = time.perf_counter()
-        decoded = self.decompress(decode_p(output_path_el), pic_height,
-                                  pic_width, dpb)
+        layer_dpb = encoded_bl["dpb"]  # the decoder's, bit for bit
+        encoded = self.compress(x_el, dict(
+            dpb, texture=layer_dpb["ref_feature_bl"],
+            y_hat_bl=layer_dpb["y_hat_bl"], mv_hat_bl=layer_dpb["mv_hat_bl"]))
+        encode_p(encoded["string"], output_path_el)
         _sync(self.device)
         t2 = time.perf_counter()
+        stamps = Stamps(self.device)
+        stamps.stamp()
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            decoded = decode_frame_overlapped(
+                self, decode_p(output_path_bl), decode_p(output_path_el),
+                pic_height_bl, pic_width_bl, pic_height, pic_width, dpb,
+                pool, stamps)
+        stamps.stamp()
+        _sync(self.device)
         return {
-            "dpb": {"ref_frame_bl": layer_dpb["ref_frame_bl"],
-                    "ref_feature_bl": layer_dpb["ref_feature_bl"],
-                    "ref_frame_el": decoded["dpb"]["ref_frame_el"],
-                    "ref_feature_el": decoded["dpb"]["ref_feature_el"]},
-            "bit_bl": bl["bit"],
+            "dpb": decoded["dpb"],
+            "bit_bl": filesize(output_path_bl) * 8,
             "bit_el": filesize(output_path_el) * 8,
-            "encoding_time_EL": t1 - t0,
-            "decoding_time_EL": t2 - t1,
-            "encoding_time_BL": bl["encoding_time"],
-            "decoding_time_BL": bl["decoding_time"],
+            "encoding_time_EL": t2 - t1,
+            "decoding_time_EL": stamps.seconds(1, 2),
+            "encoding_time_BL": t1 - t0,
+            "decoding_time_BL": stamps.seconds(0, 1),
             "mv_hat": encoded["dpb"]["mv_hat"],
             "warp_frame": encoded["dpb"]["warp_frame"],
             "context": decoded["context"],

@@ -97,6 +97,15 @@ class Mode:
 
 _FP32 = Mode()
 _STATE = threading.local()
+# The backend flags a mode sets (TF32, cuDNN's algorithm choice) are
+# process-wide; the mode is per thread.  Scopes on several threads (the
+# CLI's worker pool) share the flags: they are set by the first holder and
+# restored only when the last one leaves; a scope that needs other flags
+# than another thread holds raises.  One thread may nest a scope with
+# other flags while it holds the flags alone.
+_FLAGS_LOCK = threading.Lock()
+_HOLDERS: list = []  # (thread ident, flags), one per open scope
+_SAVED_FLAGS: list = []  # the flags before the first holder
 
 
 def current_mode() -> Mode:
@@ -104,28 +113,64 @@ def current_mode() -> Mode:
     return getattr(_STATE, "mode", _FP32)
 
 
+def backend_flags(precision: str) -> tuple:
+    """The backend flags (cudnn TF32, matmul TF32, benchmark,
+    deterministic) a scope of `precision` sets: TF32 only for "high" and
+    "bf16_f32out"; in every precision cuDNN's heuristic, never its timed
+    choice, and only algorithms that sum in a fixed order."""
+    tf32 = precision in ("high", "bf16_f32out")
+    return (tf32, tf32, False, True)
+
+
+def _backend_flags() -> tuple:
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    return (cudnn.allow_tf32, matmul.allow_tf32, cudnn.benchmark,
+            cudnn.deterministic)
+
+
+def _set_backend_flags(flags: tuple):
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    (cudnn.allow_tf32, matmul.allow_tf32, cudnn.benchmark,
+     cudnn.deterministic) = flags
+
+
 @contextlib.contextmanager
 def precision_scope(mode: Mode):
     """Run the block in `mode`: the functions of the port read it through
-    `current_mode()`, and the backend flags are set for it (TF32 only for
-    "high" and "bf16_f32out"; in every mode cuDNN's heuristic, never its
-    timed choice, and only algorithms that sum in a fixed order, so that a
-    stream's encoder and decoder, in another process, compute each conv
-    bit for bit alike: `conv_transpose2d` takes forward convs for the same
-    reason).  Everything is restored on exit, so nothing leaks into the
+    `current_mode()`, and the backend flags are set for it
+    (`backend_flags`: the fixed-order algorithms make a stream's encoder
+    and decoder, in another process, compute each conv bit for bit alike;
+    `conv_transpose2d` takes forward convs for the same reason).  The flags are process-wide: scopes open on other threads
+    must need the same ones (else RuntimeError), and they are restored
+    when the last scope of the process closes, so nothing leaks into the
     caller or into another model."""
-    tf32 = mode.precision in ("high", "bf16_f32out")
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    before = (current_mode(), cudnn.allow_tf32, matmul.allow_tf32,
-              cudnn.benchmark, cudnn.deterministic)
+    want = backend_flags(mode.precision)
+    me = threading.get_ident()
+    with _FLAGS_LOCK:
+        others = {flags for t, flags in _HOLDERS if t != me}
+        if others - {want}:
+            raise RuntimeError(
+                f"precision_scope({mode.precision!r}) needs backend flags "
+                f"(cudnn TF32, matmul TF32, benchmark, deterministic) = "
+                f"{want}, but another thread's scope holds {others}")
+        if not _HOLDERS:
+            _SAVED_FLAGS[:] = [_backend_flags()]
+        _HOLDERS.append((me, want))
+        _set_backend_flags(want)
+    before = current_mode()
     _STATE.mode = mode
-    cudnn.allow_tf32 = matmul.allow_tf32 = tf32
-    cudnn.benchmark, cudnn.deterministic = False, True
     try:
         yield mode
     finally:
-        (_STATE.mode, cudnn.allow_tf32, matmul.allow_tf32, cudnn.benchmark,
-         cudnn.deterministic) = before
+        _STATE.mode = before
+        with _FLAGS_LOCK:
+            _HOLDERS.remove((me, want))
+            mine = [flags for t, flags in _HOLDERS if t == me]
+            # the flags of this thread's enclosing scope, else those every
+            # other holder shares, else the flags before the first scope
+            _set_backend_flags(mine[-1] if mine else
+                               _HOLDERS[-1][1] if _HOLDERS else
+                               _SAVED_FLAGS[0])
 
 
 def compute_dtype() -> torch.dtype:
@@ -158,32 +203,29 @@ def _operands(x, w, b):
 
 def matmul_f32out(a, b):
     """a @ b with operands in the compute dtype and an f32 product (the
-    JAX package's `einsum(..., preferred_element_type=float32)`).  bf16
-    operands are rounded, kept as f32 tensors and multiplied with TF32 on:
-    a bf16 value is exact in TF32, so this is bf16 operands, f32
-    accumulation, on the tensor cores."""
+    JAX package's `einsum(..., preferred_element_type=float32)`).  With
+    bf16 operands on the card: cuBLAS's bf16 GEMM with an f32 output (f32
+    accumulation on the tensor cores); on the CPU the bf16-rounded
+    operands multiply in f32.  Neither reads the process-wide TF32 flags,
+    which another thread's scope may hold."""
     if compute_dtype() == torch.float32:
         return torch.matmul(a, b)
-    before = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        return torch.matmul(a.to(torch.bfloat16).float(),
-                            b.to(torch.bfloat16).float())
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = before
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if not a.is_cuda:
+        return torch.matmul(a.float(), b.float())
+    out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+    return out.reshape(*a.shape[:-1], b.shape[-1])
 
 
-@contextlib.contextmanager
-def fp32_matmul():
-    """Full-f32 matrix products inside the block, whatever the global TF32
-    setting (the JAX package's `Precision.HIGHEST` einsums); the setting is
-    restored on exit."""
-    before = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = before
+def matmul_highest(a, b):
+    """a @ b in full f32 whatever the TF32 flags (the JAX package's
+    `Precision.HIGHEST` products).  The flags are process-wide and another
+    thread's "high" scope may hold TF32 on, so on the card the product is
+    taken in float64 and rounded to f32 once; on the CPU, where the flags
+    do nothing, in f32."""
+    if not a.is_cuda:
+        return torch.matmul(a, b)
+    return torch.matmul(a.double(), b.double()).to(a.dtype)
 
 
 def precision_from_cli(precision: str, int8_calib=None):

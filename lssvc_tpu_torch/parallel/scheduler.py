@@ -1,28 +1,39 @@
 """Task runner for evaluation sweeps (the JAX package's
-`parallel/scheduler.py:27-112`, one worker).
+`parallel/scheduler.py`).
 
 Models are cached per checkpoint path, precision and int8 table (its
 content, not its path), so a sweep over (dataset x ratio x sequence) loads
 each network once in each precision, and two tables never share a model.
 Under `write_stream` a model builds its CDF tables on load, and its bins
-go to `<stream_path>/<sequence>/<model_idx>/<ratio>/{BL,EL}/`.  Tasks run one
-after another on one device; a pool of workers (one a GPU) is a later step.
+go to `<stream_path>/<sequence>/<model_idx>/<ratio>/{BL,EL}/`.
+
+`run_tasks(tasks, worker_num)` runs the tasks on a pool of `worker_num`
+threads, all on the one device.  A cached model carries per-task state
+(its scale information, its rANS coders' buffers, its profiling sums), so
+the tasks that share one take its lock in turn; tasks on different models
+run at once: one task's host work (YUV reads, metrics, rANS) beside
+another's device work.  The backend flags of a model's precision are
+process-wide (`ops.nn.precision_scope`), so a pool refuses, before it
+starts, tasks whose precisions need different flags; the CLI's tasks
+share one precision.
 """
 
 from __future__ import annotations
 
 import functools
 import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from ..convert import params_from_jax
-from ..harness.runner import run_test
+from ..harness.runner import ARTIFACTS, run_test
 from ..models import IntraSS
 from ..models.init import init_intra_ss, init_lssvc
 from ..models.lssvc_stream import LSSVCExtend
-from ..ops.nn import packed_ctx_from_env, serving_mode
+from ..ops.nn import backend_flags, packed_ctx_from_env, serving_mode
 
 BL_CHANNEL_KEY = "base_layer_model.g_s.0.conv1.weight"
 
@@ -103,7 +114,8 @@ class Runner:
     """Runs tasks on one device, loading each checkpoint once a precision
     and int8 table (a task's "precision" and "int8_table", else
     `precision` and `int8_table`); the video models take OffsetDiversity's
-    cap `od_offset_cap`."""
+    cap `od_offset_cap`.  `models` maps a cache key to (intra, video);
+    `locks` maps it to the lock its tasks take in turn."""
 
     def __init__(self, device, od_offset_cap, precision="fp32",
                  int8_table=None):
@@ -112,46 +124,60 @@ class Runner:
         self.precision = precision
         self.int8_table = int8_table
         self.models = {}
+        self.locks = {}
+        self._cache_lock = threading.Lock()
+
+    def _key(self, task):
+        return (task["i_frame_model_path"],
+                None if task.get("force_intra") else task["video_model_path"],
+                task.get("precision", self.precision),
+                _table_key(task.get("int8_table", self.int8_table)))
 
     def _models(self, task):
-        precision = task.get("precision", self.precision)
-        table = task.get("int8_table", self.int8_table)
-        key = (task["i_frame_model_path"],
-               None if task.get("force_intra") else task["video_model_path"],
-               precision, _table_key(table))
-        if key not in self.models:
-            intra = load_intra(task["i_frame_model_path"], self.device,
-                               precision, table)
-            video = (None if task.get("force_intra")
-                     else load_video(task["video_model_path"], self.device,
-                                     self.od_offset_cap, precision, table))
-            if task.get("write_stream"):
-                for model in (intra, video):
-                    if model is not None:
-                        model.update(force=True)
-            self.models[key] = (intra, video)
-        return self.models[key]
+        key = self._key(task)
+        with self._cache_lock:
+            if key not in self.models:
+                precision = task.get("precision", self.precision)
+                table = task.get("int8_table", self.int8_table)
+                intra = load_intra(task["i_frame_model_path"], self.device,
+                                   precision, table)
+                video = (None if task.get("force_intra")
+                         else load_video(task["video_model_path"],
+                                         self.device, self.od_offset_cap,
+                                         precision, table))
+                if task.get("write_stream"):
+                    for model in (intra, video):
+                        if model is not None:
+                            model.update(force=True)
+                self.models[key] = (intra, video)
+                self.locks[key] = threading.Lock()
+            return self.models[key]
 
     def run_one(self, task: dict):
         i_frame_net, video_net = self._models(task)
         sub_dir = task["video_path"]
+        model_dir = str(task.get("model_idx", 0))
         task = dict(task, gop_size=task["gop"], yuv_path_el=os.path.join(
             task["dataset_path"], sub_dir, "x1.yuv"),
             bin_folder=os.path.join(task.get("stream_path", "out_bin"),
-                                    sub_dir, str(task.get("model_idx", 0))))
+                                    sub_dir, model_dir))
+        for a in ARTIFACTS:  # `lssvc_tpu/parallel/scheduler.py:56-61`
+            task[f"{a}_folder"] = os.path.join(
+                task.get(f"{a}_path", f"{a}_folder"), sub_dir, model_dir)
         # per-stage decode seconds of both layers, streams only
         profiling = (task.get("decoding_profiling") and video_net is not None
                      and task.get("write_stream"))
-        if profiling:
-            for model in (video_net.base_layer_model, video_net):
-                model.profile_decoding = True
-                model.reset_decoding_profiling()
-        res_bl, res_el, res_fl = run_test(video_net, i_frame_net, task)
-        if profiling:
-            res_bl["decoding_profiling"] = \
-                video_net.base_layer_model.get_average_decoding_profiling()
-            res_el["decoding_profiling"] = \
-                video_net.get_average_decoding_profiling()
+        with self.locks[self._key(task)]:
+            if profiling:
+                for model in (video_net.base_layer_model, video_net):
+                    model.profile_decoding = True
+                    model.reset_decoding_profiling()
+            res_bl, res_el, res_fl = run_test(video_net, i_frame_net, task)
+            if profiling:
+                res_bl["decoding_profiling"] = video_net.base_layer_model \
+                    .get_average_decoding_profiling()
+                res_el["decoding_profiling"] = \
+                    video_net.get_average_decoding_profiling()
         name = (f"{os.path.basename(task.get('video_model_path', 'intra'))}"
                 f"_{sub_dir}")
         for res in (res_bl, res_el, res_fl):
@@ -162,10 +188,28 @@ class Runner:
             res["model_idx"] = task.get("model_idx", 0)
         return res_bl, res_el, res_fl
 
-    def run_tasks(self, tasks):
-        results = []
-        for i, task in enumerate(tasks):
-            print(f"[{i + 1}/{len(tasks)}] {task['ds_name']}/"
-                  f"{task['video_path']} {task['ratio']}")
-            results.append(self.run_one(task))
+    def run_tasks(self, tasks, worker_num: int = 1):
+        """Each task's (log_BL, log_EL, log_FL), in the tasks' order; with
+        `worker_num` > 1 on that many threads, tasks whose precisions need
+        one set of backend flags only (module docstring)."""
+        if worker_num <= 1:
+            results = []
+            for i, task in enumerate(tasks):
+                print(f"[{i + 1}/{len(tasks)}] {task['ds_name']}/"
+                      f"{task['video_path']} {task['ratio']}")
+                results.append(self.run_one(task))
+            return results
+        flags = {backend_flags(t.get("precision", self.precision))
+                 for t in tasks}
+        if len(flags) > 1:
+            raise ValueError(
+                f"{worker_num} workers: the tasks' precisions need different "
+                f"backend flags {sorted(flags)}, which are process-wide; run "
+                "them with one worker, or one precision a run")
+        with ThreadPoolExecutor(max_workers=worker_num) as pool:
+            futures = [pool.submit(self.run_one, t) for t in tasks]
+            results = []
+            for i, fut in enumerate(futures):
+                results.append(fut.result())
+                print(f"[{i + 1}/{len(tasks)}] done")
         return results

@@ -5,7 +5,9 @@ results, with estimated bits or, with `--write_stream 1`, real bitstreams.
     python -m lssvc_tpu_torch.test --test_config cfg.json \\
         --i_frame_model_path intra.pth --model_path video.pth \\
         --output_path out --ratios x2 [--device cpu] \\
-        [--write_stream 1 --stream_path bins [--decoding_profiling 1]]
+        [--write_stream 1 --stream_path bins [--decoding_profiling 1]] \\
+        [--worker 2] [--save_decoded_frame 1] [--save_decoded_mv 1] \\
+        [--save_warp_frame 1] [--save_decoded_context 1]
 
 Runs on `cuda` unless `--device` says otherwise, in `--precision` fp32
 (the parity mode; default), high (TF32 convs and matmuls on the card),
@@ -16,9 +18,14 @@ lssvc_tpu_torch.tools.int8_calibrate`).  Streams go to
 `<stream_path>/<sequence>/<model_idx>/<ratio>/{BL,EL}/<frame>.bin`, and
 `python -m lssvc_tpu_torch.decode` decodes them, in the same precision and
 with the same table.  OffsetDiversity's offset cap is
-`LSSVC_OD_OFFSET_CAP` px (10 unless set; 0 or empty: no cap).  Flags of
-paths that are not ported yet (latent RDO, PNG artifacts, more than one
-worker) raise.
+`LSSVC_OD_OFFSET_CAP` px (10 unless set; 0 or empty: no cap).
+
+`--worker N` runs the tasks on N threads on the one device
+(`parallel/scheduler.py`): tasks on one model take its lock in turn, tasks
+on different models (several `--model_path` entries) run at once.  The
+`--save_*` flags write PNGs under `<path>_<i_frame_model_name>_LSSVC/
+<sequence>/<model_idx>/<ratio>/` (`harness/runner.py`), as the JAX CLI
+does.  `--intra_rdo` (latent RDO) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import os
 import time
 
 from .harness.results import filter_dict
+from .harness.runner import ARTIFACTS
 from .ops.nn import od_offset_cap_from_env, precision_from_cli
 from .parallel.scheduler import Runner
 from .utils.platform import resolve_device
@@ -114,15 +122,8 @@ def parse_args(argv=None):
 
 def refuse_unported(args):
     """Raise on a flag whose path is not ported yet."""
-    unported = [flag for flag, on in (
-        ("--intra_rdo", args.intra_rdo),
-        ("--save_decoded_frame", args.save_decoded_frame),
-        ("--save_decoded_mv", args.save_decoded_mv),
-        ("--save_warp_frame", args.save_warp_frame),
-        ("--save_decoded_context", args.save_decoded_context),
-        (f"--worker {args.worker}", args.worker > 1)) if on]
-    if unported:
-        raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
+    if args.intra_rdo:
+        raise NotImplementedError("not ported yet: --intra_rdo")
 
 
 def build_tasks(args, config):
@@ -157,6 +158,11 @@ def build_tasks(args, config):
                         "dataset_path": config[ds_name]["base_path"],
                         "write_stream": args.write_stream,
                         "stream_path": args.stream_path,
+                        **{f"save_{a}": getattr(args, f"save_{a}")
+                           for a in ARTIFACTS},
+                        **{f"{a}_path": f"{getattr(args, f'{a}_path')}_"
+                                        f"{args.i_frame_model_name}_LSSVC"
+                           for a in ARTIFACTS},
                         "ds_name": ds_name,
                         "verbose": args.verbose,
                         "decoding_profiling": args.decoding_profiling,
@@ -218,7 +224,7 @@ def main(argv=None):
         config = json.load(f)
     tasks = build_tasks(args, config)
     results = Runner(device, od_offset_cap_from_env(), precision,
-                     int8_table).run_tasks(tasks)
+                     int8_table).run_tasks(tasks, args.worker)
     write_results(args, config, results)
 
     count_frames = sum({(t["ds_name"], t["video_path"]): t["frame_num"]

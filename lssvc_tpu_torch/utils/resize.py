@@ -18,7 +18,7 @@ import math
 import numpy as np
 import torch
 
-from ..ops.nn import fp32_matmul
+from ..ops.nn import matmul_highest
 
 
 def _cubic_contribution(x: np.ndarray, a: float = -0.5) -> np.ndarray:
@@ -101,9 +101,8 @@ def imresize(x: torch.Tensor, scale=None, sizes=None, kernel: str = "cubic",
         return x
 
     mh, mw_t = resize_matrices((h, w), (out_h, out_w), antialiasing, x.device)
-    with fp32_matmul():
-        # H axis: (outH, H) @ (..., H, W); then W axis: (..., outH, W) @ (W, outW)
-        y = torch.matmul(torch.matmul(mh, x.float()), mw_t)
+    # H axis: (outH, H) @ (..., H, W); then W axis: (..., outH, W) @ (W, outW)
+    y = matmul_highest(matmul_highest(mh, x.float()), mw_t)
     if x.dtype == torch.float32:
         return y
     if not x.dtype.is_floating_point:

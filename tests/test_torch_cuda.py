@@ -719,3 +719,35 @@ def test_int8_conv_rejects_what_the_kernel_does_not_take(dev):
         q8.int8_conv2d(x, w.cpu())
     with pytest.raises(ValueError):
         q8.int8_conv2d(x, w, stride=(1, 2))
+
+
+def test_matmuls_do_not_read_the_tf32_flags(dev):
+    """`matmul_f32out` (bf16 operands, f32 product) and `matmul_highest`
+    (full f32) give the same bits whatever the process-wide TF32 flag
+    (which another thread's scope may hold), and neither changes it."""
+    from lssvc_tpu_torch.ops.nn import (Mode, matmul_f32out,
+                                        matmul_highest, precision_scope)
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randn((2, 33, 40, 96), generator=gen, device=dev)
+    b = torch.randn((96, 48), generator=gen, device=dev)
+    matmul = torch.backends.cuda.matmul
+    was = matmul.allow_tf32
+    outs = {}
+    try:
+        for flag in (False, True):
+            matmul.allow_tf32 = flag
+            with precision_scope(Mode("bf16")):
+                matmul.allow_tf32 = flag  # as another thread's scope may
+                outs[flag] = (matmul_f32out(a, b), matmul_highest(a, b))
+                assert matmul.allow_tf32 == flag
+    finally:
+        matmul.allow_tf32 = was
+    for x, y in zip(outs[False], outs[True]):
+        assert x.dtype == torch.float32 and torch.equal(x, y)
+    exact = a.double() @ b.double()
+    bf = a.bfloat16().double() @ b.bfloat16().double()
+    assert float((outs[False][0].double() - bf).abs().max()) <= 1e-4 * float(
+        bf.abs().max())
+    assert float((outs[False][1].double() - exact).abs().max()) <= 1e-6 * float(
+        exact.abs().max())

@@ -173,7 +173,12 @@ def test_checkpoints_are_held_to_the_models_keys(tmp_path):
     ["--save_decoded_mv", "1"], ["--save_warp_frame", "1"],
     ["--save_decoded_context", "1"], ["--worker", "2"]])
 def test_cli_refuses_unported_flags(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    """`--intra_rdo` is refused; the artifact flags and `--worker` are
+    ported, so the run gets past the check and on to the (missing) test
+    config."""
+    refused = flags == ["--intra_rdo"]
+    with pytest.raises(NotImplementedError if refused else FileNotFoundError,
+                       match="not ported yet" if refused else "none.json"):
         cli.main(["--test_config", str(tmp_path / "none.json"),
                   "--i_frame_model_path", "a.pth", "--model_path", "b.pth",
                   "--output_path", str(tmp_path), "--device", "cpu"] + flags)

@@ -446,25 +446,33 @@ def test_scheduler_caches_models_per_precision(tmp_path, monkeypatch):
         assert i_net.base_layer_model.precision == prec
 
 
-def test_bench_twin_runs_on_the_cpu(monkeypatch, capsys):
-    """`python -m lssvc_tpu_torch.bench` at 128x128, one fp32 and one
-    bf16_packed chain of K=1 frames, prints the root bench's JSON keys.
-    The clock counts frames (half a second each), so the readings agree
-    whatever the load on the host."""
+def _counting_clock(monkeypatch):
+    """The bench's clock counts frames, fused and staged (half a second
+    each), so its readings agree whatever the load on the host."""
     frames = [0]
-    real = LSSVC.forward_one_frame
+    for name in ("forward_one_frame", "forward_one_frame_staged3"):
+        real = getattr(LSSVC, name)
 
-    def counted(self, *args):
-        frames[0] += 1
-        return real(self, *args)
+        def counted(self, *args, real=real):
+            frames[0] += 1
+            return real(self, *args)
+
+        monkeypatch.setattr(LSSVC, name, counted)
 
     class Clock:
         @staticmethod
         def perf_counter():
             return 0.5 * frames[0]
 
-    monkeypatch.setattr(LSSVC, "forward_one_frame", counted)
     monkeypatch.setattr(bench, "time", Clock)
+
+
+def test_bench_twin_runs_on_the_cpu(monkeypatch, capsys):
+    """`python -m lssvc_tpu_torch.bench` at 128x128, one fp32 and one
+    bf16_packed chain of K=1 frames, prints the root bench's JSON keys.
+    The clock counts frames (half a second each), so the readings agree
+    whatever the load on the host."""
+    _counting_clock(monkeypatch)
     for mode in ("fp32", "bf16_packed"):
         line = bench.main(["--mode", mode, "--device", "cpu", "--size",
                            "128x128", "--frames", "1"])
@@ -475,6 +483,53 @@ def test_bench_twin_runs_on_the_cpu(monkeypatch, capsys):
         assert line["s_per_frame"] == 0.5 and line["value"] == 2.0
         assert line["vs_baseline"] == pytest.approx(2.0 * (1.44 + 1.35))
         assert np.isfinite(line["bits"]) and line["bits"] > 0
-    for argv in (["--staged"], ["--tier-stats"]):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            bench.main(argv + ["--device", "cpu", "--size", "128x128"])
+    for argv in (["--staged"], ["--tier-stats"]):  # ported: they run
+        line = bench.main(argv + ["--device", "cpu", "--size", "128x128",
+                                  "--frames", "1"])
+        assert line["staged"] == (argv == ["--staged"])
+        assert line["s_per_frame"] == 0.5
+
+
+def test_bench_twin_defaults_to_bf16_packed(monkeypatch, capsys):
+    """No --mode: the root bench's default, `bf16_packed`
+    (`bench.py:355-357`); `bench_chain`'s own default stays `bf16`."""
+    _counting_clock(monkeypatch)
+    line = bench.main(["--device", "cpu", "--size", "128x128", "--frames",
+                       "1"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) \
+        == line
+    assert line["mode"] == "bf16_packed" and line["staged"] is False
+    assert bench.bench_chain.__defaults__[2] == "bf16"
+
+
+@pytest.mark.parametrize("argv", [["--staged", "--frames", "3"],
+                                  ["--batch", "2", "--frames", "3"]])
+def test_bench_twin_staged_caps_k(monkeypatch, argv):
+    """`--staged`, or `--batch` 2, takes the four-stage frame with K
+    capped at 2 (`bench.py:133-138`)."""
+    _counting_clock(monkeypatch)
+    line = bench.main(argv + ["--device", "cpu", "--size", "128x128",
+                              "--mode", "fp32"])
+    assert line["staged"] is True and line["frames"] == 2
+    assert line["batch"] == (2 if "--batch" in argv else 1)
+    assert line["fps"] == line["batch"] / 0.5
+    assert np.isfinite(line["bits"]) and line["bits"] > 0
+
+
+def test_bench_twin_tier_stats(monkeypatch, capsys):
+    _counting_clock(monkeypatch)
+    bench.main(["--tier-stats", "--device", "cpu", "--size", "128x128",
+                "--frames", "1", "--mode", "fp32"])
+    lines = [ln for ln in capsys.readouterr().err.splitlines()
+             if ln.startswith("# tier-stats")]
+    assert [ln.split(":")[0] for ln in lines] == [
+        f"# tier-stats frame {i}" for i in (1, 2, 3)]
+    assert all("-> EL warp tier: " in ln and "label" in ln for ln in lines)
+
+
+@pytest.mark.parametrize("mv, tier", [
+    ((2.0, 2.0), "tiny"), ((2.01, 0.0), "windowed"), ((0.0, 2.01), "windowed"),
+    ((62.0, 26.0), "windowed"), ((62.01, 0.0), "fallback"),
+    ((0.0, 26.01), "fallback")])
+def test_bench_warp_tier_label(mv, tier):
+    assert bench.warp_tier(*mv) == tier
