@@ -53,7 +53,8 @@ Phases (any failure exits non-zero; nothing is caught):
    0 just before and read just after; each variant through flow_warp /
    grouped_warp launches its kernel once and equals the plain version
    within check_equal's tolerance; then each kernel's plain version,
-   library call and bound at those shapes, and its time in bf16.
+   library call and bound at those shapes, and its time, bound and (for
+   flow_warp, F.grid_sample) library call in bf16.
 8. GOP path: the port's CLI, `lssvc_tpu_torch.test.main(argv)` called
    in-process with `--ratios x2` on its default device, codes a synthetic
    1080p sequence (1920x1080 8-bit 4:2:0, 6 frames of a smooth texture
@@ -166,6 +167,25 @@ Phases (any failure exits non-zero; nothing is caught):
    wall time), and every PNG the JAX package's layout names exists and
    parses.
 
+17. Evaluation side (no kernel of its own): (a) latent RDO at 1080p
+   through the CLI in process (`--force_intra 1 --intra_rdo
+   --write_stream 1`, the first frame of phase 8's sequence, IntraSS
+   with BL 192 from its checkpoint), with the iterations capped only to
+   bound this run (`max_iter` set in each task's `intra_rdo_opt`): fp32 at
+   one lambda, 3 iterations; bf16 at four lambdas (four rate points), 20
+   iterations each; prints per run the iterations, ms per iteration (host
+   clock between the iterations' loss syncs), the RD loss at the start
+   and the best, and each layer's bits and PSNR; the first run of each
+   precision decoded by `python -m lssvc_tpu_torch.decode` in a fresh
+   subprocess, its EL and BL YUV byte-equal to the encoder's pictures;
+   (b) Cheng2020Anchor at N=192 from the port's init: the forward with
+   estimated bits on the sequence's first frame (EL padded, 1152x1920) in
+   fp32 and bf16 (ms, bits), then `compress` / `decompress` (host
+   per-pixel loops) on its 256x256 corner: seconds of each, the decoder's
+   y_hat bit-equal to the encoder's, stream bits within the CPU test's
+   margin of the estimate; (c) `python -m lssvc_tpu_torch.compare_rd` (in
+   process) on (a)'s bf16 result JSON against itself: the BD-rate is 0.
+
 Then one JSON line {"kernels": [...]}: each kernel's launches counted on its
 path (the warps on the P-frame chain of phase 3, with their GOP path,
 stream path, warp-tier path, bf16 chain and bf16 stream counts beside
@@ -182,6 +202,7 @@ with the script's total seconds.  The last line is
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
@@ -197,15 +218,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lssvc_tpu_torch import bench, build
+from lssvc_tpu_torch import bench, build, compare_rd
 from lssvc_tpu_torch import test as cli
 from lssvc_tpu_torch.decode import yuv_frame
 from lssvc_tpu_torch.harness import runner, serving
 from lssvc_tpu_torch.harness.results import RESULT_KEYS
-from lssvc_tpu_torch.models import LSSVC, IntraSS, intra_ss_stream, \
-    lssvc_stream
+from lssvc_tpu_torch.models import LSSVC, Cheng2020Anchor, IntraSS, \
+    intra_ss_stream, lssvc_stream
 from lssvc_tpu_torch.models.dmc_stream import DMCExtend
-from lssvc_tpu_torch.models.init import init_intra_ss, init_lssvc
+from lssvc_tpu_torch.models.init import init_cheng2020, init_intra_ss, \
+    init_lssvc
 from lssvc_tpu_torch.models.lssvc_stream import LSSVCExtend
 from lssvc_tpu_torch.native import rans
 from lssvc_tpu_torch.ops import OD_OFFSET_CAP_SERVING
@@ -217,6 +239,8 @@ from lssvc_tpu_torch.parallel import scheduler
 from lssvc_tpu_torch.tools import (conv_paths, convchain_bench,
                                    int8_bench, int8_calibrate, streambench,
                                    synthetic, warp_bench, warp_tier_bench)
+from lssvc_tpu_torch.utils.io import YUVReader
+from lssvc_tpu_torch.utils.padding import get_interlayer_padding
 from lssvc_tpu_torch.utils.png import read_png
 from lssvc_tpu_torch.tools.profile_frame import iframe_flops
 from lssvc_tpu_torch.tools.timing import card, time_ms
@@ -812,6 +836,7 @@ def phase_warp_tiers(dev):
     # the same two kernels in bf16 at the bench's shapes
     x16 = x.to(torch.bfloat16)
     numbers["flow_warp"]["bf16_ms"] = time_ms(lambda: wk.flow_warp(x16, flow))
+    numbers["flow_warp"]["bf16_library_ms"] = grid_sample_ms(x16, flow)
     numbers["grouped_warp"]["bf16_ms"] = time_ms(
         lambda: wk.grouped_warp(x16, *units, gn))
     numbers["flow_warp"]["bf16_bound_ms"] = bound_ms(
@@ -2510,6 +2535,173 @@ def phase_serving(dev, d, cfg, intra, video, modes):
             staged_counts)
 
 
+# phase 17: the evaluation side.  RDO runs: (precision, iteration cap,
+# lambdas); the caps only bound this run (the CLI's default is 3000)
+EVAL_RDO = (("fp32", 3, (0.01,)), ("bf16", 20, (0.0018, 0.0035, 0.0067,
+                                                0.013)))
+CHENG_N, CHENG_STREAM_HW = 192, (256, 256)
+
+
+def rdo_run(dev, d, cfg, intra, video, precision, max_iter, lmbdas):
+    """(a) of phase 17 in one precision: the CLI in process on the first
+    frame of phase 8's sequence, all-intra, latent RDO with `max_iter`
+    set in each task, one checkpoint entry a lambda; then the first run's
+    bins decoded in a fresh subprocess.  Returns the bf16 FL JSON path."""
+    out, bins = d / f"out_rdo_{precision}", d / f"bins_rdo_{precision}"
+    tasks, pictures = [], {"x_hat_bl": [], "x_hat_el": []}
+    real_build, real_copy = cli.build_tasks, runner.HostCopy
+
+    def capped(args, config):
+        for t in real_build(args, config):
+            t["intra_rdo_opt"] = dict(t["intra_rdo_opt"], max_iter=max_iter,
+                                      trace=[])
+            tasks.append(t)
+        return tasks
+
+    def recording(tensors):
+        for k in pictures:
+            pictures[k].append(yuv_frame(tensors[k], (0, 0, 0, 0)))
+        return real_copy(tensors)
+
+    cli.build_tasks, runner.HostCopy = capped, recording
+    t0 = time.perf_counter()
+    try:
+        results = cli.main(
+            ["--test_config", str(cfg), "--i_frame_model_path",
+             *[str(intra)] * len(lmbdas), "--force_intra", "1",
+             "--force_frame_num", "1", "--intra_rdo", "--intra_lmbda",
+             *[str(v) for v in lmbdas], "--write_stream", "1",
+             "--stream_path", str(bins), "--output_path", str(out),
+             "--ratios", "x2", "--precision", precision])
+    finally:
+        cli.build_tasks, runner.HostCopy = real_build, real_copy
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    pixels = {"BL": GOP_HW[0] * GOP_HW[1] // 4, "EL": GOP_HW[0] * GOP_HW[1]}
+    for task, (res_bl, res_el, _) in zip(tasks, results):
+        trace = task["intra_rdo_opt"]["trace"]
+        losses, stamps = [t[0] for t in trace], [t[1] for t in trace]
+        if not (len(trace) == max_iter and all(map(math.isfinite, losses))):
+            raise AssertionError(f"RDO {precision}: {len(trace)} iterations "
+                                 f"(cap {max_iter}), losses {losses}")
+        folder = bins / "seq1" / str(task["model_idx"]) / "x2"
+        row = {"precision": precision,
+               "lmbda": task["intra_rdo_opt"]["lmbda"],
+               "max_iter_cap": max_iter, "iterations": len(trace),
+               "ms_per_iteration": (stamps[-1] - stamps[0]) * 1e3
+               / (len(stamps) - 1),
+               "rd_loss_start": losses[0], "rd_loss_best": min(losses)}
+        for layer, res in (("BL", res_bl), ("EL", res_el)):
+            bits = 8 * (folder / layer / "0.bin").stat().st_size
+            if abs(bits - res["ave_i_frame_bpp"] * pixels[layer]) > 1e-6 * bits:
+                raise AssertionError(f"RDO {precision} {layer}: JSON bits "
+                                     "differ from the bin's")
+            row[f"{layer}_bits"] = bits
+            row[f"{layer}_rgb_psnr"] = res["ave_i_frame_rgb_psnr"]
+            if not math.isfinite(res["ave_i_frame_rgb_psnr"]):
+                raise AssertionError(f"RDO {precision} {layer}: PSNR")
+        log("  " + json.dumps(row))
+    yuv = {layer: d / f"rdo_{precision}_{layer}.yuv" for layer in ("el", "bl")}
+    decode_s = _subprocess(
+        [sys.executable, "-m", "lssvc_tpu_torch.decode", "--bin_dir",
+         str(bins / "seq1" / "0" / "x2"), "--i_frame_model_path", str(intra),
+         "--model_path", str(video), "--height", str(GOP_HW[0]), "--width",
+         str(GOP_HW[1]), "--ratio", "x2", "--gop", "1", "--frame_num", "1",
+         "--precision", precision, "--yuv_out", str(yuv["el"]),
+         "--yuv_out_bl", str(yuv["bl"])], f"the {precision} RDO decode")
+    for layer, path in yuv.items():
+        if path.read_bytes() != pictures[f"x_hat_{layer}"][0]:
+            raise AssertionError(f"RDO {precision}: decoded {layer.upper()} "
+                                 "YUV differs from the encoder's picture")
+    log(f"  {precision}: CLI in process {run_s:.2f} s for {len(tasks)} "
+        f"I-frame(s); decode subprocess {decode_s:.2f} s, EL and BL YUV "
+        "byte-equal to the encoder's")
+    return out / "x2_FL.json"
+
+
+def stream_against_estimate(model, x, enc):
+    """Each latent's stream bits against its estimate, {"y", "z"} each:
+    z is coded with the EntropyBottleneck's own CDFs, so within 2% and 64
+    bits; y's coder rounds each scale up to the next table row (the
+    reference's +1 index bias), so with random weights it codes below the
+    estimate (0.835-0.874 of it on the CPU at N=32 and N=192): never over
+    1% and 64 bits above it, nor under 75% of it."""
+    lik = model.forward(x)["likelihoods"]
+    est = {k: float(-torch.log2(v.float()).sum()) for k, v in lik.items()}
+    real = {"y": 8 * len(enc["strings"][0][0]),
+            "z": 8 * len(enc["strings"][1][0])}
+    if not (abs(real["z"] - est["z"]) <= 0.02 * est["z"] + 64
+            and 0.75 * est["y"] <= real["y"] <= 1.01 * est["y"] + 64):
+        raise AssertionError(f"Cheng2020 stream bits {real}, estimated {est}")
+    return real, est
+
+
+def cheng_run(dev, cfg):
+    """(b) of phase 17: Cheng2020Anchor at N=192."""
+    params = init_cheng2020(torch.Generator().manual_seed(3), CHENG_N)
+    config = json.loads(Path(cfg).read_text())["synthetic"]
+    pad_info = get_interlayer_padding(H_HR=GOP_HW[0], W_HR=GOP_HW[1],
+                                      ratio=2.0)
+    reader = YUVReader(str(Path(config["base_path"]) / "seq1" / "x1.yuv"),
+                       GOP_HW[1], GOP_HW[0])
+    _, x, _ = runner.layer_inputs(*reader.read_one_frame(), pad_info, dev)
+    reader.close()
+    row = {"N": CHENG_N, "forward_hw": list(x.shape[1:3])}
+    for precision in ("bf16", "fp32"):  # fp32's model codes the stream
+        model = Cheng2020Anchor(params, device=dev, precision=precision)
+        bits = float(model.forward(x)["bit"])
+        if not math.isfinite(bits):
+            raise AssertionError(f"Cheng2020 {precision} bits {bits}")
+        row[f"forward_{precision}_bits"] = bits
+        row[f"forward_{precision}_ms"] = time_ms(lambda: model.forward(x),
+                                                 2, 1)
+    crop = x[:, :CHENG_STREAM_HW[0], :CHENG_STREAM_HW[1]].contiguous()
+    model.update(force=True)
+    t0 = time.perf_counter()
+    enc = model.compress(x=crop)
+    t1 = time.perf_counter()
+    dec = model.decompress(enc["strings"], enc["shape"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if not np.array_equal(dec["y_hat"].cpu().numpy(), enc["y_hat"]):
+        raise AssertionError("Cheng2020: decoded y_hat differs from the "
+                             "encoder's")
+    real, est = stream_against_estimate(model, crop, enc)
+    row.update({"stream_hw": list(CHENG_STREAM_HW),
+                "latent_pixels": int(enc["y_hat"].shape[1]
+                                     * enc["y_hat"].shape[2]),
+                "encode_s": t1 - t0, "decode_s": t2 - t1,
+                "stream_bits": real, "estimated_bits": est,
+                "y_hat_bit_equal": True})
+    log("  " + json.dumps(row))
+
+
+def phase_evaluation(dev, d, cfg, intra, video):
+    """Phase 17: latent RDO, Cheng2020Anchor and the RD comparison."""
+    log("# evaluation side: --intra_rdo at 1080p (iterations capped for "
+        "this run only), Cheng2020Anchor at N=192, compare_rd")
+    t0 = time.perf_counter()
+    fl = {p: rdo_run(dev, d, cfg, intra, video, p, cap, lmbdas)
+          for p, cap, lmbdas in EVAL_RDO}
+    cheng_run(dev, cfg)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        status = compare_rd.main(["--results", f"A={fl['bf16']}",
+                                  f"B={fl['bf16']}"])
+    rows = [ln.split() for ln in buf.getvalue().splitlines() if "| mean" in ln]
+    if status != 0 or rows != [["B", "synthetic:", "+0.0", "|", "mean",
+                                "+0.0"]]:
+        raise AssertionError(f"compare_rd against itself: {buf.getvalue()}")
+    points = compare_rd.weighted_class_points(
+        compare_rd.load_results(fl["bf16"]))["synthetic"]
+    ra, pa = zip(*points)
+    if len(points) != 4 or abs(compare_rd.bd_rate(ra, pa, ra, pa)) > 1e-9:
+        raise AssertionError(f"BD-rate of {points} against itself")
+    log(f"  compare_rd on the bf16 FL results against themselves: BD-rate "
+        f"+0.0; the rate points {json.dumps(points)}")
+    log(f"  phase 17: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2533,6 +2725,7 @@ def main():
         bf16_stream = phase_bf16_stream(dev, d, *gop)
         int8_entry = phase_int8(dev, d, *gop, modes)
         pipelined, staged = phase_serving(dev, d, *gop, modes)
+        phase_evaluation(dev, d, *gop)
     n_p = GOP_FRAMES - -(-GOP_FRAMES // GOP)
     for k in kernels:
         k["launches"] = launches[k["name"]]

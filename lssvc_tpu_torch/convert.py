@@ -34,16 +34,19 @@ DMC_TRANSPOSED_KEYS = frozenset(
 # enhancement-layer decoders are sub-pixel convs, not transposed convs.
 LSSVC_TRANSPOSED_KEYS = frozenset(
     "base_layer_model." + k for k in DMC_TRANSPOSED_KEYS)
-# The transposed-conv keys of each model.  The I-frame models have none
-# (IntraSS's `base_layer_model.` is an IntraNoAR).
+# The transposed-conv keys of each model.  The image models have none
+# (IntraSS's `base_layer_model.` is an IntraNoAR; Cheng2020Anchor is
+# IntraNoAR's keys plus `context_prediction` and `entropy_parameters.{0,2,4}`,
+# all regular convs).
 TRANSPOSED_KEYS = {"dmc": DMC_TRANSPOSED_KEYS, "lssvc": LSSVC_TRANSPOSED_KEYS,
-                   "intra_noar": frozenset(), "intra_ss": frozenset()}
+                   "intra_noar": frozenset(), "intra_ss": frozenset(),
+                   "cheng2020": frozenset()}
 
 
 def params_from_jax(np_params: dict, model: str) -> dict[str, torch.Tensor]:
     """JAX-layout parameters (numpy arrays) of `model` (a key of
-    TRANSPOSED_KEYS: "dmc", "lssvc", "intra_noar", "intra_ss") ->
-    torch-layout CPU tensors."""
+    TRANSPOSED_KEYS: "dmc", "lssvc", "intra_noar", "intra_ss",
+    "cheng2020") -> torch-layout CPU tensors."""
     transposed = TRANSPOSED_KEYS[model]
     out = {}
     for key, val in np_params.items():

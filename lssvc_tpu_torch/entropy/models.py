@@ -16,8 +16,12 @@ The real-bitstream path maps each predicted scale to a row of a CDF table
 built in `entropy/coder.py`).
 
 Bits use the reference's clamp conventions (probs + 1e-5, bits clipped to
-[0, 50] per element).  Activations are NHWC; Bitparm parameters are held in
-the torch layout (1, C, 1, 1) and viewed as (1, 1, 1, C) here.
+[0, 50] per element).  The image side's lower bounds are `torch.maximum`,
+as the JAX package's `jnp.maximum`: at a tie each side takes half the
+gradient (`torch.clamp` would give the input all of it), which latent RDO
+(`models/rdo.py`) differentiates.  Activations are NHWC; Bitparm
+parameters are held in the torch layout (1, C, 1, 1) and viewed as
+(1, 1, 1, C) here.
 """
 
 from __future__ import annotations
@@ -89,13 +93,14 @@ def gaussian_conditional_likelihood(inputs, scales, means=None,
                                     likelihood_bound: float = 1e-9):
     """P(round(x) | N(means, scales^2)) by half-interval integration."""
     values = inputs - means if means is not None else inputs
-    scales = torch.clamp(scales, min=scale_bound)
+    scales = torch.maximum(scales, scales.new_tensor(scale_bound))
     values = torch.abs(values)
     upper = _std_cumulative((0.5 - values) / scales)
     lower = _std_cumulative((-0.5 - values) / scales)
     likelihood = upper - lower
     if likelihood_bound > 0:
-        likelihood = torch.clamp(likelihood, min=likelihood_bound)
+        likelihood = torch.maximum(likelihood,
+                                   likelihood.new_tensor(likelihood_bound))
     return likelihood
 
 
@@ -131,9 +136,15 @@ def entropy_bottleneck_forward(p, x, filters=(3, 3, 3, 3),
     likelihood = torch.abs(torch.sigmoid(sign * upper)
                            - torch.sigmoid(sign * lower))
     if likelihood_bound > 0:
-        likelihood = torch.clamp(likelihood, min=likelihood_bound)
+        likelihood = torch.maximum(likelihood,
+                                   likelihood.new_tensor(likelihood_bound))
 
-    x_hat = outputs.reshape(c, n, h, w).permute(1, 2, 3, 0).contiguous()
+    # canonical NHWC strides even where a dimension is 1 (`.contiguous()`
+    # would keep the permuted ones): a conv's algorithm, and so its last
+    # bits, can follow its input's strides, and the stream decoder's z_hat
+    # (`IntraCoder.eb_decompress`) has these
+    x_hat = outputs.reshape(c, n, h, w).permute(1, 2, 3, 0) \
+        .clone(memory_format=torch.contiguous_format)
     like = likelihood.reshape(c, n, h, w).permute(1, 2, 3, 0)
     return x_hat, like
 

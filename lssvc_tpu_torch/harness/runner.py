@@ -49,9 +49,6 @@ from ..utils.resize import imresize
 from .results import FrameMetrics, aggregate_layer_log
 
 RATIO_FACTORS = {"x1": 1.0, "x1_5": 1.5, "x2": 2.0, "x3": 3.0, "x4": 4.0}
-# task keys of paths that are not ported yet (latent RDO); run_test raises
-# when one is set
-UNPORTED_TASK_KEYS = ("intra_rdo",)
 # the artifacts: the task's "save_<a>" turns one on, "<a>_folder" is where
 # it goes (the CLI's --save_<a> and --<a>_path)
 ARTIFACTS = ("decoded_frame", "decoded_mv", "warp_frame", "decoded_context")
@@ -143,10 +140,9 @@ def run_test(video_net, i_frame_net, args_dict):
     dicts in the reference's schema.  The models run on their own device
     (`i_frame_net.device`); `video_net` is None for an all-intra run.  With
     `write_stream`, the models are `IntraSS` and `LSSVCExtend` with their
-    tables built (`update`), and `bin_folder` names where the bins go."""
-    unported = [k for k in UNPORTED_TASK_KEYS if args_dict.get(k)]
-    if unported:
-        raise NotImplementedError(f"not ported yet: {unported}")
+    tables built (`update`), and `bin_folder` names where the bins go.
+    With `intra_rdo`, every I-frame codes its BL from latents refined by
+    latent RDO with the options `intra_rdo_opt` (`models/rdo.py`)."""
     device = i_frame_net.device
     frame_num = args_dict["frame_num"]
     gop_size = args_dict["gop_size"]
@@ -211,12 +207,14 @@ def run_test(video_net, i_frame_net, args_dict):
             bin_bl, bin_el = (os.path.join(bin_dirs[layer], f"{frame_idx}.bin")
                               for layer in ("BL", "EL"))
         if frame_idx % gop_size == 0:
+            rdo = {"rdo": bool(args_dict.get("intra_rdo")),
+                   "rdo_opt": args_dict.get("intra_rdo_opt")}
             if write_stream:
                 result = i_frame_net.encode_decode(
                     x_bl_padded, x_el_padded, bin_bl, bin_el,
-                    hb_pad, wb_pad, he_pad, we_pad)
+                    hb_pad, wb_pad, he_pad, we_pad, **rdo)
             else:
-                result = i_frame_net.forward(x_bl_padded, x_el_padded)
+                result = i_frame_net.forward(x_bl_padded, x_el_padded, **rdo)
             dpb = {
                 "ref_frame_bl": result["x_hat_bl"],
                 "ref_frame_el": result["x_hat_el"],

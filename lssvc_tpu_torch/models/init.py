@@ -1,5 +1,5 @@
 """From-scratch parameters for the P-frame codecs (DMC, LSSVC) and the
-I-frame codecs (IntraNoAR, IntraSS).
+image codecs (IntraNoAR, IntraSS, Cheng2020Anchor).
 
 The same shapes and distributions as the JAX package's `models/init.py`
 (`init_dmc`, `init_lssvc`, `init_intra_noar`, `init_intra_ss`): unit-gain
@@ -451,6 +451,21 @@ def init_intra_noar(generator: torch.Generator, N: int = 192,
 
     b.entropy_bottleneck("entropy_bottleneck", N)
     return {prefix + k: v for k, v in b.d.items()}
+
+
+def init_cheng2020(generator: torch.Generator, N: int = 192) -> dict:
+    """Cheng2020Anchor (`priors.py:455-510`): IntraNoAR's keys, the 5x5
+    context conv N -> 2N and the 1x1 entropy-parameter stack 4N -> 10N/3 ->
+    8N/3 -> 2N (integer thirds, the reference's `N * 10 // 3`).  The JAX
+    package has no init of its own for it."""
+    params = init_intra_noar(generator, N)
+    b = ParamSet(generator)
+    b.conv("context_prediction", N, 2 * N, 5)
+    chans = (N * 12 // 3, N * 10 // 3, N * 8 // 3, N * 6 // 3)
+    for i in range(3):
+        b.conv(f"entropy_parameters.{2 * i}", chans[i], chans[i + 1], 1)
+    params.update(b.d)
+    return params
 
 
 # ---------------------------------------------------------------------------

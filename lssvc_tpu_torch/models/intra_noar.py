@@ -1,6 +1,8 @@
 """IntraNoAR — the hyperprior intra codec of the base layer (the JAX
 package's `models/intra_noar.py`): estimated bits (`forward`) and real
-bitstreams (`update` / `compress` / `decompress` / `encode_decode`).
+bitstreams (`update` / `compress` / `decompress` / `encode_decode`), each
+optionally from latents refined by latent RDO (`encode_decode(rdo=True)`,
+`models/rdo.py`).
 
 A Cheng-style residual-block hyperprior autoencoder at N=192, with a
 factorized EntropyBottleneck on z and a Gaussian conditional on y
@@ -124,6 +126,16 @@ def forward(params, x):
     }
 
 
+def recon_from_yz(params, y, z):
+    """The estimated path from given latents (refined ones under RDO; from
+    the analysis latents it is `forward`): x_hat, y_hat and the estimated
+    bits."""
+    y_hat, _, y_lik, z_lik, _, _ = hyper_synthesis_quantize(params, y, z)
+    x_hat = g_s(P(params).sub("g_s"), y_hat)
+    bits = (torch.sum(torch.log(y_lik)) + torch.sum(torch.log(z_lik))) / (-LOG2)
+    return {"x_hat": x_hat, "y_hat": y_hat, "bit": bits}
+
+
 def y_roundtrip(y, means):
     """The decoder's y_hat: round(y - means) as int32, plus means, in f32
     (what `IntraCoder.gc_decompress` rebuilds)."""
@@ -199,10 +211,27 @@ class IntraNoAR(Model):
         return {"x_hat": g_s(P(params).sub("g_s"), y_hat), "y_hat": y_hat}
 
     @scoped
-    def encode_decode(self, x, output_path, pic_width, pic_height):
-        """Write x's stream to `output_path`, then decode the file: the
-        decoded x_hat and y_hat, and the file's bits."""
-        compressed = self.compress(x)
+    def refined_y_z(self, x, rdo_opt=None):
+        """x's analysis latents refined by latent RDO against x
+        (`models/rdo.py` `global_rdo`, options `rdo_opt`)."""
+        from .rdo import global_rdo  # rdo.py imports this module
+
+        y, z = analysis(self.flat_params(), x)
+        return global_rdo(self.flat_params(), y, z, x, rdo_opt)
+
+    @scoped
+    def encode_decode(self, x, output_path=None, pic_width=None,
+                      pic_height=None, rdo=False, rdo_opt=None):
+        """Code x, from latents refined by latent RDO with `rdo`.  Without
+        `output_path`: the estimated bits, x_hat and y_hat.  With it:
+        write x's stream there, then decode the file: the decoded x_hat and
+        y_hat, and the file's bits."""
+        y, z = self.refined_y_z(x, rdo_opt) if rdo else self.get_y_z(x)
+        if output_path is None:
+            out = recon_from_yz(self.flat_params(), y, z)
+            return {"bit": float(out["bit"]), "x_hat": out["x_hat"],
+                    "y_hat": out["y_hat"]}
+        compressed = self.compress(y=y, z=z)
         encode_i(pic_height, pic_width, compressed["strings"][0][0],
                  compressed["strings"][1][0], output_path)
         height, width, y_string, z_string = decode_i(output_path)

@@ -7,8 +7,10 @@ and the enhancement layer codes the high-resolution frame conditioned on
       hyperprior (reference `IntraSS.py:74-336`).
 
 Estimated bits here (`forward`); real bitstreams in `intra_ss_stream.py`
-(`update`, `encode_decode`).  Plain PyTorch: the JAX package runs it as
-XLA and reaches no Pallas kernel.
+(`update`, `encode_decode`).  Under latent RDO (`rdo=True`,
+`models/rdo.py`) both code the BL from its analysis latents refined
+against the BL's RD loss (reference `priors.py:315-331,573-576`).  Plain
+PyTorch: the JAX package runs it as XLA and reaches no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -149,6 +151,16 @@ def forward(params, bl_params, x_bl, x_el, shape_hr, pad_size):
                        shape_hr, pad_size)
 
 
+def forward_from_bl_latents(params, bl_params, x_el, y_bl, z_bl, shape_hr,
+                            pad_size):
+    """Two-layer forward with estimated bits from given BL latents (the
+    RDO path: `models/rdo.py` refines them, then both layers code from
+    them)."""
+    bl = intra_noar.recon_from_yz(bl_params, y_bl, z_bl)
+    return _el_forward(params, x_el, bl["x_hat"], bl["y_hat"], bl["bit"],
+                       shape_hr, pad_size)
+
+
 class IntraSS(Model):
     """Two-layer I-frame codec on `device` (default "cuda"; raises without
     CUDA unless "cpu" is asked for).  The `base_layer_model.` keys form
@@ -186,10 +198,14 @@ class IntraSS(Model):
                 if not k.startswith(BL_PREFIX)}
 
     @scoped
-    def forward(self, x_bl, x_el, rdo=False):
+    def forward(self, x_bl, x_el, rdo=False, rdo_opt=None):
+        """Both layers with estimated bits; with `rdo`, the BL from its
+        latents refined by latent RDO (options `rdo_opt`)."""
         if rdo:
-            raise NotImplementedError(
-                "latent RDO on the base layer (models/rdo.py) is not ported")
+            y, z = self.base_layer_model.refined_y_z(x_bl, rdo_opt)
+            return forward_from_bl_latents(
+                self.el_params(), self.base_layer_model.flat_params(), x_el,
+                y, z, self.shape_hr, self.pad_size)
         return forward(self.el_params(), self.base_layer_model.flat_params(),
                        x_bl, x_el, self.shape_hr, self.pad_size)
 
@@ -200,15 +216,24 @@ class IntraSS(Model):
             self.base_layer_model.update(force=force)
 
     @scoped
-    def encode_decode(self, x_bl, x_el, bin_path_bl, bin_path_el,
-                      pic_height_bl, pic_width_bl, pic_height_el,
-                      pic_width_el):
-        """Write the BL and EL streams, then decode both files: bits from
-        the file sizes, and the decoded pictures."""
+    def encode_decode(self, x_bl, x_el, bin_path_bl=None, bin_path_el=None,
+                      pic_height_bl=None, pic_width_bl=None,
+                      pic_height_el=None, pic_width_el=None, rdo=False,
+                      rdo_opt=None):
+        """Without bin paths: `forward`'s estimated bits (as floats) and
+        pictures.  With them: write the BL and EL streams, then decode both
+        files: bits from the file sizes, and the decoded pictures.  `rdo`
+        refines the BL latents first (options `rdo_opt`)."""
+        if bin_path_bl is None:
+            out = self.forward(x_bl, x_el, rdo=rdo, rdo_opt=rdo_opt)
+            return {"bit_bl": float(out["bit_bl"]),
+                    "bit_el": float(out["bit_el"]),
+                    "x_hat_bl": out["x_hat_bl"], "x_hat_el": out["x_hat_el"],
+                    "feature_el": out["feature_el"]}
         from .intra_ss_stream import compress_stream, decompress_stream
 
         enc = compress_stream(self, x_bl, x_el, bin_path_bl, bin_path_el,
                               pic_height_bl, pic_width_bl, pic_height_el,
-                              pic_width_el)
+                              pic_width_el, rdo=rdo, rdo_opt=rdo_opt)
         dec = decompress_stream(self, bin_path_bl, bin_path_el)
         return dict(dec, bit_bl=enc["bit_bl"], bit_el=enc["bit_el"])

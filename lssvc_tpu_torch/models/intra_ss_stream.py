@@ -7,7 +7,9 @@ The encoder is closed-loop throughout: the BL reconstruction and latent
 come from `IntraNoAR.compress(with_recon=True)`, the EL's contexts and
 prior planes from the decoder's own `context_mining` / `el_prior_planes`,
 and the EL y_hat from `intra_noar.y_roundtrip`, so it returns the
-decoder's pictures with no rANS decode.
+decoder's pictures with no rANS decode.  Under latent RDO the encoder
+refines the BL latents (`models/rdo.py`) before it codes them; the
+decoder does not change.
 """
 
 from __future__ import annotations
@@ -34,25 +36,29 @@ def el_prior_planes(params, z_hat, y_hat_bl, ctx3, shape_hr):
 
 
 def compress_stream(model, x_bl, x_el, bin_path_bl, bin_path_el,
-                    pic_height_bl, pic_width_bl, pic_height_el, pic_width_el):
+                    pic_height_bl, pic_width_bl, pic_height_el, pic_width_el,
+                    rdo=False, rdo_opt=None):
     """Writes both .bin files; returns their bits and the decoder's
-    reconstructions (closed loop, see the module docstring).  Runs in the
+    reconstructions (closed loop, see the module docstring).  `rdo`
+    refines the BL latents first (options `rdo_opt`).  Runs in the
     model's mode."""
     with torch.no_grad(), model.scope():
         return _compress_stream(model, x_bl, x_el, bin_path_bl, bin_path_el,
                                 pic_height_bl, pic_width_bl, pic_height_el,
-                                pic_width_el)
+                                pic_width_el, rdo, rdo_opt)
 
 
 def _compress_stream(model, x_bl, x_el, bin_path_bl, bin_path_el,
                      pic_height_bl, pic_width_bl, pic_height_el,
-                     pic_width_el):
+                     pic_width_el, rdo, rdo_opt):
     model.update()
     bl = model.base_layer_model
     params = model.el_params()
     shape_hr = model.shape_hr
 
-    compressed = bl.compress(x_bl, with_recon=True)
+    y_bl, z_bl = (bl.refined_y_z(x_bl, rdo_opt) if rdo
+                  else bl.get_y_z(x_bl))
+    compressed = bl.compress(y=y_bl, z=z_bl, with_recon=True)
     encode_i(pic_height_bl, pic_width_bl, compressed["strings"][0][0],
              compressed["strings"][1][0], bin_path_bl)
     x_hat_bl, y_hat_bl = _depad(model, compressed["x_hat"],

@@ -6,6 +6,7 @@ results, with estimated bits or, with `--write_stream 1`, real bitstreams.
         --i_frame_model_path intra.pth --model_path video.pth \\
         --output_path out --ratios x2 [--device cpu] \\
         [--write_stream 1 --stream_path bins [--decoding_profiling 1]] \\
+        [--intra_rdo [--intra_lmbda 0.01 ...]] \\
         [--worker 2] [--save_decoded_frame 1] [--save_decoded_mv 1] \\
         [--save_warp_frame 1] [--save_decoded_context 1]
 
@@ -25,7 +26,10 @@ with the same table.  OffsetDiversity's offset cap is
 on different models (several `--model_path` entries) run at once.  The
 `--save_*` flags write PNGs under `<path>_<i_frame_model_name>_LSSVC/
 <sequence>/<model_idx>/<ratio>/` (`harness/runner.py`), as the JAX CLI
-does.  `--intra_rdo` (latent RDO) is not ported yet and raises.
+does.  `--intra_rdo` codes each I-frame's BL from latents refined by
+latent RDO (`models/rdo.py`): lambda from `--intra_lmbda` (one per
+checkpoint; 0.01 without it), `--intra_rdo_iter_to_exit` and
+`--intra_rdo_iter_to_reduce`, at most 3000 iterations a frame.
 """
 
 from __future__ import annotations
@@ -120,12 +124,6 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def refuse_unported(args):
-    """Raise on a flag whose path is not ported yet."""
-    if args.intra_rdo:
-        raise NotImplementedError("not ported yet: --intra_rdo")
-
-
 def build_tasks(args, config):
     """One task per (dataset, ratio, sequence, model), as the JAX CLI
     builds them."""
@@ -147,6 +145,15 @@ def build_tasks(args, config):
                         "video_model_path": args.model_path[model_idx],
                         "video_model_name": args.model_name,
                         "force_intra": args.force_intra,
+                        # latent RDO on the I-frames' BL: lmbda from the
+                        # per-checkpoint --intra_lmbda list
+                        "intra_rdo": args.intra_rdo,
+                        "intra_rdo_opt": ({
+                            "lmbda": (args.intra_lmbda[model_idx]
+                                      if args.intra_lmbda else 0.01),
+                            "iter_to_exit": args.intra_rdo_iter_to_exit,
+                            "iter_to_reduce": args.intra_rdo_iter_to_reduce,
+                        } if args.intra_rdo else None),
                         "video_path": seq_name,
                         "gop": (1 if args.force_intra
                                 else (args.force_intra_period
@@ -208,7 +215,6 @@ def main(argv=None):
     args = parse_args(argv)
     precision, int8_table = precision_from_cli(args.precision,
                                                args.int8_calib)
-    refuse_unported(args)
     device = resolve_device(args.device)
     if args.force_intra:
         args.model_path = args.i_frame_model_path

@@ -751,3 +751,51 @@ def test_matmuls_do_not_read_the_tf32_flags(dev):
         bf.abs().max())
     assert float((outs[False][1].double() - exact).abs().max()) <= 1e-6 * float(
         exact.abs().max())
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_rdo_stream_on_the_card(dev, tmp_path, precision):
+    """Latent RDO on the card (IntraNoAR N=192, 64x64, 4 iterations): the
+    loss never rises above its start; the refined latents' closed loop
+    holds (the encoder's pictures are the decoder's, bit for bit); in
+    fp32 the bins also decode to the estimated path's reconstruction (in
+    bf16 the estimated path rounds y - means in bf16 and the coder in
+    f32, as in the JAX package, so the two differ)."""
+    from lssvc_tpu_torch.models import IntraNoAR
+    from lssvc_tpu_torch.models.init import init_intra_noar
+
+    model = IntraNoAR(init_intra_noar(torch.Generator().manual_seed(0), 192),
+                      device=dev, precision=precision)
+    model.update()
+    x = _uniform((1, 64, 64, 3), 4, 0, 1, dev)
+    trace = []
+    y, z = model.refined_y_z(x, {"max_iter": 4, "trace": trace})
+    assert len(trace) == 4 and min(t[0] for t in trace) <= trace[0][0]
+    enc = model.compress(y=y, z=z, with_recon=True)
+    dec = model.decompress(enc["strings"], enc["shape"])
+    for k in ("x_hat", "y_hat"):
+        _equal(enc[k], dec[k], f"RDO {precision} closed loop {k}")
+    if precision == "fp32":
+        est = model.encode_decode(x, rdo=True, rdo_opt={"max_iter": 4})
+        res = model.encode_decode(x, tmp_path / "rdo.bin", 64, 64, rdo=True,
+                                  rdo_opt={"max_iter": 4})
+        for k in ("x_hat", "y_hat"):
+            _equal(res[k], est[k], f"RDO estimated path {k}")
+            _equal(res[k], dec[k], f"RDO decode {k}")
+
+
+def test_cheng2020_stream_round_trips_on_the_card(dev):
+    """Cheng2020Anchor (N=192) on the card: the decoder's y_hat equals the
+    encoder's, and the decoded picture is the forward's g_s of it."""
+    from lssvc_tpu_torch.models import Cheng2020Anchor
+    from lssvc_tpu_torch.models.init import init_cheng2020
+
+    model = Cheng2020Anchor(init_cheng2020(torch.Generator().manual_seed(3),
+                                           192), device=dev)
+    model.update()
+    x = _uniform((1, 64, 64, 3), 5, 0, 1, dev)
+    enc = model.compress(x=x)
+    dec = model.decompress(enc["strings"], enc["shape"])
+    assert np.array_equal(dec["y_hat"].cpu().numpy(), enc["y_hat"])
+    assert dec["x_hat"].shape == (1, 64, 64, 3)
+    assert bool(torch.isfinite(model.forward(x)["bit"]))

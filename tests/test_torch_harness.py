@@ -10,7 +10,7 @@ dB, MS-SSIM within 5e-3 or NaN on both sides; equal frame types and key
 sets.  Then the CLI (`python -m lssvc_tpu_torch.test`) on the CPU from
 `.pth` checkpoints of the port's own init, with estimated bits and with
 real bitstreams decoded again by `python -m lssvc_tpu_torch.decode` in a
-fresh process, and the flags it refuses.
+fresh process, and the flags and task keys it used to refuse.
 """
 
 import json
@@ -173,12 +173,10 @@ def test_checkpoints_are_held_to_the_models_keys(tmp_path):
     ["--save_decoded_mv", "1"], ["--save_warp_frame", "1"],
     ["--save_decoded_context", "1"], ["--worker", "2"]])
 def test_cli_refuses_unported_flags(tmp_path, flags):
-    """`--intra_rdo` is refused; the artifact flags and `--worker` are
-    ported, so the run gets past the check and on to the (missing) test
-    config."""
-    refused = flags == ["--intra_rdo"]
-    with pytest.raises(NotImplementedError if refused else FileNotFoundError,
-                       match="not ported yet" if refused else "none.json"):
+    """The CLI refuses none of the JAX CLI's flags any more: `--intra_rdo`
+    (latent RDO), the artifact flags and `--worker` are ported, so the run
+    gets past parsing and on to the (missing) test config."""
+    with pytest.raises(FileNotFoundError, match="none.json"):
         cli.main(["--test_config", str(tmp_path / "none.json"),
                   "--i_frame_model_path", "a.pth", "--model_path", "b.pth",
                   "--output_path", str(tmp_path), "--device", "cpu"] + flags)
@@ -197,11 +195,26 @@ def test_cli_runs_on_cuda_unless_asked_for_cpu(tmp_path, monkeypatch):
 
 
 def test_run_test_refuses_unported_task_keys(tmp_path):
+    """No task key is refused any more: `intra_rdo` runs latent RDO on the
+    I-frame's BL with `intra_rdo_opt` (its trace shows the iterations and a
+    lower loss), and the I-frame codes other bits than without it."""
     model = IntraSS(init_intra_ss(torch.Generator().manual_seed(0), 32),
                     device="cpu")
-    for key in trunner.UNPORTED_TASK_KEYS:
-        with pytest.raises(NotImplementedError, match=key):
-            trunner.run_test(None, model, {key: True, "frame_num": 1})
+    yuv = tmp_path / "seq.yuv"
+    write_sequence(yuv, 128, 128, 1, seed=4)
+    task = {"frame_num": 1, "gop_size": 1, "ratio": "x2",
+            "yuv_path_el": str(yuv), "x1": {"height": 128, "width": 128}}
+    trace = []
+    rdo_bl, _, _ = trunner.run_test(None, model, dict(
+        task, intra_rdo=True, intra_rdo_opt={
+            "lmbda": 0.01, "max_iter": 4, "iter_to_exit": 60,
+            "iter_to_reduce": 20, "trace": trace}))
+    base_bl, _, _ = trunner.run_test(None, model, task)
+    assert len(trace) == 4
+    assert min(t[0] for t in trace) < trace[0][0]
+    for res in (rdo_bl, base_bl):
+        assert math.isfinite(res["ave_i_frame_bpp"])
+    assert rdo_bl["ave_i_frame_bpp"] != base_bl["ave_i_frame_bpp"]
 
 
 def test_cli_writes_streams_that_a_fresh_decoder_rebuilds(tmp_path,

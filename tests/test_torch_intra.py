@@ -178,9 +178,20 @@ def test_intra_ss_forward_matches_jax(ss_params, rng, bl_hw, pad):
     for k in ("x_hat_bl", "x_hat_el", "y_hat_el", "feature_el"):
         assert_rel_rms(out[k].numpy(), np.asarray(ref[k]))
     assert out["feature_el"].shape == (1, 128, 128, 64)
-    with pytest.raises(NotImplementedError, match="RDO"):
-        model.forward(torch.from_numpy(x_bl), torch.from_numpy(x_el),
-                      rdo=True)
+    # latent RDO on the BL (`rdo=True`): a few iterations leave the BL's
+    # RD cost (the loss they minimise) no worse
+    rdo = model.forward(torch.from_numpy(x_bl), torch.from_numpy(x_el),
+                        rdo=True, rdo_opt={"max_iter": 3})
+
+    def bl_cost(o):
+        mse = float(torch.mean(torch.square(o["x_hat_bl"] - torch.from_numpy(
+            x_bl))))
+        return 0.01 * 255.0 ** 2 * mse + float(o["bit_bl"]) / (
+            x_bl.shape[1] * x_bl.shape[2])
+
+    assert np.isfinite(float(rdo["bit_el"]))
+    assert rdo["x_hat_el"].shape == out["x_hat_el"].shape
+    assert bl_cost(rdo) <= bl_cost(out) * (1 + 1e-6)
 
 
 def test_bridged_init_loads_strict(ss_params):
