@@ -186,13 +186,43 @@ Phases (any failure exits non-zero; nothing is caught):
    margin of the estimate; (c) `python -m lssvc_tpu_torch.compare_rd` (in
    process) on (a)'s bf16 result JSON against itself: the BD-rate is 0.
 
+18. Training: (a) both backward kernels (`flow_warp_backward`, its pair
+   form, and `grouped_warp_backward`, lssvc_tpu_torch/csrc/warp_grad.cu)
+   against autograd through the plain warps on the card, f32 and bf16, at
+   every backward launch shape of a `pair` train step at crop 256, at the
+   1080p P-frame's warp shapes (phase 3's launches) and at edge cases:
+   zero flows and integer flows on the borders (the clip's ties), flows
+   far past the borders, NaN flows, batch 2, unaligned widths; f32 max
+   |err| <= 1e-5 max|ref|, bf16 relative RMS <= 1e-2, the flow and mask
+   gradients bit-equal across two launches; (b) one fp32 `pair` step and
+   one `cascade` chain of T=3 with no warm step at crop 256, the counts
+   set to 0 just before and read just after: a backward launch for each
+   forward warp whose inputs take a gradient (12 of 14 flow_warp and 1
+   grouped_warp; the chain 26 of 28 and 2); (c) one fp32 `pair` loss and
+   gradient at 128x128 on the CPU, on the CPU in float64 and on the card:
+   the loss within 1e-4 relative, the whole gradient within 1e-2 relative
+   L2 and each key within 5e-2 (random init's cancelling sums; the CPU's
+   own f32-against-f64 spread is printed); (d) `python -m
+   lssvc_tpu_torch.train` in process on its default device at crop 256,
+   synthetic data: `--stage spynet`, `--stage mv`, `--loss pair`,
+   `--stage cascade --frames 3` and `--loss intra` 4 steps each, `pair`
+   at `--batch-per-device 8` 3 steps (s/step, frames/s, peak GiB), a
+   crash resume that restores step 2, a fixed-batch `pair` run of 20
+   steps whose loss must fall, and the trained checkpoints coding the GOP
+   path's first 3 frames through the test CLI; (e) each backward
+   kernel's ms at the 1080p EL pair and grouped warp and at the training
+   crop's, f32 and bf16, beside its byte bound, the plain autograd's
+   backward and, for flow_warp, F.grid_sample's backward.
+
 Then one JSON line {"kernels": [...]}: each kernel's launches counted on its
 path (the warps on the P-frame chain of phase 3, with their GOP path,
 stream path, warp-tier path, bf16 chain and bf16 stream counts beside
 them; the pair's packed store on the bf16_packed chain with
 LSSVC_PACKED_CTX=1; the grouped packed store on warp_bench's packed_run;
 conv_chain on the conv-chain path of phase 6; int8_conv on the
-int8_packed chain of phase 15; the warps also with their launches a
+int8_packed chain of phase 15; the backward kernels on phase 18's `pair`
+train step (with the cascade chain's beside them); the warps also with
+their launches a
 P-frame on phase 16's pipelined encode and overlapped decode and a frame
 on its four-stage frame), its times, bound and errors, after a line
 with the script's total seconds.  The last line is
@@ -220,6 +250,7 @@ import torch.nn.functional as F
 
 from lssvc_tpu_torch import bench, build, compare_rd
 from lssvc_tpu_torch import test as cli
+from lssvc_tpu_torch import train as trainer
 from lssvc_tpu_torch.decode import yuv_frame
 from lssvc_tpu_torch.harness import runner, serving
 from lssvc_tpu_torch.harness.results import RESULT_KEYS
@@ -235,7 +266,9 @@ from lssvc_tpu_torch.ops import conv_chain as cc
 from lssvc_tpu_torch.ops import int8 as q8
 from lssvc_tpu_torch.ops import warp as plain
 from lssvc_tpu_torch.ops import warp_kernels as wk
+from lssvc_tpu_torch.ops.nn import Mode, precision_scope
 from lssvc_tpu_torch.parallel import scheduler
+from lssvc_tpu_torch.parallel import train as ptrain
 from lssvc_tpu_torch.tools import (conv_paths, convchain_bench,
                                    int8_bench, int8_calibrate, streambench,
                                    synthetic, warp_bench, warp_tier_bench)
@@ -409,8 +442,8 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    # the two kernel sources with nvcc, the rANS coder with g++, at once
-    names = ("warp", "conv_chain", "int8_conv", "lssvc_rans")
+    # the kernel sources with nvcc, the rANS coder with g++, all at once
+    names = ("warp", "warp_grad", "conv_chain", "int8_conv", "lssvc_rans")
     build.build_all(names)
     for name in names:
         build.load(name)
@@ -2702,6 +2735,484 @@ def phase_evaluation(dev, d, cfg, intra, video):
     log(f"  phase 17: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: training
+
+TRAIN_CROP = 256
+GRAD_SOURCE = "lssvc_tpu_torch/csrc/warp_grad.cu"
+GRAD_FLOW_REPLACES = (
+    "none: the XLA gradient of lssvc_tpu/ops/warp.py:49 (flow_warp) that "
+    "JAX's train step takes (lssvc_tpu/ops/warp_pallas.py:1262)")
+GRAD_GROUPED_REPLACES = (
+    "none: the XLA gradient of lssvc_tpu/ops/warp_pallas.py:1372-1378 "
+    "(_slow_eager, through lssvc_tpu/ops/warp.py:143 flow_warp_grouped) "
+    "that JAX's train step takes")
+# the 1080p P-frame's warps whose backward is timed: the EL pair and the
+# grouped warp (PERF.md's rows 1 and 3)
+GRAD_TIMED = [("flow_warp_backward", (1, *EL_HW, 3, 48)),
+              ("grouped_warp_backward", (1, *EL_HW, 48, 32, 16))]
+
+
+class GradRecorder:
+    """Stands in for the backward kernels' library and records each launch:
+    flow_warp_backward ((n, h, w, ca, cb), dtype code, (a, b, flow) taking
+    a gradient); grouped_warp_backward ((n, h, w, c_src, go, group_num),
+    dtype code, (x, flow_x, flow_y, mask) taking a gradient)."""
+
+    def __init__(self, lib):
+        self.lib, self.calls = lib, []
+
+    def lssvc_flow_warp_backward(self, *args):
+        self.calls.append(("flow_warp_backward",
+                           (*args[10:13], args[3], args[7]), args[13],
+                           (args[2] != 0, args[6] != 0, args[9] != 0)))
+        return self.lib.lssvc_flow_warp_backward(*args)
+
+    def lssvc_grouped_warp_backward(self, *args):
+        self.calls.append(("grouped_warp_backward", tuple(args[9:15]),
+                           args[15], tuple(a != 0 for a in args[5:9])))
+        return self.lib.lssvc_grouped_warp_backward(*args)
+
+    def lssvc_f32_to_bf16(self, *args):
+        return self.lib.lssvc_f32_to_bf16(*args)
+
+
+def _grad_counts():
+    return {"flow_warp": wk.flow_warp.launches,
+            "flow_warp_backward": wk.flow_warp_backward.launches,
+            "grouped_warp": wk.grouped_warp.launches,
+            "grouped_warp_backward": wk.grouped_warp_backward.launches}
+
+
+def _reset_grad_counts():
+    _reset_counts()
+    wk.flow_warp_backward.launches = wk.grouped_warp_backward.launches = 0
+
+
+def train_batch(loss, crop, nb, dev, seed=0, frames=3):
+    """A batch of the trainer's synthetic data on `dev`."""
+    return trainer.make_batch(trainer.SyntheticPairs(crop, seed), loss, nb,
+                              frames, dev)[0]
+
+
+def check_grads(name, labels, got, ref, dtype):
+    """Each gradient of `got` against `ref` (None meets None), NaN meeting
+    NaN; f32: max |err| <= 1e-5 max|ref|; bf16: relative RMS <= 1e-2.
+    Returns the largest max |err|."""
+    worst = 0.0
+    for label, g, r in zip(labels, got, ref):
+        if (g is None) != (r is None):
+            raise AssertionError(f"{name} {label}: one side is None")
+        if g is None:
+            continue
+        if g.shape != r.shape or g.dtype != r.dtype:
+            raise AssertionError(f"{name} {label}: {tuple(g.shape)} {g.dtype}"
+                                 f" against {tuple(r.shape)} {r.dtype}")
+        g, r = g.float(), r.float()
+        nan_g, nan_r = torch.isnan(g), torch.isnan(r)
+        if not torch.equal(nan_g, nan_r):
+            raise AssertionError(f"{name} {label}: NaN positions differ")
+        g, r = g.masked_fill(nan_g, 0), r.masked_fill(nan_r, 0)
+        err = float((g - r).abs().max())
+        top = float(r.abs().max())
+        if dtype == torch.float32:
+            ok = err <= 1e-5 * top
+        else:
+            ok = _rel_rms(g, r) <= 1e-2
+        if not ok:
+            raise AssertionError(f"{name} {label}: max |err| {err:.3g} at "
+                                 f"max |ref| {top:.3g}, relative RMS "
+                                 f"{_rel_rms(g, r):.3g}")
+        worst = max(worst, err)
+    return worst
+
+
+def _grad_inputs(gen, shape, dtype, kind, flows="random"):
+    """Sources, flows and output gradients of one backward launch shape."""
+    if kind == "flow_warp_backward":
+        n, h, w, ca, cb = shape
+        srcs = [uniform(gen, (n, h, w, c), 0, 1).to(dtype)
+                for c in (ca, cb) if c]
+        fshape = (n, h, w, 2)
+    else:
+        n, h, w, c_src, go, gn = shape
+        srcs = [uniform(gen, (n, h, w, c_src), 0, 1).to(dtype)]
+        fshape = (n, h, w, 2 * go)
+    if flows == "random":
+        flow = uniform(gen, fshape, -6, 6)
+    elif flows == "zero":
+        flow = torch.zeros(fshape, device=gen.device)
+    elif flows == "integer":  # many samples exactly on a border
+        flow = torch.round(uniform(gen, fshape, -w / 2, w / 2))
+    elif flows == "past":
+        flow = uniform(gen, fshape, -3 * w, 3 * w)
+    else:  # "nan": a tenth of the flows NaN
+        flow = uniform(gen, fshape, -6, 6)
+        flow[uniform(gen, fshape, 0, 1) < 0.1] = float("nan")
+    if kind == "flow_warp_backward":
+        grads = [uniform(gen, s.shape, -1, 1).to(dtype) for s in srcs]
+        return srcs, flow, grads
+    fx, fy = flow[..., :go].contiguous(), flow[..., go:].contiguous()
+    mask = uniform(gen, (n, h, w, go), 0, 1)
+    grad = uniform(gen, (n, h, w, go * (c_src // gn)), -1, 1).to(dtype)
+    return srcs, (fx, fy, mask), [grad]
+
+
+def grad_case(kind, shape, dtype, gen, flows="random"):
+    """One backward launch of the kernel against autograd through the plain
+    warp on the same card tensors; the flow and mask gradients bit-equal
+    across two launches.  Returns (max |err|, the inputs)."""
+    srcs, flow, grads = _grad_inputs(gen, shape, dtype, kind, flows)
+    if kind == "flow_warp_backward":
+        b = srcs[1] if len(srcs) > 1 else None
+        gb = grads[1] if len(grads) > 1 else None
+        got = wk.flow_warp_backward(flow, srcs[0], grads[0], b, gb)
+        again = wk.flow_warp_backward(flow, srcs[0], grads[0], b, gb)
+        ref = wk.flow_warp_backward_plain(flow, srcs[0], grads[0], b, gb)
+        # (grad_flow, grad_a, grad_b); the flow's gradient uses no atomics
+        same = [(got[0], again[0])]
+    else:
+        fx, fy, mask = flow
+        gn = shape[5]
+        got = wk.grouped_warp_backward(srcs[0], fx, fy, mask, gn, grads[0])
+        again = wk.grouped_warp_backward(srcs[0], fx, fy, mask, gn,
+                                         grads[0])
+        ref = wk.grouped_warp_backward_plain(srcs[0], fx, fy, mask, gn,
+                                             grads[0])
+        same = list(zip(got[1:], again[1:]))
+    for g1, g2 in same:
+        if not torch.equal(torch.nan_to_num(g1), torch.nan_to_num(g2)):
+            raise AssertionError(f"{kind} {shape}: the flow or mask "
+                                 "gradient differs between two launches")
+    labels = (("grad_flow", "grad_a", "grad_b")
+              if kind == "flow_warp_backward" else
+              ("grad_x", "grad_flow_x", "grad_flow_y", "grad_mask"))
+    err = check_grads(f"{kind} {shape} {flows}", labels, got, ref, dtype)
+    return err, (srcs, flow, grads)
+
+
+def train_launches(dev):
+    """Phase 18 (b): one fp32 `pair` train step at crop 256 and one
+    `cascade` chain of T=3 with no warm step, the counts set to 0 just
+    before each and read just after.  A backward launch for every forward
+    warp whose inputs take a gradient: the pair step 12 of its 14
+    flow_warp launches (not SpyNet's first level in either layer, which
+    warps an input frame by a zero flow) and its grouped_warp; the chain
+    12 + 14 (its second frame warps the first's reconstruction).  Returns
+    the counts and the pair step's backward launch shapes."""
+    params = {k: v.to(dev) for k, v in
+              init_lssvc(torch.Generator().manual_seed(0)).items()}
+    opt = ptrain.Adam(1e-4)
+    counts, shapes = {}, set()
+    for loss, want in (("pair", (14, 12, 1, 1)), ("cascade", (28, 26, 2, 2))):
+        batch = train_batch(loss, TRAIN_CROP, 1, dev, frames=3)
+        step = ptrain.make_train_step(opt, 0.01, (TRAIN_CROP, TRAIN_CROP),
+                                      loss=loss, precision="fp32")
+        rec = GradRecorder(wk._grad_lib())
+        real = wk._grad_lib
+        wk._grad_lib = lambda: rec
+        try:
+            torch.cuda.synchronize()
+            _reset_grad_counts()
+            _, _, metrics = step(params, opt.init(params), batch)
+            torch.cuda.synchronize()
+        finally:
+            wk._grad_lib = real
+        got = _grad_counts()
+        counts[loss] = got
+        log(f"  {loss} step at crop {TRAIN_CROP}: launches {got}, loss "
+            f"{float(metrics['loss']):.6g}")
+        if tuple(got.values()) != want:
+            raise AssertionError(f"{loss}: launches {got}, expected "
+                                 f"{dict(zip(got, want))}")
+        if loss == "pair":
+            shapes = {(k, s) for k, s, _, _ in rec.calls}
+            needs = [nd for k, _, _, nd in rec.calls
+                     if k == "flow_warp_backward"]
+            log(f"  pair step backward launches (a, b, flow take a "
+                f"gradient): {needs}")
+    return counts, sorted(shapes)
+
+
+def grad_kernels(dev, train_shapes, frame_calls):
+    """Phase 18 (a): both backward kernels against autograd through the
+    plain warps, f32 and bf16, at the pair train step's launch shapes, at
+    the 1080p P-frame's warp shapes (phase 3's launches) and at edge cases:
+    zero flows and integer flows landing on the borders (the clip's ties),
+    flows far past the borders, NaN flows, batch 2 and unaligned widths."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+    frame = set()
+    for kind, shape, _ in frame_calls:
+        if kind == "flow_warp":
+            frame.add(("flow_warp_backward", (*shape, 0)))
+        elif kind == "flow_warp_pair":
+            frame.add(("flow_warp_backward", shape))
+        else:
+            frame.add(("grouped_warp_backward", shape))
+    edges = [(k, s, f) for f in ("zero", "integer", "past", "nan")
+             for k, s in (("flow_warp_backward", (2, 19, 37, 3, 0)),
+                          ("flow_warp_backward", (2, 19, 37, 3, 48)),
+                          ("flow_warp_backward", (1, 33, 65, 5, 0)),
+                          ("grouped_warp_backward", (2, 19, 37, 48, 32, 16)),
+                          ("grouped_warp_backward", (1, 17, 31, 12, 8, 4)))]
+    cases = ([(k, s, "random") for k, s in train_shapes]
+             + [(k, s, "random") for k, s in sorted(frame)] + edges)
+    worst = {"flow_warp_backward": 0.0, "grouped_warp_backward": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind, shape, flows in cases:
+            err, _ = grad_case(kind, shape, dtype, gen, flows)
+            if dtype == torch.float32:
+                worst[kind] = max(worst[kind], err)
+        log(f"  {len(cases)} backward cases in {dtype}: against plain "
+            "autograd within tolerance, flow and mask gradients "
+            "bit-equal across two launches")
+    return worst
+
+
+def grad_cost(kind, shape, elt):
+    """Bytes: the output gradient, the source and the flows (and mask) read
+    once, the source's and the flows' (and mask's) gradients written once.
+    Operations: ~30 per (pixel, channel) of the gradient arithmetic."""
+    if kind == "flow_warp_backward":
+        n, h, w, ca, cb = shape
+        c = ca + cb
+        return n * h * w * (3 * c * elt + 16), n * h * w * 30 * c
+    n, h, w, c_src, go, gn = shape
+    cg = c_src // gn
+    return (n * h * w * (2 * c_src * elt + go * cg * elt + 6 * go * 4),
+            n * h * w * go * 30 * cg)
+
+
+def grad_times(dev):
+    """Phase 18 (e): each backward kernel's time at the 1080p P-frame's EL
+    pair and grouped warp and at the training crop's, f32 and bf16, beside
+    its byte bound, the plain autograd's backward (its graph built once)
+    and, for flow_warp, F.grid_sample's backward (bilinear, border,
+    align_corners; its graph built once: the library call's yardstick,
+    which differs from JAX at the clip's ties)."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    out = {}
+    shapes = GRAD_TIMED + [
+        ("flow_warp_backward", (1, TRAIN_CROP, TRAIN_CROP, 3, 48)),
+        ("grouped_warp_backward", (1, TRAIN_CROP, TRAIN_CROP, 48, 32, 16))]
+    for kind, shape in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            srcs, flow, grads = _grad_inputs(gen, shape, dtype, kind)
+            with torch.enable_grad():
+                ins = [s.detach().requires_grad_() for s in srcs]
+                if kind == "flow_warp_backward":
+                    fl = flow.detach().requires_grad_()
+                    ins.append(fl)
+                    plain_out = plain.flow_warp(torch.cat(ins[:-1], -1), fl)
+                    g = torch.cat(grads, -1)
+                    kernel = lambda: wk.flow_warp_backward(  # noqa: E731
+                        flow, srcs[0], grads[0], srcs[1], grads[1])
+                else:
+                    ins += [t.detach().requires_grad_() for t in flow]
+                    plain_out = plain.grouped_warp_plain(*ins, shape[5])
+                    g = grads[0]
+                    kernel = lambda: wk.grouped_warp_backward(  # noqa: E731
+                        srcs[0], *flow, shape[5], grads[0])
+                plain_ms = time_ms(lambda: torch.autograd.grad(
+                    plain_out, ins, g, retain_graph=True), iters=10)
+                library_ms = None
+                if kind == "flow_warp_backward":
+                    x = torch.cat(srcs, -1).permute(0, 3, 1, 2) \
+                        .detach().requires_grad_()
+                    _, h, w, _ = flow.shape
+                    iy = torch.arange(h, device=dev,
+                                      dtype=torch.float32)[None, :, None]
+                    ix = torch.arange(w, device=dev,
+                                      dtype=torch.float32)[None, None, :]
+                    grid = torch.stack(
+                        [(ix + flow[..., 0]) / ((w - 1) / 2) - 1,
+                         (iy + flow[..., 1]) / ((h - 1) / 2) - 1], -1) \
+                        .to(dtype).requires_grad_()
+                    lib_out = F.grid_sample(x, grid, mode="bilinear",
+                                            padding_mode="border",
+                                            align_corners=True)
+                    gl = g.permute(0, 3, 1, 2)
+                    library_ms = time_ms(lambda: torch.autograd.grad(
+                        lib_out, (x, grid), gl, retain_graph=True))
+            ms = time_ms(kernel)
+            elt = 4 if dtype == torch.float32 else 2
+            bound, by = bound_ms(*grad_cost(kind, shape, elt))
+            key = (kind, shape, "f32" if elt == 4 else "bf16")
+            out[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": by, "library_ms": library_ms}
+            lib = "" if library_ms is None else \
+                f", F.grid_sample backward {library_ms:.4f} ms"
+            log(f"  {kind} {shape} {key[2]}: {ms:.4f} ms (bound {bound:.4f}"
+                f" ms, {by}), plain autograd {plain_ms:.4f} ms{lib}")
+    return out
+
+
+def train_cpu_vs_card(dev):
+    """Phase 18 (c): one fp32 `pair` loss and gradient at crop 128 from the
+    same weights and batch on the CPU (plain warps) and the card (the
+    kernels), and on the CPU in float64: the loss within 1e-4 relative;
+    the whole gradient (all keys as one vector) within 1e-2 relative L2 and
+    each key within 5e-2.  At random init many keys' f32 gradients are
+    cancelling sums whose last digits are rounding: the CPU's own f32 and
+    f64 gradients differ by up to about 1% on a key, which is printed."""
+    params = init_lssvc(torch.Generator().manual_seed(0))
+    batch = train_batch("pair", 128, 1, torch.device("cpu"), seed=3)
+    loss_fn = ptrain.make_loss_fn(0.01, (128, 128), loss="pair")
+    got = {}
+    for name, where, dtype in (("cpu", "cpu", torch.float32),
+                               ("cpu64", "cpu", torch.float64),
+                               ("card", dev, torch.float32)):
+        p = {k: v.to(where, dtype) for k, v in params.items()}
+        b = {k: v.to(where, dtype) for k, v in batch.items()}
+        with precision_scope(Mode("fp32")):
+            loss, _, grads = ptrain.value_and_grad(loss_fn, p, b)
+        got[name] = (float(loss), {k: v.cpu().double() for k, v in
+                                   grads.items()})
+
+    def worst(a, b):
+        rel = {k: float((a[k] - r).norm() / r.norm()) if float(r.norm())
+               else float(a[k].norm()) for k, r in b.items()}
+        key = max(rel, key=rel.get)
+        keys = sorted(b)
+        whole = float(torch.cat([(a[k] - b[k]).ravel() for k in keys]).norm()
+                      / torch.cat([b[k].ravel() for k in keys]).norm())
+        return key, rel[key], whole
+
+    (l_cpu, g_cpu), (_, g64), (l_dev, g_dev) = (got["cpu"], got["cpu64"],
+                                                got["card"])
+    if abs(l_dev - l_cpu) > 1e-4 * abs(l_cpu):
+        raise AssertionError(f"loss {l_dev} on the card, {l_cpu} on the CPU")
+    key, rel, whole = worst(g_dev, g_cpu)
+    key64, rel64, whole64 = worst(g_cpu, g64)
+    log(f"  CPU against card, fp32 pair step at 128x128: loss {l_cpu:.8g} /"
+        f" {l_dev:.8g}; worst gradient {key} at relative L2 {rel:.3g}, "
+        f"the whole gradient {whole:.3g} ({len(g_cpu)} keys); the CPU's f32 "
+        f"against its f64: worst {key64} at {rel64:.3g}, whole {whole64:.3g}")
+    if whole > 1e-2 or rel > 5e-2:
+        raise AssertionError(f"gradient {key}: relative L2 {rel}, whole "
+                             f"{whole}")
+
+
+def _train_cli(argv, what):
+    """`python -m lssvc_tpu_torch.train` in this process: (s/step over the
+    steps after the first, frames/s, peak GiB, the log)."""
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        trainer.main(argv)
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    rates = [float(r) for r in re.findall(r"\(([\d.]+) frames/s\)", text)]
+    steps = re.findall(r"^step (\d+): loss=([\d.eE+-]+|nan|inf)", text,
+                       re.M)
+    if len(rates) < 2:
+        raise AssertionError(f"{what}: too few log lines:\n{text}")
+    fps = float(np.mean(rates[1:]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(math.isfinite(float(v)) for _, v in steps):
+        raise AssertionError(f"{what}: a loss is not finite:\n{text}")
+    return fps, peak, wall, text
+
+
+def train_cli_runs(d, cfg):
+    """Phase 18 (d): the trainer's CLI on its default device at crop 256,
+    synthetic data: each stage a few steps (s/step, frames/s, peak GiB),
+    `pair` at batch 8, a crash resume, a fixed-batch `pair` run of 20
+    steps whose loss must fall, and the saved checkpoints coding the GOP
+    path's first 3 frames through the test CLI."""
+    out = {}
+    base = ["--crop", str(TRAIN_CROP), "--scan-steps", "1", "--log-every",
+            "1"]
+    runs = [("spynet", ["--stage", "spynet"], 4, 1, 1),
+            ("mv", ["--stage", "mv"], 4, 1, 1),
+            ("pair", ["--loss", "pair"], 4, 1, 1),
+            ("cascade", ["--stage", "cascade", "--frames", "3"], 4, 1, 2),
+            ("intra", ["--loss", "intra"], 4, 1, 1),
+            ("pair_b8", ["--loss", "pair", "--batch-per-device", "8"], 3, 8,
+             1)]
+    for name, flags, steps, nb, fpi in runs:
+        prefix = d / "train" / name
+        fps, peak, wall, text = _train_cli(
+            [*base, *flags, "--steps", str(steps), "--save-every", "2",
+             "--out", str(prefix)], name)
+        final = Path(f"{prefix}_step{steps}.npz")
+        if not final.exists() or not Path(
+                f"{prefix}_step{steps}.state.npz").exists():
+            raise AssertionError(f"{name}: {final} or its state is missing")
+        out[name] = {"s_per_step": nb * fpi / fps, "frames_per_s": fps,
+                     "peak_gib": peak, "batch": nb, "steps": steps,
+                     "wall_s": wall}
+        log(f"  train {name}: {nb * fpi / fps:.4f} s/step, {fps:.2f} "
+            f"frames/s, peak {peak:.2f} GiB ({steps} steps, batch {nb}, "
+            f"{wall:.1f} s with the first step)")
+    # a crash resume: the pair run's step-2 state restores the step
+    prefix = d / "train" / "pair"
+    _, _, _, text = _train_cli(
+        [*base, "--loss", "pair", "--steps", "4", "--save-every", "2",
+         "--out", str(prefix), "--resume", f"{prefix}_step2.npz"], "resume")
+    if "restored optimizer state + step 2" not in text or \
+            re.search(r"^step [12]:", text, re.M):
+        raise AssertionError(f"resume did not restore step 2:\n{text}")
+    log("  crash resume from pair_step2: restored the optimizer state and "
+        "step 2, ran steps 3-4")
+    # a fixed batch: 20 steps must lower the loss
+    params = {k: v.cuda() for k, v in
+              init_lssvc(torch.Generator().manual_seed(0)).items()}
+    opt = ptrain.Adam(1e-4)
+    state = opt.init(params)
+    batch = train_batch("pair", TRAIN_CROP, 1, torch.device("cuda"), seed=5)
+    step = ptrain.make_train_step(opt, 0.01, (TRAIN_CROP, TRAIN_CROP),
+                                  precision="high")
+    losses = []
+    for _ in range(20):
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"fixed-batch pair losses {losses}")
+    log(f"  fixed-batch pair, 20 steps: loss {losses[0]:.6g} -> "
+        f"{losses[-1]:.6g}")
+    out["fixed_batch_losses"] = [losses[0], losses[-1]]
+    # the trained checkpoints code the GOP path's first 3 frames
+    cli.main(["--test_config", str(cfg), "--i_frame_model_path",
+              str(d / "train" / "intra_step4.npz"), "--model_path",
+              str(prefix) + "_step4.npz", "--output_path",
+              str(d / "out_trained"), "--ratios", "x2",
+              "--force_frame_num", "3"])
+    res = json.loads((d / "out_trained" / "x2_FL.json").read_text())
+    log(f"  the trained pair checkpoint coded 3 frames through the test "
+        f"CLI: {json.dumps(res)[:200]}")
+    return out
+
+
+def phase_training(dev, d, cfg, frame_calls):
+    """Phase 18: training (see the module docstring)."""
+    t0 = time.perf_counter()
+    log("# phase 18: training")
+    counts, train_shapes = train_launches(dev)
+    worst = grad_kernels(dev, train_shapes, frame_calls)
+    train_cpu_vs_card(dev)
+    cli_runs = train_cli_runs(d, cfg)
+    times = grad_times(dev)
+    log(json.dumps({"training": cli_runs, "launches": counts}))
+    entries = []
+    for name, shape in GRAD_TIMED:
+        t = times[(name, shape, "f32")]
+        entries.append({
+            "name": name, "route": "cuda", "source": GRAD_SOURCE,
+            "replaces": (GRAD_FLOW_REPLACES if name == "flow_warp_backward"
+                         else GRAD_GROUPED_REPLACES),
+            "launches": counts["pair"][name], "max_abs_err": worst[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "shape": list(shape),
+            "cascade_launches": counts["cascade"][name],
+            "bf16_ms": times[(name, shape, "bf16")]["ms"]})
+    log(f"  phase 18: {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2726,6 +3237,7 @@ def main():
         int8_entry = phase_int8(dev, d, *gop, modes)
         pipelined, staged = phase_serving(dev, d, *gop, modes)
         phase_evaluation(dev, d, *gop)
+        grad_entries = phase_training(dev, d, gop[0], calls)
     n_p = GOP_FRAMES - -(-GOP_FRAMES // GOP)
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -2747,7 +3259,8 @@ def main():
     for k in (pair_packed, grouped_packed):
         k["pipelined_launches_per_p_frame"] = pipelined[k["name"]]
         k["staged_launches_per_frame"] = staged[k["name"]]
-    kernels += [pair_packed, grouped_packed, chain_entry, int8_entry]
+    kernels += [pair_packed, grouped_packed, chain_entry, int8_entry,
+                *grad_entries]
     log(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "
         "build included")
     log(json.dumps({"kernels": kernels}))

@@ -11,8 +11,9 @@ reference networks (e.g. "mv_encoder.0.weight"), held in torch layouts:
 `params_from_jax` takes the JAX package's parameter dict as numpy arrays
 (HWIO conv kernels, spatially flipped conv-equivalent transposed-conv
 kernels, (1, 1, 1, C) Bitparm tensors) and returns these layouts.
-`chain_specs_from_jax` does the same for a conv-chain spec list
-(`ops/conv_chain.py`).
+`params_to_jax` is its exact inverse (the checkpoints the trainer writes
+are in the JAX layouts).  `chain_specs_from_jax` does the same for a
+conv-chain spec list (`ops/conv_chain.py`).
 """
 
 from __future__ import annotations
@@ -61,6 +62,27 @@ def params_from_jax(np_params: dict, model: str) -> dict[str, torch.Tensor]:
             # per-channel Bitparm (1, 1, 1, C) -> (1, C, 1, 1)
             a = a.reshape(1, -1, 1, 1)
         out[key] = torch.from_numpy(a.copy())  # C-contiguous, writable
+    return out
+
+
+def params_to_jax(params: dict, model: str) -> dict[str, np.ndarray]:
+    """The exact inverse of `params_from_jax`: torch-layout tensors of
+    `model` -> JAX-layout numpy arrays (C-contiguous, f32 as held), which
+    the JAX package's `checkpoint.load_params` reads."""
+    transposed = TRANSPOSED_KEYS[model]
+    out = {}
+    for key, val in params.items():
+        a = val.detach().cpu().numpy()
+        if a.ndim == 4 and key in transposed:
+            # (I, O, kH, kW) -> spatially flipped (kH, kW, I, O)
+            a = a[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+        elif a.ndim == 4 and key.endswith(".weight"):
+            # OIHW -> HWIO
+            a = a.transpose(2, 3, 1, 0)
+        elif a.ndim == 4:
+            # per-channel Bitparm (1, C, 1, 1) -> (1, 1, 1, C)
+            a = a.reshape(1, 1, 1, -1)
+        out[key] = np.ascontiguousarray(a)
     return out
 
 

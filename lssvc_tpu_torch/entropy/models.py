@@ -16,10 +16,10 @@ The real-bitstream path maps each predicted scale to a row of a CDF table
 built in `entropy/coder.py`).
 
 Bits use the reference's clamp conventions (probs + 1e-5, bits clipped to
-[0, 50] per element).  The image side's lower bounds are `torch.maximum`,
-as the JAX package's `jnp.maximum`: at a tie each side takes half the
-gradient (`torch.clamp` would give the input all of it), which latent RDO
-(`models/rdo.py`) differentiates.  Activations are NHWC; Bitparm
+[0, 50] per element).  Every bound is `torch.maximum` / `torch.minimum`,
+as the JAX package's `jnp.maximum` and `jnp.clip`: at a tie each side
+takes half the gradient (`torch.clamp` would give the input all of it),
+which latent RDO (`models/rdo.py`) and training differentiate.  Activations are NHWC; Bitparm
 parameters are held in the torch layout (1, C, 1, 1) and viewed as
 (1, 1, 1, C) here.
 """
@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.nn import matmul_highest, ste_round
+from ..ops.nn import clip, matmul_highest, ste_round
 
 LOG2 = math.log(2.0)
 
@@ -58,7 +58,7 @@ def bit_estimator_forward(p, x):
 
 def likelihood_to_bits(probs):
     """sum(clamp(-log(p + 1e-5)/log 2, 0, 50)) — reference bit-count clamps."""
-    bits = torch.clamp(-torch.log(probs + 1e-5) / LOG2, 0.0, 50.0)
+    bits = clip(-torch.log(probs + 1e-5) / LOG2, 0.0, 50.0)
     return torch.sum(bits)
 
 
@@ -75,7 +75,7 @@ def laplace_cdf(x, scale):
 
 def laplace_bits(y, sigma):
     """Interval likelihood bits under Laplace(0, sigma) (sigma clamped)."""
-    sigma = torch.clamp(sigma, 1e-5, 1e10)
+    sigma = clip(sigma, 1e-5, 1e10)
     probs = laplace_cdf(y + 0.5, sigma) - laplace_cdf(y - 0.5, sigma)
     return likelihood_to_bits(probs), probs
 
@@ -147,6 +147,64 @@ def entropy_bottleneck_forward(p, x, filters=(3, 3, 3, 3),
         .clone(memory_format=torch.contiguous_format)
     like = likelihood.reshape(c, n, h, w).permute(1, 2, 3, 0)
     return x_hat, like
+
+
+def entropy_bottleneck_aux_loss(p, tail_mass: float = 1e-9,
+                                filters=(3, 3, 3, 3)):
+    """Quantile auxiliary loss: |logits(quantiles) - target| summed (the JAX
+    package's `entropy/models.py:153`, `img_entropy_models.py:478-481`);
+    training minimises it to keep the quantiles at the tail-mass bounds."""
+    quantiles = p("quantiles")  # (C, 1, 3)
+    target = math.log(2 / tail_mass - 1)
+    targets = quantiles.new_tensor([-target, 0.0, target])
+    logits = entropy_bottleneck_logits(p, quantiles, filters)
+    return torch.sum(torch.abs(logits - targets))
+
+
+def fit_entropy_bottleneck_quantiles(p, tail_mass: float = 1e-9,
+                                     filters=(3, 3, 3, 3), iters: int = 64):
+    """The quantiles solved by per-channel bisection (the JAX package's
+    `entropy/models.py:165-208`): `_logits_cumulative` is monotone in its
+    input, so the aux loss's targets are hit exactly by root-finding.  The
+    bracket doubles 13 times from [-1, 1] (a channel whose tails lie past
+    +-8192 saturates there)."""
+    target = math.log(2 / tail_mass - 1)
+    q = p("quantiles")
+    targets = q.new_tensor([-target, 0.0, target])
+    lo = torch.full((q.shape[0], 1, 3), -1.0, dtype=torch.float32,
+                    device=q.device)
+    hi = -lo
+    with torch.no_grad():
+        for _ in range(13):
+            v_lo = entropy_bottleneck_logits(p, lo, filters)
+            v_hi = entropy_bottleneck_logits(p, hi, filters)
+            lo = torch.where(v_lo > targets, lo * 2.0, lo)
+            hi = torch.where(v_hi < targets, hi * 2.0, hi)
+        for _ in range(iters):
+            mid = 0.5 * (lo + hi)
+            too_low = entropy_bottleneck_logits(p, mid, filters) < targets
+            lo, hi = torch.where(too_low, mid, lo), torch.where(too_low, hi,
+                                                                 mid)
+    return 0.5 * (lo + hi)
+
+
+def refit_quantiles(params: dict) -> dict:
+    """A copy of a flat parameter dict with every EntropyBottleneck's
+    quantiles re-solved by bisection (the JAX package's
+    `entropy/models.py:211`, which its `train.py` applies when it saves an
+    intra checkpoint): real-bitstream CDF tables come from the quantiles,
+    and the aux loss is far from converged after a few hundred steps.  A
+    bottleneck is a `<prefix>quantiles` key with a `<prefix>_matrices.0`
+    sibling."""
+    from ..convert import P
+
+    out = dict(params)
+    for k in params:
+        if k.endswith("quantiles"):
+            prefix = k[:-len("quantiles")]
+            if prefix + "_matrices.0" in params:
+                out[k] = fit_entropy_bottleneck_quantiles(P(params, prefix))
+    return out
 
 
 # ---------------------------------------------------------------------------

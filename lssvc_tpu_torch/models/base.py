@@ -97,3 +97,18 @@ class Model(nn.Module):
 
     def flat_params(self) -> dict[str, torch.Tensor]:
         return dict(self.named_parameters())
+
+
+# The motion-prediction submodules of the reference's selective-freeze
+# stages (`dmc_net.py:283-290`; the JAX package's `models/base.py:87-96`):
+# `python -m lssvc_tpu_torch.train --freeze` partitions by this list.
+INTER_PREDICTION_MODULES = ("mv_encoder", "mv_decoder", "mv_prior_encoder",
+                            "mv_prior_decoder", "bit_estimator_z_mv",
+                            "optic_flow")
+
+
+def label_params(params, inter_module_names=INTER_PREDICTION_MODULES):
+    """'prediction' / 'other' label per parameter name, by substring."""
+    return {k: ("prediction"
+                if any(m in k for m in inter_module_names) else "other")
+            for k in params}

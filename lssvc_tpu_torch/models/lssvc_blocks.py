@@ -25,7 +25,7 @@ from ..ops import (
     grouped_warp,
     leaky_relu,
 )
-from ..ops.nn import matmul_f32out, packed_width
+from ..ops.nn import clip, matmul_f32out, packed_width
 from ..ops.packed import pack_width, unpack_width
 from .components import (
     cat,
@@ -120,7 +120,7 @@ def offset_diversity(p, x, aux_feature, flow, group_num=16, offset_num=2,
     # a scalar)
     offset = torch.tanh(cat([o1, o2])) * float(max_residue_magnitude)
     if offset_cap:
-        offset = torch.clamp(offset, -float(offset_cap), float(offset_cap))
+        offset = clip(offset, -float(offset_cap), float(offset_cap))
     # offset channel 2j is unit j's dx, 2j+1 its dy; add the base flow
     flow_x = offset[..., 0::2] + flow[..., 0:1]  # (B, H, W, 32)
     flow_y = offset[..., 1::2] + flow[..., 1:2]

@@ -376,6 +376,15 @@ def max_pool2d(x, k: int = 2):
     return _nhwc(F.max_pool2d(_nchw(x), k))
 
 
+def clip(x, lo: float, hi: float):
+    """clip(x, lo, hi) as the JAX package's `jnp.clip` computes it,
+    min(max(x, lo), hi): on a bound x takes half the gradient (a tie of
+    `jnp.maximum` / `jnp.minimum`), where `torch.clamp` gives it all; the
+    values are `torch.clamp`'s, NaN passing."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)),
+                         x.new_tensor(hi))
+
+
 def ste_round(x):
     """round() with a straight-through gradient, written as the JAX package
     writes it (`x + stop_gradient(round(x) - x)`) so the forward values
@@ -383,11 +392,53 @@ def ste_round(x):
     return x + (torch.round(x) - x).detach()
 
 
+class _LeakyReLU(torch.autograd.Function):
+    """F.leaky_relu whose gradient at 0 is 1, as the JAX package's
+    `where(x >= 0, x, slope * x)` (torch's is the slope)."""
+
+    @staticmethod
+    def forward(ctx, x, slope):
+        ctx.save_for_backward(x)
+        ctx.slope = slope
+        return F.leaky_relu(x, slope)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, grad, grad * ctx.slope), None
+
+
+class _ReLU(torch.autograd.Function):
+    """F.relu whose gradient at 0 is 1/2, as the JAX package's
+    `maximum(x, 0)` (torch's is 0)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return F.relu(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return torch.where(x > 0, grad, torch.where(x == 0, grad * 0.5,
+                                                    grad.new_zeros(())))
+
+
+def _differentiated(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 def leaky_relu(x, negative_slope: float = 0.01):
+    """Leaky ReLU; under autograd its gradient at 0 is JAX's (1)."""
+    if _differentiated(x):
+        return _LeakyReLU.apply(x, negative_slope)
     return F.leaky_relu(x, negative_slope)
 
 
 def relu(x):
+    """ReLU; under autograd its gradient at 0 is JAX's (1/2)."""
+    if _differentiated(x):
+        return _ReLU.apply(x)
     return F.relu(x)
 
 
@@ -407,8 +458,13 @@ def gdn(x, beta, gamma, inverse: bool = False):
     beta: (C,), gamma: (C_out, C_in), both in the sqrt-reparameterized space
     the torch models store.  norm = x^2 @ gamma^T + beta; out = x * sqrt(norm)
     (inverse) or x * rsqrt(norm)."""
-    beta = torch.square(torch.clamp(beta, min=_BETA_BOUND)) - _PEDESTAL
-    gamma = torch.square(torch.clamp(gamma, min=_GAMMA_BOUND)) - _PEDESTAL
+    # lower bounds as `jnp.maximum` (`lssvc_tpu/ops/nn.py:371-372`): at a
+    # tie the parameter takes half the gradient; at init every off-diagonal
+    # gamma sits on its bound
+    beta = torch.square(torch.maximum(beta, beta.new_tensor(_BETA_BOUND))) \
+        - _PEDESTAL
+    gamma = torch.square(torch.maximum(gamma, gamma.new_tensor(_GAMMA_BOUND))) \
+        - _PEDESTAL
     # the JAX package's einsum of bf16 x^2 with the f32 gamma computes in
     # f32 (type promotion), and so does x * rsqrt(f32 norm); torch's
     # matmul takes one dtype, so the square is cast explicitly

@@ -24,7 +24,7 @@ import functools
 import numpy as np
 import torch
 
-from .nn import compute_dtype
+from .nn import clip, compute_dtype
 
 
 def clamp_flow(flow, h, w):
@@ -41,7 +41,7 @@ def clamp_flow(flow, h, w):
 
 def _coords(f, size, pos):
     """Clamped sample position -> (i0, i1, frac) along one axis."""
-    p = torch.clamp(pos + f, 0.0, size - 1.0)
+    p = clip(pos + f, 0.0, size - 1.0)  # JAX's gradient on a bound
     p0 = torch.floor(p)
     frac = p - p0
     i0 = p0.to(torch.int64).clamp(0, size - 1)

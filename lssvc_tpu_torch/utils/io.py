@@ -12,13 +12,16 @@ import numpy as np
 
 
 class YUVReader:
-    def __init__(self, src_path, width, height):
+    def __init__(self, src_path, width, height, skip_frame=0):
+        """`skip_frame`: start at that frame (the JAX package's reader
+        skips by reading; a seek past the end reads nothing)."""
         self.width = width
         self.height = height
         self.eof = False
         self.y_size = width * height
         self.uv_size = width * height // 2
         self.file = open(src_path, "rb")
+        self.file.seek(skip_frame * (self.y_size + self.uv_size))
 
     def read_one_frame(self):
         """(y 1xHxW, uv 2x(H/2)x(W/2)); (None, None) past the last complete

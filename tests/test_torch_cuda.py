@@ -799,3 +799,124 @@ def test_cheng2020_stream_round_trips_on_the_card(dev):
     assert np.array_equal(dec["y_hat"].cpu().numpy(), enc["y_hat"])
     assert dec["x_hat"].shape == (1, 64, 64, 3)
     assert bool(torch.isfinite(model.forward(x)["bit"]))
+
+
+# ---------------------------------------------------------------------------
+# Training: the warps' backward kernels (csrc/warp_grad.cu)
+
+def _grad_tol(got, ref, dtype):
+    """f32: max |err| <= 1e-5 max|ref| (the source gradient sums with
+    atomics in another order); bf16: relative RMS <= 1e-2."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    g, r = got.float(), ref.float()
+    if dtype == torch.float32:
+        assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
+    else:
+        rms = float((g - r).pow(2).mean().sqrt() / r.pow(2).mean().sqrt())
+        assert rms <= 1e-2, rms
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pair", [False, True])
+def test_flow_warp_backward_kernel(dev, dtype, pair):
+    """flow_warp / flow_warp_pair under autograd: a grad_fn, one backward
+    launch, the plain autograd's gradients; the flow's bit-equal across
+    two launches."""
+    n, h, w = 2, 37, 53
+    a = _uniform((n, h, w, 3), 1, 0, 1, dev, dtype).requires_grad_()
+    b = _uniform((n, h, w, 48), 2, 0, 1, dev, dtype).requires_grad_()
+    flow = _uniform((n, h, w, 2), 3, -6, 6, dev).requires_grad_()
+    g_a = _uniform((n, h, w, 3), 4, -1, 1, dev, dtype)
+    g_b = _uniform((n, h, w, 48), 5, -1, 1, dev, dtype)
+    wk.flow_warp_backward.launches = 0
+    outs = wk.flow_warp_pair(a, b, flow) if pair else (wk.flow_warp(a, flow),)
+    assert all(o.grad_fn is not None for o in outs)
+    ins = [flow, a, b] if pair else [flow, a]
+    got = torch.autograd.grad(outs, ins, [g_a, g_b][:len(outs)])
+    assert wk.flow_warp_backward.launches == 1
+    ref = wk.flow_warp_backward_plain(flow, a, g_a, b if pair else None,
+                                      g_b if pair else None)
+    for x, y in zip(got, ref):
+        _grad_tol(x, y, dtype if x.dtype == dtype else torch.float32)
+    again = torch.autograd.grad(
+        wk.flow_warp_pair(a, b, flow) if pair else (wk.flow_warp(a, flow),),
+        ins, [g_a, g_b][:len(outs)])
+    _bits(again[0], got[0])
+
+
+def test_flow_warp_backward_skips_what_needs_no_gradient(dev):
+    """SpyNet's warp of an input frame: only the flow takes a gradient."""
+    x = _uniform((1, 16, 24, 3), 6, 0, 1, dev)
+    flow = _uniform((1, 16, 24, 2), 7, -3, 3, dev).requires_grad_()
+    out = wk.flow_warp(x, flow)
+    (gf,) = torch.autograd.grad(out, flow, torch.ones_like(out))
+    ref = wk.flow_warp_backward_plain(flow, x, torch.ones_like(out))[0]
+    _grad_tol(gf, ref, torch.float32)
+    gf2, gx, gb = wk.flow_warp_backward(flow, x, torch.ones_like(out),
+                                        need_a=False)
+    assert gx is None and gb is None
+    _bits(gf2, gf)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_warp_backward_kernel(dev, dtype):
+    n, h, w, c_src, go, gn = 2, 21, 35, 48, 32, 16
+    x = _uniform((n, h, w, c_src), 8, 0, 1, dev, dtype).requires_grad_()
+    fx = _uniform((n, h, w, go), 9, -8, 8, dev).requires_grad_()
+    fy = _uniform((n, h, w, go), 10, -8, 8, dev).requires_grad_()
+    mask = _uniform((n, h, w, go), 11, 0, 1, dev).requires_grad_()
+    g = _uniform((n, h, w, go * c_src // gn), 12, -1, 1, dev, dtype)
+    wk.grouped_warp_backward.launches = 0
+    out = wk.grouped_warp(x, fx, fy, mask, gn)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, [x, fx, fy, mask], g)
+    assert wk.grouped_warp_backward.launches == 1
+    ref = wk.grouped_warp_backward_plain(x, fx, fy, mask, gn, g)
+    for a, b in zip(got, ref):
+        _grad_tol(a, b, dtype if a.dtype == dtype else torch.float32)
+    again = torch.autograd.grad(wk.grouped_warp(x, fx, fy, mask, gn),
+                                [fx, fy, mask], g)
+    for a, b in zip(again, got[1:]):
+        _bits(a, b)
+
+
+def test_packed_warps_refuse_grad_on_the_card(dev):
+    a = _uniform((1, 8, 16, 3), 13, 0, 1, dev).requires_grad_()
+    b = _uniform((1, 8, 16, 48), 14, 0, 1, dev)
+    flow = torch.zeros((1, 8, 16, 2), device=dev)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        wk.flow_warp_pair(a, b, flow, packed_out=True)
+    with torch.no_grad():
+        wk.flow_warp_pair(a, b, flow, packed_out=True)
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """One fp32 pair loss and gradient at 128x128, the same weights and
+    batch on both devices: the loss within 1e-4 relative, the whole
+    gradient within 1e-2 relative L2 and each key within 5e-2 (at random
+    init many keys' f32 gradients are cancelling sums: the CPU's own f32
+    and f64 gradients differ by up to about 1% on a key)."""
+    from lssvc_tpu_torch.ops.nn import Mode, precision_scope
+    from lssvc_tpu_torch.parallel import train as ptrain
+    from lssvc_tpu_torch.train import SyntheticPairs, make_batch
+
+    params = init_lssvc(torch.Generator().manual_seed(0))
+    batch = make_batch(SyntheticPairs(128, 3), "pair", 1, 2, "cpu")[0]
+    fn = ptrain.make_loss_fn(0.01, (128, 128))
+    got = []
+    for d in ("cpu", dev):
+        with precision_scope(Mode("fp32")):
+            loss, _, grads = ptrain.value_and_grad(
+                fn, {k: v.to(d) for k, v in params.items()},
+                {k: v.to(d) for k, v in batch.items()})
+        got.append((float(loss), {k: v.cpu() for k, v in grads.items()}))
+    (l_c, g_c), (l_d, g_d) = got
+    assert abs(l_d - l_c) <= 1e-4 * abs(l_c)
+    keys = sorted(g_c)
+    whole = torch.cat([(g_d[k] - g_c[k]).ravel() for k in keys]).norm() \
+        / torch.cat([g_c[k].ravel() for k in keys]).norm()
+    assert float(whole) <= 1e-2
+    for k, r in g_c.items():
+        den = float(r.norm())
+        err = float((g_d[k] - r).norm())
+        assert err <= 5e-2 * den if den else err == 0, k
