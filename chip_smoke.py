@@ -192,9 +192,17 @@ Phases (any failure exits non-zero; nothing is caught):
    every backward launch shape of a `pair` train step at crop 256, at the
    1080p P-frame's warp shapes (phase 3's launches) and at edge cases:
    zero flows and integer flows on the borders (the clip's ties), flows
-   far past the borders, NaN flows, batch 2, unaligned widths; f32 max
-   |err| <= 1e-5 max|ref|, bf16 relative RMS <= 1e-2, the flow and mask
-   gradients bit-equal across two launches; (b) one fp32 `pair` step and
+   far past the borders, NaN flows, batch 2, unaligned widths; then the
+   kernels' two scatter paths: tiles cut unevenly (2x19x37, 1x33x65) and
+   whole (1x64x64), smooth flows whose boxes fit (2 and 12 px), one launch
+   with smooth tiles beside tiles of random flows past the borders (direct
+   scatter), 40 px smooth per-unit offsets for the grouped warp (the
+   trainer's uncapped range), a generic grouped shape, and the 1080p EL
+   pair and grouped warp on smooth flows; f32 max |err| <= 1e-5 max|ref|,
+   bf16 relative RMS <= 1e-2 and the bf16 source gradient within half a
+   bf16 ulp (+1e-5 max|ref|) of the f32 kernel's on the same values
+   (summed in f32, rounded once), the flow and mask gradients bit-equal
+   across two launches; (b) one fp32 `pair` step and
    one `cascade` chain of T=3 with no warm step at crop 256, the counts
    set to 0 just before and read just after: a backward launch for each
    forward warp whose inputs take a gradient (12 of 14 flow_warp and 1
@@ -211,8 +219,13 @@ Phases (any failure exits non-zero; nothing is caught):
    steps whose loss must fall, and the trained checkpoints coding the GOP
    path's first 3 frames through the test CLI; (e) each backward
    kernel's ms at the 1080p EL pair and grouped warp and at the training
-   crop's, f32 and bf16, beside its byte bound, the plain autograd's
-   backward and, for flow_warp, F.grid_sample's backward.
+   crop's, f32 and bf16, on smooth flows (12 px; the grouped warp also a
+   12 px field plus 40 px per-unit offsets) and random ones (+-6 px), a
+   wrapper call and the kernel alone (its C entry point on preallocated
+   buffers), beside its byte bound, the wrapper's zero-fill and rounding
+   passes, the
+   plain autograd's backward and, for flow_warp, F.grid_sample's backward
+   (`tools/warp_bench.py --backward`).
 
 Then one JSON line {"kernels": [...]}: each kernel's launches counted on its
 path (the warps on the P-frame chain of phase 3, with their GOP path,
@@ -278,7 +291,8 @@ from lssvc_tpu_torch.utils.png import read_png
 from lssvc_tpu_torch.tools.profile_frame import iframe_flops
 from lssvc_tpu_torch.tools.timing import card, time_ms
 from lssvc_tpu_torch.tools.warp_bench import (bound_ms, flow_warp_cost,
-                                              grouped_cost, uniform)
+                                              grouped_cost, smooth_field,
+                                              uniform)
 
 EL_HW, BL_HW, K = (1152, 1920), (576, 960), 3
 # the GOP path: a 1080p source (h, w) coded at x2, EL padded to 1152x1920,
@@ -2828,7 +2842,12 @@ def check_grads(name, labels, got, ref, dtype):
 
 
 def _grad_inputs(gen, shape, dtype, kind, flows="random"):
-    """Sources, flows and output gradients of one backward launch shape."""
+    """Sources, flows and output gradients of one backward launch shape.
+    The kernels' scatter paths: "smooth2" and "smooth12" are smooth fields
+    of that amplitude in px (their tiles' boxes fit), "mixed" the left half
+    of each image smooth and the right half random past the borders (one
+    launch, both paths), "smooth40" (grouped) one 12 px field plus each
+    unit's own 40 px smooth offset."""
     if kind == "flow_warp_backward":
         n, h, w, ca, cb = shape
         srcs = [uniform(gen, (n, h, w, c), 0, 1).to(dtype)
@@ -2840,6 +2859,16 @@ def _grad_inputs(gen, shape, dtype, kind, flows="random"):
         fshape = (n, h, w, 2 * go)
     if flows == "random":
         flow = uniform(gen, fshape, -6, 6)
+    elif flows in ("smooth2", "smooth12"):
+        flow = smooth_field(gen, fshape, float(flows[6:]))
+    elif flows == "mixed":
+        flow = smooth_field(gen, fshape, 2.0)
+        flow[:, :, w // 2:] = uniform(gen, (n, h, w - w // 2, fshape[3]),
+                                      -3 * w, 3 * w)
+    elif flows == "smooth40":
+        base = smooth_field(gen, (n, h, w, 2), 12.0)
+        flow = torch.cat([base[..., i:i + 1] + smooth_field(
+            gen, (n, h, w, go), 40.0) for i in range(2)], -1)
     elif flows == "zero":
         flow = torch.zeros(fshape, device=gen.device)
     elif flows == "integer":  # many samples exactly on a border
@@ -2858,28 +2887,51 @@ def _grad_inputs(gen, shape, dtype, kind, flows="random"):
     return srcs, (fx, fy, mask), [grad]
 
 
-def grad_case(kind, shape, dtype, gen, flows="random"):
-    """One backward launch of the kernel against autograd through the plain
-    warp on the same card tensors; the flow and mask gradients bit-equal
-    across two launches.  Returns (max |err|, the inputs)."""
-    srcs, flow, grads = _grad_inputs(gen, shape, dtype, kind, flows)
+def _kernel_grads(kind, shape, srcs, flow, grads):
+    """One launch of the backward kernel: flow_warp_backward's (grad_flow,
+    grad_a, grad_b), grouped_warp_backward's (grad_x, grad_flow_x,
+    grad_flow_y, grad_mask)."""
     if kind == "flow_warp_backward":
         b = srcs[1] if len(srcs) > 1 else None
         gb = grads[1] if len(grads) > 1 else None
-        got = wk.flow_warp_backward(flow, srcs[0], grads[0], b, gb)
-        again = wk.flow_warp_backward(flow, srcs[0], grads[0], b, gb)
+        return wk.flow_warp_backward(flow, srcs[0], grads[0], b, gb)
+    return wk.grouped_warp_backward(srcs[0], *flow, shape[5], grads[0])
+
+
+def rounded_once(name, got, ref32):
+    """A bf16 source gradient against the f32 kernel's on the same values:
+    within half a bf16 ulp (2^-8 relative) plus 1e-5 max|ref| for the f32
+    sums' order, as one rounding of an f32 sum gives."""
+    g, r = got.float(), ref32
+    nan = torch.isnan(r)
+    if not torch.equal(torch.isnan(g), nan):
+        raise AssertionError(f"{name}: NaN positions differ")
+    g, r = g.masked_fill(nan, 0), r.masked_fill(nan, 0)
+    slack = 2.0 ** -8 * r.abs() + 1e-5 * float(r.abs().max())
+    if bool(((g - r).abs() > slack).any()):
+        raise AssertionError(f"{name}: the bf16 gradient is not the f32 sum "
+                             f"rounded once: max |err| "
+                             f"{float((g - r).abs().max()):.3g}")
+
+
+def grad_case(kind, shape, dtype, gen, flows="random"):
+    """One backward launch of the kernel against autograd through the plain
+    warp on the same card tensors; the flow and mask gradients bit-equal
+    across two launches; a bf16 source gradient the f32 kernel's on the
+    same values rounded once.  Returns (max |err|, the inputs)."""
+    srcs, flow, grads = _grad_inputs(gen, shape, dtype, kind, flows)
+    got = _kernel_grads(kind, shape, srcs, flow, grads)
+    again = _kernel_grads(kind, shape, srcs, flow, grads)
+    if kind == "flow_warp_backward":
+        b = srcs[1] if len(srcs) > 1 else None
+        gb = grads[1] if len(grads) > 1 else None
         ref = wk.flow_warp_backward_plain(flow, srcs[0], grads[0], b, gb)
         # (grad_flow, grad_a, grad_b); the flow's gradient uses no atomics
-        same = [(got[0], again[0])]
+        same, src_grads = [(got[0], again[0])], got[1:]
     else:
-        fx, fy, mask = flow
-        gn = shape[5]
-        got = wk.grouped_warp_backward(srcs[0], fx, fy, mask, gn, grads[0])
-        again = wk.grouped_warp_backward(srcs[0], fx, fy, mask, gn,
-                                         grads[0])
-        ref = wk.grouped_warp_backward_plain(srcs[0], fx, fy, mask, gn,
+        ref = wk.grouped_warp_backward_plain(srcs[0], *flow, shape[5],
                                              grads[0])
-        same = list(zip(got[1:], again[1:]))
+        same, src_grads = list(zip(got[1:], again[1:])), got[:1]
     for g1, g2 in same:
         if not torch.equal(torch.nan_to_num(g1), torch.nan_to_num(g2)):
             raise AssertionError(f"{kind} {shape}: the flow or mask "
@@ -2888,6 +2940,13 @@ def grad_case(kind, shape, dtype, gen, flows="random"):
               if kind == "flow_warp_backward" else
               ("grad_x", "grad_flow_x", "grad_flow_y", "grad_mask"))
     err = check_grads(f"{kind} {shape} {flows}", labels, got, ref, dtype)
+    if dtype == torch.bfloat16:
+        got32 = _kernel_grads(kind, shape, [s.float() for s in srcs], flow,
+                              [g.float() for g in grads])
+        ref32 = got32[1:] if kind == "flow_warp_backward" else got32[:1]
+        for g16, g32 in zip(src_grads, ref32):
+            if g16 is not None:
+                rounded_once(f"{kind} {shape} {flows}", g16, g32)
     return err, (srcs, flow, grads)
 
 
@@ -2955,8 +3014,24 @@ def grad_kernels(dev, train_shapes, frame_calls):
                           ("flow_warp_backward", (1, 33, 65, 5, 0)),
                           ("grouped_warp_backward", (2, 19, 37, 48, 32, 16)),
                           ("grouped_warp_backward", (1, 17, 31, 12, 8, 4)))]
+    # the scatter paths: tiles cut unevenly and whole, boxes that fit, one
+    # launch with both paths, the trainer's 40 px offsets
+    tiled = [("flow_warp_backward", (2, 19, 37, 3, 48)),
+             ("flow_warp_backward", (1, 33, 65, 3, 48)),
+             ("flow_warp_backward", (1, 64, 64, 3, 48)),
+             ("grouped_warp_backward", (2, 19, 37, 48, 32, 16)),
+             ("grouped_warp_backward", (1, 33, 65, 48, 32, 16)),
+             ("grouped_warp_backward", (1, 64, 64, 48, 32, 16)),
+             ("grouped_warp_backward", (1, 33, 65, 12, 8, 4))]
+    paths = ([(k, s, f) for f in ("smooth2", "smooth12", "mixed")
+              for k, s in tiled]
+             + [(k, s, "smooth40") for k, s in tiled
+                if k == "grouped_warp_backward"]
+             + [("flow_warp_backward", (1, *EL_HW, 3, 48), "smooth12"),
+                ("grouped_warp_backward", (1, *EL_HW, 48, 32, 16),
+                 "smooth40")])
     cases = ([(k, s, "random") for k, s in train_shapes]
-             + [(k, s, "random") for k, s in sorted(frame)] + edges)
+             + [(k, s, "random") for k, s in sorted(frame)] + edges + paths)
     worst = {"flow_warp_backward": 0.0, "grouped_warp_backward": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for kind, shape, flows in cases:
@@ -2965,85 +3040,31 @@ def grad_kernels(dev, train_shapes, frame_calls):
                 worst[kind] = max(worst[kind], err)
         log(f"  {len(cases)} backward cases in {dtype}: against plain "
             "autograd within tolerance, flow and mask gradients "
-            "bit-equal across two launches")
+            "bit-equal across two launches"
+            + (", source gradients rounded once from f32"
+               if dtype == torch.bfloat16 else ""))
     return worst
 
 
-def grad_cost(kind, shape, elt):
-    """Bytes: the output gradient, the source and the flows (and mask) read
-    once, the source's and the flows' (and mask's) gradients written once.
-    Operations: ~30 per (pixel, channel) of the gradient arithmetic."""
-    if kind == "flow_warp_backward":
-        n, h, w, ca, cb = shape
-        c = ca + cb
-        return n * h * w * (3 * c * elt + 16), n * h * w * 30 * c
-    n, h, w, c_src, go, gn = shape
-    cg = c_src // gn
-    return (n * h * w * (2 * c_src * elt + go * cg * elt + 6 * go * 4),
-            n * h * w * go * 30 * cg)
-
-
 def grad_times(dev):
-    """Phase 18 (e): each backward kernel's time at the 1080p P-frame's EL
-    pair and grouped warp and at the training crop's, f32 and bf16, beside
-    its byte bound, the plain autograd's backward (its graph built once)
-    and, for flow_warp, F.grid_sample's backward (bilinear, border,
-    align_corners; its graph built once: the library call's yardstick,
-    which differs from JAX at the clip's ties)."""
-    gen = torch.Generator(device=dev).manual_seed(19)
+    """Phase 18 (e): `tools/warp_bench.py --backward`: each backward
+    kernel's time at the 1080p P-frame's EL pair and grouped warp and at
+    the training crop's, f32 and bf16, smooth and random flows, beside its
+    byte bound, the wrapper's zero-fill and rounding passes, the plain
+    autograd's backward and, for flow_warp, F.grid_sample's backward.
+    Returns {(kind, shape, dtype, flows): row}."""
     out = {}
-    shapes = GRAD_TIMED + [
-        ("flow_warp_backward", (1, TRAIN_CROP, TRAIN_CROP, 3, 48)),
-        ("grouped_warp_backward", (1, TRAIN_CROP, TRAIN_CROP, 48, 32, 16))]
-    for kind, shape in shapes:
-        for dtype in (torch.float32, torch.bfloat16):
-            srcs, flow, grads = _grad_inputs(gen, shape, dtype, kind)
-            with torch.enable_grad():
-                ins = [s.detach().requires_grad_() for s in srcs]
-                if kind == "flow_warp_backward":
-                    fl = flow.detach().requires_grad_()
-                    ins.append(fl)
-                    plain_out = plain.flow_warp(torch.cat(ins[:-1], -1), fl)
-                    g = torch.cat(grads, -1)
-                    kernel = lambda: wk.flow_warp_backward(  # noqa: E731
-                        flow, srcs[0], grads[0], srcs[1], grads[1])
-                else:
-                    ins += [t.detach().requires_grad_() for t in flow]
-                    plain_out = plain.grouped_warp_plain(*ins, shape[5])
-                    g = grads[0]
-                    kernel = lambda: wk.grouped_warp_backward(  # noqa: E731
-                        srcs[0], *flow, shape[5], grads[0])
-                plain_ms = time_ms(lambda: torch.autograd.grad(
-                    plain_out, ins, g, retain_graph=True), iters=10)
-                library_ms = None
-                if kind == "flow_warp_backward":
-                    x = torch.cat(srcs, -1).permute(0, 3, 1, 2) \
-                        .detach().requires_grad_()
-                    _, h, w, _ = flow.shape
-                    iy = torch.arange(h, device=dev,
-                                      dtype=torch.float32)[None, :, None]
-                    ix = torch.arange(w, device=dev,
-                                      dtype=torch.float32)[None, None, :]
-                    grid = torch.stack(
-                        [(ix + flow[..., 0]) / ((w - 1) / 2) - 1,
-                         (iy + flow[..., 1]) / ((h - 1) / 2) - 1], -1) \
-                        .to(dtype).requires_grad_()
-                    lib_out = F.grid_sample(x, grid, mode="bilinear",
-                                            padding_mode="border",
-                                            align_corners=True)
-                    gl = g.permute(0, 3, 1, 2)
-                    library_ms = time_ms(lambda: torch.autograd.grad(
-                        lib_out, (x, grid), gl, retain_graph=True))
-            ms = time_ms(kernel)
-            elt = 4 if dtype == torch.float32 else 2
-            bound, by = bound_ms(*grad_cost(kind, shape, elt))
-            key = (kind, shape, "f32" if elt == 4 else "bf16")
-            out[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                        "bound_by": by, "library_ms": library_ms}
-            lib = "" if library_ms is None else \
-                f", F.grid_sample backward {library_ms:.4f} ms"
-            log(f"  {kind} {shape} {key[2]}: {ms:.4f} ms (bound {bound:.4f}"
-                f" ms, {by}), plain autograd {plain_ms:.4f} ms{lib}")
+    for row in warp_bench.backward_run(dev):
+        key = (row["kind"], tuple(row["shape"]), row["dtype"], row["flows"])
+        out[key] = row
+        lib = ("" if row["library_ms"] is None else
+               f", F.grid_sample backward {row['library_ms']:.4f} ms")
+        log(f"  {key[0]} {key[1]} {key[2]} {key[3]}: {row['ms']:.4f} ms "
+            f"a call, the kernel {row['kernel_ms']:.4f} ms (bound "
+            f"{row['bound_ms']:.4f} ms, {row['bound_by']}; "
+            f"{row['share_of_bound']:.3f} of it), zero-fill and rounding "
+            f"{row['outside_ms']:.4f} ms, plain autograd "
+            f"{row['plain_ms']:.4f} ms{lib}")
     return out
 
 
@@ -3198,7 +3219,8 @@ def phase_training(dev, d, cfg, frame_calls):
     log(json.dumps({"training": cli_runs, "launches": counts}))
     entries = []
     for name, shape in GRAD_TIMED:
-        t = times[(name, shape, "f32")]
+        t = times[(name, shape, "float32", "random")]
+        smooth = "smooth40" if name == "grouped_warp_backward" else "smooth"
         entries.append({
             "name": name, "route": "cuda", "source": GRAD_SOURCE,
             "replaces": (GRAD_FLOW_REPLACES if name == "flow_warp_backward"
@@ -3208,7 +3230,14 @@ def phase_training(dev, d, cfg, frame_calls):
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": list(shape),
             "cascade_launches": counts["cascade"][name],
-            "bf16_ms": times[(name, shape, "bf16")]["ms"]})
+            "kernel_ms": t["kernel_ms"],
+            "bf16_ms": times[(name, shape, "bfloat16", "random")]["ms"],
+            "smooth_ms": times[(name, shape, "float32", "smooth")]["ms"],
+            f"{smooth}_ms": times[(name, shape, "float32", smooth)]["ms"],
+            "bf16_smooth_ms":
+                times[(name, shape, "bfloat16", "smooth")]["ms"],
+            "flows": "ms at random flows (+-6 px), the wrapper's call; "
+                     "kernel_ms the kernel alone; smooth at 12 px"})
     log(f"  phase 18: {time.perf_counter() - t0:.1f} s")
     return entries
 

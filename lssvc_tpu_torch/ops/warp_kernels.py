@@ -334,14 +334,17 @@ def flow_warp_backward(flow, a, grad_a, b=None, grad_b=None, need_a=True,
     flow (N, H, W, 2) f32; a, b (N, H, W, c) f32 or bf16; grad_a, grad_b
     the outputs' gradients.  On the GPU one launch of
     `lssvc_flow_warp_backward` (counted on `flow_warp_backward.launches`):
-    the sources' gradients summed in f32 by atomics and returned in their
-    dtype, the flow's in f32, summed over both sources' channels.  On the
-    CPU `flow_warp_backward_plain`."""
+    the sources' gradients summed in f32 (a tile's taps in a shared-memory
+    box flushed with vector reductions, or straight to global memory where
+    the box does not fit) and returned in their dtype, the flow's in f32,
+    summed over both sources' channels.  On the CPU
+    `flow_warp_backward_plain`."""
     if a.device.type == "cpu":
         gf, ga, gb = flow_warp_backward_plain(flow, a, grad_a, b, grad_b)
         return (gf if need_flow else None, ga if need_a else None,
                 gb if b is not None and need_b else None)
     n, h, w, ca = a.shape
+    _check_grid(n, h)
     a, flow = a.contiguous(), flow.contiguous()
     _check("a", a, (n, h, w, ca), _DTYPES, a.device)
     _check("flow", flow, (n, h, w, 2), (torch.float32,), a.device)
@@ -398,14 +401,18 @@ def grouped_warp_backward(x, flow_x, flow_y, mask, group_num, grad,
     (for x, flow_x, flow_y, mask) is False.
 
     On the GPU one launch of `lssvc_grouped_warp_backward` (counted on
-    `grouped_warp_backward.launches`): x's gradient summed in f32 by atomics
-    over the units and returned in x's dtype, the flows' and mask's per
-    unit in f32.  On the CPU `grouped_warp_backward_plain`."""
+    `grouped_warp_backward.launches`): x's gradient summed in f32 over the
+    units (each unit's taps over a tile in a shared-memory box flushed with
+    vector reductions, or straight to global memory) and returned in x's
+    dtype, the flows' and mask's per unit in f32.  The kernel refuses a
+    shape whose staged tile passes its shared memory (go * cg past about
+    1,000 in f32).  On the CPU `grouped_warp_backward_plain`."""
     if x.device.type == "cpu":
         got = grouped_warp_backward_plain(x, flow_x, flow_y, mask, group_num,
                                           grad)
         return tuple(g if nd else None for g, nd in zip(got, need))
     n, h, w, c_src = x.shape
+    _check_grid(n, h)
     go = flow_x.shape[-1]
     cg = c_src // group_num
     x = x.contiguous()

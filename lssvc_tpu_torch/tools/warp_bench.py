@@ -24,10 +24,35 @@ package in the same way:
     PYTHONPATH=<older tree> python lssvc_tpu_torch/tools/warp_bench.py
 
 (a tree whose wrappers take no `packed_out` skips `packed_run`).
+
+    python -m lssvc_tpu_torch.tools.warp_bench --backward [--kernel-only]
+
+times the warps' backward kernels instead (`backward_run`): the gradient
+of the 1080p EL pair (`wk.flow_warp_backward`) and of OffsetDiversity's
+grouped warp (`wk.grouped_warp_backward`), each also at the training crop
+256, f32 and bf16, on smooth flows (`smooth_field` at 12 px; for the
+grouped warp also a shared 12 px field plus per-unit smooth offsets of
+40 px, the trainer's uncapped range) and random flows (+-6 px a pixel).
+Each is timed as the wrapper's call (as the trainer pays it) and as the
+kernel alone (its C entry point called back to back on preallocated
+buffers, free of the wrapper's allocations, rounding pass and host work,
+which pace the calls at the crop), both with CUDA events.  Beside each:
+its byte bound (the output gradient,
+the source and the flows and mask read once, their gradients written
+once), the zero-fill and bf16 rounding passes the wrapper runs around
+the kernel, and unless
+`--kernel-only` the plain autograd's backward and, for the pair,
+`F.grid_sample`'s backward.  It calls only the two public wrappers, so
+
+    PYTHONPATH=<older tree> python lssvc_tpu_torch/tools/warp_bench.py \
+        --backward --kernel-only
+
+times an older tree's kernels in the same way.
 """
 
 from __future__ import annotations
 
+import argparse
 import inspect
 import json
 
@@ -182,11 +207,197 @@ def run(dev):
     }
 
 
-def main():
+# ---------------------------------------------------------------------------
+# The backward kernels
+
+CROP = 256  # the training crop
+BACKWARD = [("flow_warp_backward", EL_PAIR),
+            ("flow_warp_backward", (1, CROP, CROP, 3, 48)),
+            ("grouped_warp_backward", GROUPED),
+            ("grouped_warp_backward", (1, CROP, CROP, 48, 32, 16))]
+BACKWARD_FLOWS = {"flow_warp_backward": ("smooth", "random"),
+                  "grouped_warp_backward": ("smooth", "smooth40", "random")}
+RANDOM_FLOW_PX = 6.0  # random flows: uniform in +-6 px a pixel
+OFFSET_PX = 40.0  # OffsetDiversity's uncapped offsets in training
+
+
+def grad_cost(kind, shape, elt):
+    """Bytes: the output gradient, the source and the flows (and mask) read
+    once, the source's and the flows' (and mask's) gradients written once.
+    Operations: ~30 per (pixel, channel) of the gradient arithmetic."""
+    if kind == "flow_warp_backward":
+        n, h, w, ca, cb = shape
+        c = ca + cb
+        return n * h * w * (3 * c * elt + 16), n * h * w * 30 * c
+    n, h, w, c_src, go, gn = shape
+    cg = c_src // gn
+    return (n * h * w * (2 * c_src * elt + go * cg * elt + 6 * go * 4),
+            n * h * w * go * 30 * cg)
+
+
+def backward_inputs(gen, kind, shape, flows, dtype):
+    """Sources, flows (the grouped warp: flow_x, flow_y, mask) and output
+    gradients of one backward case."""
+    n, h, w = shape[:3]
+    if kind == "flow_warp_backward":
+        srcs = [uniform(gen, (n, h, w, c), 0, 1).to(dtype)
+                for c in shape[3:]]
+        flow = (smooth_field(gen, (n, h, w, 2), TIME_FLOW_PX)
+                if flows == "smooth" else
+                uniform(gen, (n, h, w, 2), -RANDOM_FLOW_PX, RANDOM_FLOW_PX))
+        return srcs, flow, [uniform(gen, s.shape, -1, 1).to(dtype)
+                            for s in srcs]
+    _, _, _, c_src, go, gn = shape
+    units = (n, h, w, go)
+    if flows == "smooth":
+        fx, fy = (smooth_field(gen, units, TIME_FLOW_PX) for _ in range(2))
+    elif flows == "smooth40":  # one motion field plus each unit's offset
+        base = smooth_field(gen, (n, h, w, 2), TIME_FLOW_PX)
+        fx, fy = (base[..., i:i + 1] + smooth_field(gen, units, OFFSET_PX)
+                  for i in range(2))
+    else:
+        fx, fy = (uniform(gen, units, -RANDOM_FLOW_PX, RANDOM_FLOW_PX)
+                  for _ in range(2))
+    mask = uniform(gen, units, 0, 1)
+    grad = uniform(gen, (n, h, w, go * (c_src // gn)), -1, 1).to(dtype)
+    return ([uniform(gen, (n, h, w, c_src), 0, 1).to(dtype)],
+            (fx.contiguous(), fy.contiguous(), mask), [grad])
+
+
+def _plain_and_library_ms(kind, shape, srcs, flow, grads):
+    """The plain autograd's backward (its graph built once) and, for the
+    pair, F.grid_sample's backward (bilinear, border, align_corners: the
+    library call's yardstick, which differs from JAX at the clip's
+    ties)."""
+    from lssvc_tpu_torch.ops import warp as plain
+
+    with torch.enable_grad():
+        ins = [s.detach().requires_grad_() for s in srcs]
+        if kind == "flow_warp_backward":
+            fl = flow.detach().requires_grad_()
+            out = plain.flow_warp(torch.cat(ins, -1), fl)
+            ins.append(fl)
+            g = torch.cat(grads, -1)
+        else:
+            ins += [t.detach().requires_grad_() for t in flow]
+            out = plain.grouped_warp_plain(*ins, shape[5])
+            g = grads[0]
+        plain_ms = time_ms(lambda: torch.autograd.grad(
+            out, ins, g, retain_graph=True), iters=5, warmup=1)
+        del out
+        if kind != "flow_warp_backward":
+            return plain_ms, None
+        x = torch.cat(srcs, -1).permute(0, 3, 1, 2).detach() \
+            .requires_grad_()
+        _, h, w, _ = flow.shape
+        iy = torch.arange(h, device=flow.device,
+                          dtype=torch.float32)[None, :, None]
+        ix = torch.arange(w, device=flow.device,
+                          dtype=torch.float32)[None, None, :]
+        grid = torch.stack([(ix + flow[..., 0]) / ((w - 1) / 2) - 1,
+                            (iy + flow[..., 1]) / ((h - 1) / 2) - 1], -1) \
+            .to(x.dtype).requires_grad_()
+        lib_out = F.grid_sample(x, grid, mode="bilinear",
+                                padding_mode="border", align_corners=True)
+        gl = g.permute(0, 3, 1, 2)
+        library_ms = time_ms(lambda: torch.autograd.grad(
+            lib_out, (x, grid), gl, retain_graph=True), iters=10)
+    return plain_ms, library_ms
+
+
+def kernel_ms(kind, shape, srcs, flow, grads):
+    """Device ms of the backward kernel alone: its C entry point
+    (`lssvc_flow_warp_backward` / `lssvc_grouped_warp_backward`, whose
+    signature every tree of the port shares) called back to back on
+    preallocated f32 accumulators and gradients."""
+    lib, dev = wk._grad_lib(), srcs[0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    dtype = wk._DTYPES[srcs[0].dtype]
+    acc = [torch.zeros(s.shape, dtype=torch.float32, device=dev)
+           for s in srcs]
+    n, h, w = shape[:3]
+    if kind == "flow_warp_backward":
+        gflow = torch.empty((n, h, w, 2), dtype=torch.float32, device=dev)
+        args = (srcs[0].data_ptr(), grads[0].data_ptr(), acc[0].data_ptr(),
+                shape[3], srcs[1].data_ptr(), grads[1].data_ptr(),
+                acc[1].data_ptr(), shape[4], flow.data_ptr(),
+                gflow.data_ptr(), n, h, w, dtype, stream)
+        fn = lib.lssvc_flow_warp_backward
+    else:
+        outs = [torch.empty(flow[0].shape, dtype=torch.float32, device=dev)
+                for _ in range(3)]
+        args = (srcs[0].data_ptr(), grads[0].data_ptr(),
+                *(t.data_ptr() for t in flow), acc[0].data_ptr(),
+                *(t.data_ptr() for t in outs), n, h, w, *shape[3:], dtype,
+                stream)
+        fn = lib.lssvc_grouped_warp_backward
+    if fn(*args) != 0:
+        raise RuntimeError(f"{kind} {shape}: the kernel launch failed")
+    return time_ms(lambda: fn(*args))
+
+
+def backward_run(dev, kernel_only=False):
+    """Each backward case's ms a wrapper call and ms of the kernel alone
+    beside its bound, the wrapper's zero-fill and rounding passes and
+    (unless kernel_only) the plain and library backward: a list of
+    dicts."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    out = []
+    for kind, shape in BACKWARD:
+        for dtype in (torch.float32, torch.bfloat16):
+            elt = torch.finfo(dtype).bits // 8
+            for flows in BACKWARD_FLOWS[kind]:
+                srcs, flow, grads = backward_inputs(gen, kind, shape, flows,
+                                                    dtype)
+                if kind == "flow_warp_backward":
+                    def kernel():
+                        return wk.flow_warp_backward(flow, srcs[0], grads[0],
+                                                     srcs[1], grads[1])
+                else:
+                    def kernel():
+                        return wk.grouped_warp_backward(srcs[0], *flow,
+                                                        shape[5], grads[0])
+
+                def outside():
+                    # the f32 accumulators the wrapper zeroes and, for
+                    # bf16, rounds into the sources' dtype
+                    return [wk._source_grad(torch.zeros(
+                        s.shape, dtype=torch.float32, device=dev), s)
+                        for s in srcs]
+
+                bound, by = bound_ms(*grad_cost(kind, shape, elt))
+                row = {"kind": kind, "shape": list(shape),
+                       "dtype": str(dtype)[6:], "flows": flows,
+                       "ms": time_ms(kernel),
+                       "kernel_ms": kernel_ms(kind, shape, srcs, flow,
+                                              grads),
+                       "bound_ms": bound, "bound_by": by,
+                       "outside_ms": time_ms(outside)}
+                row["share_of_bound"] = bound / row["kernel_ms"]
+                if not kernel_only:
+                    row["plain_ms"], row["library_ms"] = \
+                        _plain_and_library_ms(kind, shape, srcs, flow, grads)
+                out.append(row)
+                del srcs, flow, grads
+                torch.cuda.empty_cache()
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--backward", action="store_true",
+                    help="time the warps' backward kernels")
+    ap.add_argument("--kernel-only", action="store_true",
+                    help="with --backward: skip the plain and library "
+                         "backward")
+    args = ap.parse_args(argv)
     dev = require_cuda()
-    result = run(dev)
-    if "packed_out" in inspect.signature(wk.flow_warp_pair).parameters:
-        result["packed"] = packed_run(dev)
+    if args.backward:
+        result = {"backward": backward_run(dev, args.kernel_only)}
+    else:
+        result = run(dev)
+        if "packed_out" in inspect.signature(wk.flow_warp_pair).parameters:
+            result["packed"] = packed_run(dev)
     print(json.dumps(result), flush=True)
     print(card(), flush=True)
 

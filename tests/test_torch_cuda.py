@@ -880,6 +880,144 @@ def test_grouped_warp_backward_kernel(dev, dtype):
         _bits(a, b)
 
 
+def _smooth(shape, seed, amp, dev, cell=16):
+    """A field of amplitude amp that varies over `cell` pixels: a coarse
+    uniform grid upsampled bilinearly (a codec's motion)."""
+    n, h, w, c = shape
+    coarse = _uniform((n, c, h // cell + 2, w // cell + 2), seed, -amp, amp,
+                      dev)
+    return torch.nn.functional.interpolate(
+        coarse, size=(h, w), mode="bilinear",
+        align_corners=False).permute(0, 2, 3, 1).contiguous()
+
+
+def _path_flows(kind, shape, seed, dev):
+    """Flows that send the kernels' tiles down each scatter path: "smooth"
+    (2 px: every tile's box fits), "direct" (random, far past the
+    borders: no box fits), "mixed" (the left half smooth, the right half
+    direct, in one launch), "smooth40" (12 px plus 40 px smooth offsets
+    per channel: the grouped warp's uncapped offsets)."""
+    n, h, w, c = shape
+    if kind == "smooth":
+        return _smooth(shape, seed, 2.0, dev)
+    far = _uniform(shape, seed, -3 * w, 3 * w, dev)
+    if kind == "direct":
+        return far
+    if kind == "mixed":
+        f = _smooth(shape, seed + 1, 2.0, dev)
+        f[:, :, w // 2:] = far[:, :, w // 2:]
+        return f
+    return _smooth((n, h, w, 1), seed, 12.0, dev) + _smooth(shape, seed + 2,
+                                                            40.0, dev)
+
+
+def _rounded_once(got, ref32):
+    """A bf16 source gradient is the f32 one rounded once: within half a
+    bf16 ulp, plus 1e-5 max|ref| for the f32 sums' order."""
+    g, r = got.float(), ref32
+    slack = 2.0 ** -8 * r.abs() + 1e-5 * float(r.abs().max())
+    assert bool(((g - r).abs() <= slack).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("flows", ["smooth", "direct", "mixed"])
+@pytest.mark.parametrize("hw", [(19, 37), (33, 65), (64, 64)])
+def test_flow_warp_backward_scatter_paths(dev, dtype, flows, hw):
+    """The pair's backward on tiles cut unevenly (19x37, 33x65) and whole
+    (64x64, 8x32 tiles), batch 2 at 19x37, on each scatter path: the plain
+    autograd's gradients, the flow's bit-equal across two launches, a bf16
+    source's the f32 kernel's rounded once."""
+    n = 2 if hw == (19, 37) else 1
+    h, w = hw
+    a = _uniform((n, h, w, 3), 21, 0, 1, dev, dtype)
+    b = _uniform((n, h, w, 48), 22, 0, 1, dev, dtype)
+    flow = _path_flows(flows, (n, h, w, 2), 23, dev)
+    g_a = _uniform((n, h, w, 3), 24, -1, 1, dev, dtype)
+    g_b = _uniform((n, h, w, 48), 25, -1, 1, dev, dtype)
+    got = wk.flow_warp_backward(flow, a, g_a, b, g_b)
+    ref = wk.flow_warp_backward_plain(flow, a, g_a, b, g_b)
+    for x, y in zip(got, ref):
+        _grad_tol(x, y, dtype if x.dtype == dtype else torch.float32)
+    _bits(wk.flow_warp_backward(flow, a, g_a, b, g_b)[0], got[0])
+    if dtype == torch.bfloat16:
+        got32 = wk.flow_warp_backward(flow, a.float(), g_a.float(),
+                                      b.float(), g_b.float())
+        for x, y in zip(got[1:], got32[1:]):
+            _rounded_once(x, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("flows", ["smooth", "smooth40", "direct", "mixed"])
+@pytest.mark.parametrize("hw", [(19, 37), (33, 65), (64, 64)])
+def test_grouped_warp_backward_scatter_paths(dev, dtype, flows, hw):
+    """The grouped warp's backward at the model's shape on tiles cut
+    unevenly and whole (8x8 tiles), on each scatter path: the plain
+    autograd's gradients, the flow and mask gradients bit-equal across two
+    launches, x's the f32 kernel's rounded once in bf16."""
+    n = 2 if hw == (19, 37) else 1
+    h, w = hw
+    go, gn = 32, 16
+    x = _uniform((n, h, w, 48), 26, 0, 1, dev, dtype)
+    fx = _path_flows(flows, (n, h, w, go), 27, dev)
+    fy = _path_flows(flows, (n, h, w, go), 28, dev)
+    m = _uniform((n, h, w, go), 29, 0, 1, dev)
+    g = _uniform((n, h, w, 96), 30, -1, 1, dev, dtype)
+    got = wk.grouped_warp_backward(x, fx, fy, m, gn, g)
+    ref = wk.grouped_warp_backward_plain(x, fx, fy, m, gn, g)
+    for a, b in zip(got, ref):
+        _grad_tol(a, b, dtype if a.dtype == dtype else torch.float32)
+    for a, b in zip(wk.grouped_warp_backward(x, fx, fy, m, gn, g)[1:],
+                    got[1:]):
+        _bits(a, b)
+    if dtype == torch.bfloat16:
+        got32 = wk.grouped_warp_backward(x.float(), fx, fy, m, gn,
+                                         g.float())
+        _rounded_once(got[0], got32[0])
+
+
+@pytest.mark.parametrize("flows", ["smooth", "mixed"])
+@pytest.mark.parametrize("c_src,go,gn", [(8, 8, 4), (48, 16, 16),
+                                         (6, 12, 3), (12, 8, 4)])
+def test_grouped_warp_backward_other_shapes(dev, flows, c_src, go, gn):
+    """Shapes other than the model's take the kernel's runtime constants,
+    on both scatter paths."""
+    shape = (2, 13, 29)
+    x = _uniform((*shape, c_src), 31, 0, 1, dev)
+    fx = _path_flows(flows, (*shape, go), 32, dev)
+    fy = _path_flows(flows, (*shape, go), 33, dev)
+    m = _uniform((*shape, go), 34, 0, 1, dev)
+    g = _uniform((*shape, go * c_src // gn), 35, -1, 1, dev)
+    got = wk.grouped_warp_backward(x, fx, fy, m, gn, g)
+    ref = wk.grouped_warp_backward_plain(x, fx, fy, m, gn, g)
+    for a, b in zip(got, ref):
+        _grad_tol(a, b, torch.float32)
+    for a, b in zip(wk.grouped_warp_backward(x, fx, fy, m, gn, g)[1:],
+                    got[1:]):
+        _bits(a, b)
+
+
+def test_warp_backward_misaligned_sources(dev):
+    """Sources one element past alignment take the scalar lanes of
+    flow_warp_backward and the runtime path of grouped_warp_backward."""
+    n, h, w = 1, 21, 45
+    a = _misaligned(_uniform((n, h, w, 48), 36, 0, 1, dev))
+    assert a.data_ptr() % 16
+    flow = _path_flows("mixed", (n, h, w, 2), 37, dev)
+    g_a = _uniform((n, h, w, 48), 38, -1, 1, dev)
+    got = wk.flow_warp_backward(flow, a, g_a)
+    ref = wk.flow_warp_backward_plain(flow, a, g_a)
+    for x, y in zip(got[:2], ref[:2]):
+        _grad_tol(x, y, torch.float32)
+    fx = _path_flows("smooth", (n, h, w, 32), 39, dev)
+    fy = _path_flows("smooth", (n, h, w, 32), 40, dev)
+    m = _uniform((n, h, w, 32), 41, 0, 1, dev)
+    g = _uniform((n, h, w, 96), 42, -1, 1, dev)
+    got = wk.grouped_warp_backward(a, fx, fy, m, 16, g)
+    ref = wk.grouped_warp_backward_plain(a, fx, fy, m, 16, g)
+    for x, y in zip(got, ref):
+        _grad_tol(x, y, torch.float32)
+
+
 def test_packed_warps_refuse_grad_on_the_card(dev):
     a = _uniform((1, 8, 16, 3), 13, 0, 1, dev).requires_grad_()
     b = _uniform((1, 8, 16, 48), 14, 0, 1, dev)

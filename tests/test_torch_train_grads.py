@@ -238,14 +238,38 @@ def test_offset_cap_tie_matches_jax():
 # ---------------------------------------------------------------------------
 # The plain warp twins' autograd
 
-FLOWS = ["random", "past_borders", "integer_on_border"]
+# "smooth_tile_edges": the card kernels' scatter paths at shapes that cut
+# their tiles (8x32 for flow_warp, 8x8 for grouped_warp) unevenly, batch
+# 2: smooth 12 px flows, the grouped warp's units each with its own smooth
+# 40 px offset on top (the trainer's uncapped OffsetDiversity range)
+FLOWS = ["random", "past_borders", "integer_on_border", "smooth_tile_edges"]
 
 
-def _flows(kind, rng, shape, h, w):
+def _hw(kind):
+    return (19, 37) if kind == "smooth_tile_edges" else (9, 13)
+
+
+def _smooth(rng, shape, amp, cell=8):
+    """A field of amplitude amp varying over `cell` pixels: a coarse
+    uniform grid interpolated bilinearly."""
+    n, h, w, c = shape
+    coarse = rng.uniform(-amp, amp, (n, h // cell + 2, w // cell + 2, c))
+    y, x = np.arange(h) / cell, np.arange(w) / cell
+    y0, x0 = np.floor(y).astype(int), np.floor(x).astype(int)
+    wy, wx = (y - y0)[None, :, None, None], (x - x0)[None, None, :, None]
+    rows = coarse[:, y0] * (1 - wy) + coarse[:, y0 + 1] * wy
+    out = rows[:, :, x0] * (1 - wx) + rows[:, :, x0 + 1] * wx
+    return out.astype(np.float32)
+
+
+def _flows(kind, rng, shape, h, w, units=False):
     if kind == "random":
         return rng.uniform(-3, 3, shape).astype(np.float32)
     if kind == "past_borders":
         return rng.uniform(-3 * w, 3 * w, shape).astype(np.float32)
+    if kind == "smooth_tile_edges":
+        flow = _smooth(rng, shape[:3] + (1,) if units else shape, 12.0)
+        return flow + _smooth(rng, shape, 40.0) if units else flow
     # integer flows, many landing exactly on a border
     return np.round(rng.uniform(-w, w, shape)).astype(np.float32)
 
@@ -253,7 +277,7 @@ def _flows(kind, rng, shape, h, w):
 @pytest.mark.parametrize("flows", FLOWS)
 def test_flow_warp_twin_grad_matches_jax(flows):
     rng = np.random.default_rng(5)
-    n, h, w, c = 2, 9, 13, 5
+    (h, w), n, c = _hw(flows), 2, 5
     x = rng.random((n, h, w, c), np.float32)
     flow = _flows(flows, rng, (n, h, w, 2), h, w)
     wt = rng.standard_normal((n, h, w, c)).astype(np.float32)
@@ -267,10 +291,10 @@ def test_flow_warp_twin_grad_matches_jax(flows):
 @pytest.mark.parametrize("flows", FLOWS)
 def test_grouped_warp_twin_grad_matches_jax(flows):
     rng = np.random.default_rng(6)
-    n, h, w, c_src, go, gn = 2, 9, 13, 12, 8, 4
+    (h, w), n, c_src, go, gn = _hw(flows), 2, 12, 8, 4
     x = rng.random((n, h, w, c_src), np.float32)
-    fx = _flows(flows, rng, (n, h, w, go), h, w)
-    fy = _flows(flows, rng, (n, h, w, go), h, w)
+    fx = _flows(flows, rng, (n, h, w, go), h, w, units=True)
+    fy = _flows(flows, rng, (n, h, w, go), h, w, units=True)
     mask = rng.random((n, h, w, go), np.float32)
     wt = rng.standard_normal((n, h, w, go * c_src // gn)).astype(np.float32)
 
