@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.nn import clip, matmul_highest, ste_round
+from ..ops.strips import global_sum
 
 LOG2 = math.log(2.0)
 
@@ -57,9 +58,10 @@ def bit_estimator_forward(p, x):
 
 
 def likelihood_to_bits(probs):
-    """sum(clamp(-log(p + 1e-5)/log 2, 0, 50)) — reference bit-count clamps."""
+    """sum(clamp(-log(p + 1e-5)/log 2, 0, 50)) — reference bit-count clamps
+    (over the whole frame on H-strips, `ops/strips.py`)."""
     bits = clip(-torch.log(probs + 1e-5) / LOG2, 0.0, 50.0)
-    return torch.sum(bits)
+    return global_sum(bits)
 
 
 def factorized_bits(p, z):

@@ -303,9 +303,9 @@ def me_spynet(p, im1, im2, levels: int = 4):
         im1_list.append(avg_pool2d(im1_list[-1], 2))
         im2_list.append(avg_pool2d(im2_list[-1], 2))
 
-    n, h, w, _ = im2_list[levels - 1].shape
-    flow = torch.zeros((n, h // 2, w // 2, 2), dtype=im1.dtype,
-                       device=im1.device)
+    # zeros at half the coarsest level, shaped by a pool of it, so that on
+    # H-strips they are that level's strip or whole tensor
+    flow = torch.zeros_like(avg_pool2d(im1_list[levels - 1][..., :2], 2))
     for level in range(levels):
         flow_up = bilinear_upsample2(flow) * 2.0
         i1 = im1_list[levels - 1 - level]

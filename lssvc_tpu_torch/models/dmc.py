@@ -13,6 +13,7 @@ from ..convert import P
 from ..entropy.models import factorized_bits, laplace_bits
 from ..ops import clamp_flow, flow_warp, flow_warp_pair, leaky_relu, ste_round
 from ..ops.nn import compute_dtype
+from ..ops.strips import global_rows
 from .base import Model, scoped
 from .components import (
     cat,
@@ -142,7 +143,7 @@ def forward_inter(params, x, ref_frame, ref_feature):
     bits_mv_z, _ = factorized_bits(p.sub("bit_estimator_z_mv"), mv_z_hat)
     total_bits = bits_y + bits_z + bits_mv_y + bits_mv_z
 
-    pixel_num = x.shape[0] * x.shape[1] * x.shape[2]
+    pixel_num = x.shape[0] * global_rows(x) * x.shape[2]
     return {
         "bpp": total_bits / pixel_num,
         "bits": total_bits,

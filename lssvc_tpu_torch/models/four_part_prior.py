@@ -14,14 +14,16 @@ import numpy as np
 import torch
 
 from ..ops import ste_round
+from ..ops.strips import row_offset
 from .components import cat, conv, depth_conv_block
 
 PASS_MASKS = ((0, 1, 2, 3), (3, 2, 1, 0), (2, 3, 0, 1), (1, 0, 3, 2))
 
 
-def checkerboard_masks(h: int, w: int, device):
-    """Four (1,H,W,1) quad-phase masks: mask k selects (row%2, col%2) phase."""
-    rows = np.arange(h) % 2
+def checkerboard_masks(h: int, w: int, device, row0: int = 0):
+    """Four (1,H,W,1) quad-phase masks: mask k selects (row%2, col%2) phase;
+    `row0` is the first row's global index (a strip's offset on H-strips)."""
+    rows = (row0 + np.arange(h)) % 2
     cols = np.arange(w) % 2
     masks = []
     for (r, c) in ((0, 0), (0, 1), (1, 0), (1, 1)):
@@ -51,7 +53,7 @@ def _process(y_q_quarter, scales_q, means_q, mask):
 def forward_four_part_prior(p, y, common_params):
     """Forward all 4 passes. Returns (y_res, y_q, y_hat, scales_hat)."""
     _, h, w, _ = y.shape
-    masks = checkerboard_masks(h, w, y.device)
+    masks = checkerboard_masks(h, w, y.device, row_offset(y))
 
     half = common_params.shape[-1] // 2
     scales, means = common_params[..., :half], common_params[..., half:]

@@ -29,6 +29,7 @@ from ..entropy.models import (
     gaussian_conditional_likelihood,
 )
 from ..ops import leaky_relu, ste_round
+from ..ops.strips import global_sum
 from ..utils.stream import decode_i, encode_i, filesize, get_downsampled_shape
 from .base import Model, scoped
 from .components import (
@@ -113,7 +114,8 @@ def forward(params, x):
     y_hat, z_hat, y_lik, z_lik, scales_hat, means_hat = \
         hyper_synthesis_quantize(params, y, z)
     x_hat = g_s(P(params).sub("g_s"), y_hat)
-    bits = (torch.sum(torch.log(y_lik)) + torch.sum(torch.log(z_lik))) / (-LOG2)
+    bits = (global_sum(torch.log(y_lik))
+            + global_sum(torch.log(z_lik))) / (-LOG2)
     return {
         "x_hat": x_hat,
         "y_hat": y_hat,
@@ -132,7 +134,8 @@ def recon_from_yz(params, y, z):
     bits."""
     y_hat, _, y_lik, z_lik, _, _ = hyper_synthesis_quantize(params, y, z)
     x_hat = g_s(P(params).sub("g_s"), y_hat)
-    bits = (torch.sum(torch.log(y_lik)) + torch.sum(torch.log(z_lik))) / (-LOG2)
+    bits = (global_sum(torch.log(y_lik))
+            + global_sum(torch.log(z_lik))) / (-LOG2)
     return {"x_hat": x_hat, "y_hat": y_hat, "bit": bits}
 
 

@@ -26,6 +26,7 @@ from ..entropy.models import (
     gaussian_conditional_likelihood,
 )
 from ..ops import bilinear_resize, leaky_relu, pad_nhwc, ste_round
+from ..ops.strips import global_sum
 from . import intra_noar
 from .base import Model, scoped
 from .components import (
@@ -132,7 +133,8 @@ def _el_forward(params, x_el, bl_x_hat, bl_y_hat, bl_bit, shape_hr, pad_size):
     y_hat = ste_round(y - means_hat) + means_hat
     y_lik = gaussian_conditional_likelihood(y_hat, scales_hat, means_hat)
     feature, x_hat = el_synthesis(params, y_hat, c1, c2, c3)
-    bit_el = (torch.sum(torch.log(y_lik)) + torch.sum(torch.log(z_lik))) / (-LOG2)
+    bit_el = (global_sum(torch.log(y_lik))
+              + global_sum(torch.log(z_lik))) / (-LOG2)
     return {
         "bit_bl": bl_bit,
         "bit_el": bit_el,

@@ -34,12 +34,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .. import build
+from . import spatial_ctx, strips
 
 CIN_ALIGN = 32  # the kernel's K step: one wgmma m64nNk32 s8
 # the kernel's Cout chunks (the N of one wgmma), narrowest first; a Cout
@@ -212,7 +214,21 @@ def int8_conv2d(x, w, stride=1, padding=None, s_in=None, mult=None,
     `quant_act`'s arithmetic).  w: an s8 OIHW tensor or an `Int8Weight`
     (whose kernel layout is then built once).  padding as the JAX
     package's (None: (k-1)//2 each side).  Returns s32 (N, Ho, Wo, Cout),
-    or bf16(f32(acc) * mult + bias) with `mult` and `bias` ((Cout,) f32)."""
+    or bf16(f32(acc) * mult + bias) with `mult` and `bias` ((Cout,) f32).
+    On H-strips (`ops/strips.py`) each rank convolves the rows its output
+    rows read, fetched from its neighbours."""
+    if spatial_ctx.active():
+        kh, kw = (w.w_q if isinstance(w, Int8Weight) else w).shape[2:]
+        (pt, pb), (pl, pr) = _padding(kh, kw, padding)
+        sh = stride if isinstance(stride, int) else stride[0]
+        with_rows = functools.partial(
+            _int8_conv2d, w=w, stride=stride, padding=((0, 0), (pl, pr)),
+            s_in=s_in, mult=mult, bias=bias)
+        return strips.conv_rows(x, kh, sh, (pt, pb), with_rows)
+    return _int8_conv2d(x, w, stride, padding, s_in, mult, bias)
+
+
+def _int8_conv2d(x, w, stride, padding, s_in, mult, bias):
     if x.device.type == "cpu":
         return int8_conv2d_plain(x, w, stride, padding, s_in, mult, bias)
     args, out = _kernel_args(x, w, stride, padding, s_in, mult, bias)
@@ -417,7 +433,7 @@ class Int8Sites:
     def record(self, key: str, x: torch.Tensor):
         """A conv site's input; kept only inside a recording."""
         if self.stats is not None:
-            a = x.float().abs().amax()
+            a = strips.level_max(x.float().abs())
             prev = self.stats.get(key)
             self.stats[key] = a if prev is None else torch.maximum(prev, a)
 

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import spatial_ctx, strips
 from .int8 import Int8Sites
 
 PRECISIONS = ("fp32", "high", "bf16", "bf16_f32out", "int8")
@@ -289,26 +290,42 @@ def _nhwc(y):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def pad_nhwc(x, pad_lrtb, value=0.0):
-    """Pad/crop W (left, right) and H (top, bottom) of an NHWC tensor;
-    negative entries crop, like torch.nn.functional.pad."""
+def _pad(x, pad_lrtb, value=0.0):
     left, right, top, bottom = pad_lrtb
     if left == right == top == bottom == 0:
         return x
     return F.pad(x, (0, 0, left, right, top, bottom), value=value)
 
 
+def pad_nhwc(x, pad_lrtb, value=0.0):
+    """Pad/crop W (left, right) and H (top, bottom) of an NHWC tensor;
+    negative entries crop, like torch.nn.functional.pad.  On H-strips
+    (`ops/strips.py`) H is padded at the frame's top and bottom."""
+    if spatial_ctx.active():
+        return strips.pad(x, pad_lrtb, value, _pad)
+    return _pad(x, pad_lrtb, value)
+
+
 def conv2d(x, w, b=None, stride=1, padding=None, groups=1):
     """2D convolution in the current mode. x: NHWC, w: OIHW ((out,
     in/groups, kh, kw)).
 
-    `padding` defaults to (k-1)//2 per axis; pass an int or (ph, pw)."""
+    `padding` defaults to (k-1)//2 per axis; pass an int or (ph, pw); on
+    H-strips (`ops/strips.py`) also ((top, bottom), (left, right))."""
     if padding is None:
         padding = ((w.shape[2] - 1) // 2, (w.shape[3] - 1) // 2)
+    elif isinstance(padding, int):
+        padding = (padding, padding)
+    if spatial_ctx.active():
+        return strips.conv2d(x, w, b, stride, padding, groups, _conv2d)
+    return _conv2d(x, w, b, stride, padding, groups)
+
+
+def _conv2d(x, w, b, stride, padding, groups):
     x, w, b = _operands(x, w, b)
     if (current_mode().conv1x1_einsum and w.shape[2:] == (1, 1)
             and groups == 1 and stride in (1, (1, 1))
-            and padding in (0, (0, 0))):
+            and tuple(padding) == (0, 0)):
         # the JAX package's `ops/nn.py:184-195,248-255`: a matmul, then
         # the bias in the output's dtype
         out = torch.matmul(x, w[:, :, 0, 0].t())
@@ -356,24 +373,39 @@ def conv_transpose2d(x, w, b=None, stride=2, padding=1, output_padding=1):
     w2 = taps[:, :, _deconv_gather(w.device)].reshape(cin, cout, 2, 2, 2, 2) \
         .permute(1, 2, 3, 0, 4, 5).reshape(4 * cout, cin, 2, 2)
     b2 = None if b is None else b.repeat_interleave(4)
+    if spatial_ctx.active():
+        # the 2x2 conv reads one row below: the next strip's first
+        return pixel_shuffle(conv2d(x, w2, b2, padding=((0, 1), (0, 1))), 2)
     return pixel_shuffle(conv2d(pad_nhwc(x, (0, 1, 0, 1)), w2, b2,
                                 padding=0), 2)
 
 
-def pixel_shuffle(x, r: int):
-    """Sub-pixel upsample (torch PixelShuffle) on NHWC: C*r^2 -> C, HxW -> rHxrW."""
+def _pixel_shuffle(x, r: int):
     n, h, w, c = x.shape
     oc = c // (r * r)
     x = x.reshape(n, h, w, oc, r, r).permute(0, 1, 4, 2, 5, 3)
     return x.reshape(n, h * r, w * r, oc)
 
 
+def pixel_shuffle(x, r: int):
+    """Sub-pixel upsample (torch PixelShuffle) on NHWC: C*r^2 -> C, HxW -> rHxrW."""
+    if spatial_ctx.active():
+        return strips.pixel_shuffle(x, r, _pixel_shuffle)
+    return _pixel_shuffle(x, r)
+
+
 def avg_pool2d(x, k: int = 2):
-    return _nhwc(F.avg_pool2d(_nchw(x), k))
+    def pool(t):
+        return _nhwc(F.avg_pool2d(_nchw(t), k))
+
+    return strips.pool2d(x, k, pool) if spatial_ctx.active() else pool(x)
 
 
 def max_pool2d(x, k: int = 2):
-    return _nhwc(F.max_pool2d(_nchw(x), k))
+    def pool(t):
+        return _nhwc(F.max_pool2d(_nchw(t), k))
+
+    return strips.pool2d(x, k, pool) if spatial_ctx.active() else pool(x)
 
 
 def clip(x, lo: float, hi: float):

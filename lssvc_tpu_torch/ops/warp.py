@@ -24,6 +24,7 @@ import functools
 import numpy as np
 import torch
 
+from . import spatial_ctx, strips
 from .nn import clip, compute_dtype
 
 
@@ -32,7 +33,10 @@ def clamp_flow(flow, h, w):
 
     Exact under the border-clamping warp: a flow component beyond +-S lands
     outside [0, S-1] on the same side as one clamped at +-S.  Non-finite
-    components map to the same saturated bounds (NaN -> 0)."""
+    components map to the same saturated bounds (NaN -> 0).  On H-strips
+    the bound is the frame's global height, whatever `h` says."""
+    if spatial_ctx.active():
+        h = strips.global_rows(flow)
     big = float(max(h, w))
     bound = torch.tensor([w, h], dtype=flow.dtype, device=flow.device)
     flow = torch.nan_to_num(flow, nan=0.0, posinf=big, neginf=-big)
@@ -201,9 +205,11 @@ def bilinear_resize(x, out_hw):
     Exact 2x / 0.5x factors take the 2-tap lerp path; other factors apply
     the 2-banded resize matrices as dense products, matrices and operand in
     the current mode's compute dtype (`lssvc_tpu/ops/warp.py:276-285`),
-    the result in x's dtype."""
+    the result in x's dtype.  On H-strips `out_hw` is the frame's global
+    size, and a rank takes the rows of the H matrix for its output rows
+    times the input rows they touch (`ops/strips.py`)."""
     out_h, out_w = int(out_hw[0]), int(out_hw[1])
-    h, w = x.shape[1], x.shape[2]
+    h, w = strips.global_rows(x), x.shape[2]
     if (h, w) == (out_h, out_w):
         return x
     if (out_h, out_w) == (2 * h, 2 * w):
@@ -211,10 +217,16 @@ def bilinear_resize(x, out_hw):
     if (2 * out_h, 2 * out_w) == (h, w):
         return bilinear_downsample2(x)
     dt = compute_dtype()
-    mh = torch.from_numpy(_bilinear_matrix(h, out_h)).to(x.device, dt)
     mw = torch.from_numpy(_bilinear_matrix(w, out_w)).to(x.device, dt)
-    y = torch.einsum("oh,nhwc->nowc", mh, x.to(dt))
-    return torch.einsum("pw,nowc->nopc", mw, y).to(x.dtype)
+
+    def resize(rows, mat):
+        mh = torch.from_numpy(np.ascontiguousarray(mat)).to(x.device, dt)
+        y = torch.einsum("oh,nhwc->nowc", mh, rows.to(dt))
+        return torch.einsum("pw,nowc->nopc", mw, y).to(x.dtype)
+
+    if spatial_ctx.active():
+        return strips.resize_rows(x, _bilinear_matrix(h, out_h), resize)
+    return resize(x, _bilinear_matrix(h, out_h))
 
 
 def _up2_axis(x, axis):
@@ -231,13 +243,25 @@ def _up2_axis(x, axis):
     return stacked.reshape(new_shape)
 
 
+def _upsample2(x):
+    return _up2_axis(_up2_axis(x, 1), 2)
+
+
 def bilinear_upsample2(x):
     """2x bilinear upsample (reference `bilinearupsacling`), 2-tap lerps."""
-    return _up2_axis(_up2_axis(x, 1), 2)
+    if spatial_ctx.active():
+        return strips.upsample2(x, _upsample2)
+    return _upsample2(x)
+
+
+def _downsample2(x):
+    y = 0.5 * (x[:, 0::2] + x[:, 1::2])
+    return 0.5 * (y[:, :, 0::2] + y[:, :, 1::2])
 
 
 def bilinear_downsample2(x):
     """0.5x bilinear downsample (reference `bilineardownsacling`): the mean
     of the two source rows, then of the two source columns."""
-    y = 0.5 * (x[:, 0::2] + x[:, 1::2])
-    return 0.5 * (y[:, :, 0::2] + y[:, :, 1::2])
+    if spatial_ctx.active():
+        return strips.downsample2(x, _downsample2)
+    return _downsample2(x)

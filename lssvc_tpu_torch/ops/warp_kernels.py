@@ -25,6 +25,13 @@ Each wrapper counts its kernel launches in `<wrapper>.launches`, and the
 packed stores among them also in `<wrapper>.packed_launches`, so a run can
 show that the model path went through the kernels.
 
+H-strips.  While `ops.spatial_ctx` is active the three warps route through
+the halo-exchange wrappers of `parallel/spatial.py`, as the JAX package's
+`flow_warp_auto` / `grouped_warp_auto` do (`warp_pallas.py:1243-1260,
+1342-1355`): each rank launches the kernel on its neighbour-padded strip,
+or, past the halo, on the gathered frame; `packed_out` packs after the
+sharded warp.
+
 Gradients.  On the GPU the warps are `torch.autograd.Function`s whose
 backward launches the hand-written kernels of `csrc/warp_grad.cu`
 (`flow_warp_backward`, `grouped_warp_backward`, each counting its own
@@ -45,6 +52,7 @@ import ctypes
 import torch
 
 from .. import build
+from . import spatial_ctx
 from .packed import pack_width
 from .warp import flow_warp as flow_warp_plain
 from .warp import grouped_warp_plain
@@ -192,6 +200,12 @@ def flow_warp(x, flow, packed_out=False):
     if packed_out:
         _check_even(x.shape[2])
         _refuse_grad(x, flow)
+    if spatial_ctx.active():
+        from ..parallel.spatial import flow_warp_sharded_auto
+
+        out = flow_warp_sharded_auto(x, flow, spatial_ctx.GROUP,
+                                     spatial_ctx.HALO)
+        return pack_width(out, 2) if packed_out else out
     if x.device.type == "cpu":
         out = flow_warp_plain(x, flow)
         return pack_width(out, 2) if packed_out else out
@@ -219,6 +233,12 @@ def flow_warp_pair(a, b, flow, packed_out=False):
     if packed_out:
         _check_even(a.shape[2])
         _refuse_grad(a, b, flow)
+    if spatial_ctx.active():
+        from ..parallel.spatial import flow_warp_pair_sharded_auto
+
+        out = flow_warp_pair_sharded_auto(a, b, flow, spatial_ctx.GROUP,
+                                          spatial_ctx.HALO)
+        return pack_width(torch.cat(out, dim=-1), 2) if packed_out else out
     if a.device.type == "cpu":
         ca = a.shape[-1]
         out = flow_warp_plain(torch.cat([a, b], dim=-1), flow)
@@ -291,6 +311,13 @@ def grouped_warp(x, flow_x, flow_y, mask, group_num: int, packed_out=False):
     if packed_out:
         _check_even(x.shape[2])
         _refuse_grad(x, flow_x, flow_y, mask)
+    if spatial_ctx.active():
+        from ..parallel.spatial import grouped_warp_sharded_auto
+
+        out = grouped_warp_sharded_auto(x, flow_x, flow_y, mask, group_num,
+                                        spatial_ctx.GROUP,
+                                        spatial_ctx.HALO_GROUPED)
+        return pack_width(out, 2) if packed_out else out
     if x.device.type == "cpu":
         out = grouped_warp_plain(x, flow_x, flow_y, mask, group_num)
         return pack_width(out, 2) if packed_out else out

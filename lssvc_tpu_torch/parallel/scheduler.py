@@ -34,6 +34,7 @@ from ..models import IntraSS
 from ..models.init import init_intra_ss, init_lssvc
 from ..models.lssvc_stream import LSSVCExtend
 from ..ops.nn import backend_flags, packed_ctx_from_env, serving_mode
+from ..utils.platform import resolve_device
 
 BL_CHANNEL_KEY = "base_layer_model.g_s.0.conv1.weight"
 
@@ -213,3 +214,11 @@ class Runner:
                 results.append(fut.result())
                 print(f"[{i + 1}/{len(tasks)}] done")
         return results
+
+
+def run_tasks(tasks, worker_num: int = 1, device="cuda",
+              od_offset_cap=None, precision="fp32", int8_table=None):
+    """The JAX package's module-level `run_tasks`: every task on a fresh
+    `Runner` of `device` (see `Runner.run_tasks`)."""
+    return Runner(resolve_device(device), od_offset_cap, precision,
+                  int8_table).run_tasks(tasks, worker_num)

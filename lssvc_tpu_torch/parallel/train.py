@@ -1,5 +1,6 @@
-"""RD training of the two-layer codec on one device (the JAX package's
-`parallel/train.py`, less its mesh: data parallelism is a later slice).
+"""RD training of the two-layer codec (the JAX package's
+`parallel/train.py`): one device, or data-parallel over the ranks of a
+process group (`make_sharded_train_step`, `make_sharded_train_scan`).
 
 A train step differentiates the module-level model functions
 (`models/lssvc.py` `forward_one_frame`, `models/intra_ss.py` `forward`,
@@ -15,6 +16,17 @@ The optimizer is `Adam`, written to optax's arithmetic (`optax.adam`,
 `set_to_zero` for a frozen partition) so that the port and the JAX package
 take the same step from the same gradients.  Parameters and optimizer
 state stay f32 whatever the compute precision.
+
+Data parallelism: every rank holds the parameters and optimizer state,
+takes the loss and gradient of its rows of the global batch, and the
+ranks average the gradients with one all-reduce of a flat buffer.  Every
+loss here is a mean over the batch's items (`_bpp` divides the summed
+bits by the batch's pixels, `_mse` is a mean, the cascade averages its
+frames, the intra aux loss reads no item), so the average of the ranks'
+gradients is the global batch's gradient, which the JAX package's GSPMD
+step computes.  The same Adam then runs on every rank on the same
+numbers, so parameters and optimizer state stay bit-equal across ranks
+(`replicas_equal` checks it).
 """
 
 from __future__ import annotations
@@ -31,6 +43,8 @@ from ..models import lssvc as lssvc_model
 from ..models.components import me_spynet
 from ..ops.nn import Mode, clip, precision_scope
 from ..ops.warp_kernels import flow_warp
+from ..utils import collectives
+from .mesh import group_or_world, shard_batch, world_of
 
 BL_PREFIX = "base_layer_model."
 
@@ -342,3 +356,139 @@ def make_train_step(optimizer: Adam, lmbda: float, shape_hr,
         return apply_updates(params, updates), opt_state, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism over a process group
+
+def _average(tensors: list, group, world: int) -> list:
+    """The ranks' mean of each tensor: one all-reduce of a flat f32 buffer
+    (float64 where a tensor is; not one collective a key); the tensors as
+    they are without a process group."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return list(tensors)
+    dtype = (torch.float64 if any(t.dtype == torch.float64 for t in tensors)
+             else torch.float32)
+    flat = torch.cat([t.reshape(-1).to(dtype) for t in tensors])
+    flat = torch.div(collectives.all_reduce(flat, group), world)
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].view(t.shape).to(t.dtype))
+        at += t.numel()
+    return out
+
+
+def data_parallel_grads(loss_fn, params: dict, batch: dict, keys, group):
+    """(metrics, grads) of the global `batch` over the ranks of `group`:
+    this rank differentiates its rows (`mesh.shard_batch`), then the
+    gradients and the metrics are averaged over the ranks by one
+    all-reduce of a flat buffer.  Every rank passes the same batch."""
+    _, world = world_of(group)
+    _, metrics, grads = value_and_grad(loss_fn, params,
+                                       shard_batch(batch, group), keys)
+    keys = list(grads)
+    names = sorted(metrics)
+    avg = _average([grads[k] for k in keys]
+                   + [metrics[k].reshape(()) for k in names], group, world)
+    return (dict(zip(names, avg[len(keys):])),
+            dict(zip(keys, avg[:len(keys)])))
+
+
+def make_data_parallel_step(loss_fn, optimizer: Adam, group=None,
+                            mode: Mode | None = None):
+    """step(params, opt_state, batch) -> (params, opt_state, metrics) of
+    any loss_fn(params, batch) -> (loss, metrics), data-parallel over
+    `group` (`data_parallel_grads`), the same `optimizer` update on every
+    rank; the forward and backward in `mode` (fp32 by default)."""
+    mode = mode or Mode()
+
+    def train_step(params, opt_state, batch):
+        with precision_scope(mode):
+            metrics, grads = data_parallel_grads(
+                loss_fn, params, batch, optimizer.trained(params), group)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, metrics
+
+    return train_step
+
+
+def make_sharded_train_step(group, optimizer: Adam, lmbda: float, shape_hr,
+                            scale_factor=2.0, pad_size=(0, 0, 0, 0),
+                            loss: str = "pair", cascade_warm: int = 0,
+                            precision: str = "fp32"):
+    """Data-parallel `make_train_step` over `group` (the default group when
+    None): step(params, opt_state, batch) -> (params, opt_state, metrics)
+    with `batch` the GLOBAL batch, every rank passing the same one.  Each
+    rank differentiates its rows (`mesh.shard_batch`: rows [r*b, (r+1)*b)),
+    the gradients and the metrics are averaged over the ranks by one
+    all-reduce, and the same Adam runs on every rank."""
+    if precision not in ("fp32", "high", "bf16"):
+        raise ValueError(f"precision {precision!r}: expected fp32, high or "
+                         "bf16")
+    loss_fn = make_loss_fn(lmbda, shape_hr, scale_factor, pad_size, loss,
+                           cascade_warm)
+    return make_data_parallel_step(loss_fn, optimizer, group,
+                                   Mode(precision))
+
+
+def scan(step):
+    """K chained steps of `step` (the JAX package's `lax.scan` over a (K, B,
+    ...) stack of batches): scan_fn(params, opt_state, batches, lmbda) ->
+    (params, opt_state, metrics), `batches` values (K, B, ...), step i on
+    batches[i], the metrics stacked (K,)."""
+    def scan_fn(params, opt_state, batches, lmbda_s=None):
+        ms = []
+        for i in range(next(iter(batches.values())).shape[0]):
+            b = {key: v[i] for key, v in batches.items()}
+            if lmbda_s is not None:
+                b["lmbda"] = lmbda_s
+            params, opt_state, m = step(params, opt_state, b)
+            ms.append(m)
+        return params, opt_state, {key: torch.stack([m[key] for m in ms])
+                                   for key in ms[0]}
+
+    return scan_fn
+
+
+def make_sharded_train_scan(group, optimizer: Adam, lmbda: float, shape_hr,
+                            scale_factor=2.0, pad_size=(0, 0, 0, 0),
+                            loss: str = "pair", cascade_warm: int = 0,
+                            precision: str = "fp32"):
+    """`scan` of `make_sharded_train_step`: each step's batch is the global
+    batch (K, B_global, ...)[i], each rank differentiating its rows of
+    it."""
+    return scan(make_sharded_train_step(group, optimizer, lmbda, shape_hr,
+                                        scale_factor, pad_size, loss,
+                                        cascade_warm, precision))
+
+
+def replicas_equal(tensors: list, group=None) -> bool:
+    """Whether every rank holds the same bits in `tensors`: a SHA-256 of
+    each rank's bytes, gathered and compared with rank 0's."""
+    _, world = world_of(group)
+    if world == 1:
+        return True
+    import hashlib
+
+    import torch.distributed as dist
+
+    group = group_or_world(group)
+    digest = hashlib.sha256()
+    for t in tensors:
+        digest.update(t.detach().contiguous().reshape(-1).view(torch.uint8)
+                      .cpu().numpy().tobytes())
+    mine = torch.frombuffer(bytearray(digest.digest()), dtype=torch.uint8)
+    if dist.get_backend(group) == "nccl":
+        mine = mine.cuda()
+    parts = collectives.all_gather(mine, group)
+    return all(torch.equal(parts[0], p) for p in parts[1:])
+
+
+def train_state_tensors(params: dict, opt_state: dict) -> list:
+    """The tensors of a train state in a fixed order (for
+    `replicas_equal`)."""
+    return ([params[k] for k in sorted(params)]
+            + [opt_state["mu"][k] for k in sorted(opt_state["mu"])]
+            + [opt_state["nu"][k] for k in sorted(opt_state["nu"])])

@@ -1,5 +1,6 @@
 """Training CLI for the two-layer codec: the twin of the JAX package's
-`train.py`, on one device (the GPU unless `--device cpu`).
+`train.py`, on one device (the GPU unless `--device cpu`), or
+data-parallel when torchrun starts it.
 
 Every flag of `train.py` with its default, plus `--device`.  Frame pairs
 (or, for `--loss cascade`, short sequences) come from a directory of YUV
@@ -18,9 +19,20 @@ steps.  Checkpoints (`checkpoint.py`) are written in the JAX layouts: the
 `.state.npz` first and the `.npz` last, and exiting 0 means
 `{out}_step{steps}.npz` exists.
 
+Data parallelism (the JAX trainer's mesh, `train.py:305-306,376-407`):
+under torchrun (its environment says so; no flag) each rank holds the
+parameters, `--batch-per-device` is the batch a rank, the global batch is
+that times the world size, every rank draws the same global batch and
+differentiates its rows (`parallel.train.make_sharded_train_step`: one
+all-reduce of the gradients a step), and only rank 0 logs and writes
+checkpoints.  `--device cuda` takes `cuda:{LOCAL_RANK % device_count}` and
+the nccl backend (one card a rank), `--device cpu` gloo.  A world of 1
+writes the plain run's checkpoint bit for bit.
+
 Example:
   python -m lssvc_tpu_torch.train --steps 1000 --lmbda 0.01 --crop 256
   python -m lssvc_tpu_torch.train --device cpu --crop 128 --steps 2
+  python -m torch.distributed.run --nproc_per_node 8 -m lssvc_tpu_torch.train
 """
 
 from __future__ import annotations
@@ -106,9 +118,11 @@ def parse_args(argv=None):
         cap = int(os.environ.get("LSSVC_CASCADE_FRAMES", "2"))
         if args.frames > cap:
             args.cascade_warm = args.frames - cap
-            print(f"cascade: {args.cascade_warm} forward-only DPB warm-up "
-                  f"step(s) + {cap - 1} gradient step(s) (grad-frame cap "
-                  f"{cap}; set LSSVC_CASCADE_FRAMES to raise)", flush=True)
+            if os.environ.get("RANK", "0") == "0":  # one rank logs
+                print(f"cascade: {args.cascade_warm} forward-only DPB "
+                      f"warm-up step(s) + {cap - 1} gradient step(s) "
+                      f"(grad-frame cap {cap}; set LSSVC_CASCADE_FRAMES to "
+                      "raise)", flush=True)
     return args
 
 
@@ -292,13 +306,36 @@ def main(argv=None):
     from .models.base import label_params
     from .models.init import init_intra_ss, init_lssvc
     from .parallel.scheduler import BL_CHANNEL_KEY, _checked, _shapes
+    import torch.distributed as dist
+
+    from .parallel.mesh import launched, make_mesh, rank_device, world_of
     from .parallel.train import (Adam, cosine_decay_schedule,
-                                 make_train_step)
+                                 make_sharded_train_step, make_train_step,
+                                 scan)
     from .utils.platform import resolve_device
 
     apply_stage(args)
-    device = resolve_device(args.device)
-    batch = args.batch_per_device  # one device
+    # under torchrun (or in a process group a caller started): one rank of a
+    # data-parallel run
+    parallel = launched() or dist.is_initialized()
+    own_group = parallel and not dist.is_initialized()
+    group = None
+    if parallel:
+        device = rank_device(args.device)
+        group = make_mesh(device=device)
+    else:
+        device = resolve_device(args.device)
+    rank, world = world_of(group)
+    lead = rank == 0
+
+    def say(*msg, **kw):
+        if lead:
+            print(*msg, **kw)
+
+    batch = args.batch_per_device * world  # the global batch
+    if parallel and lead:
+        print(f"data-parallel: {world} rank(s), global batch {batch}",
+              flush=True)
     crop = args.crop
     if crop % 128:
         raise SystemExit(f"--crop {crop}: the EL crop must be divisible by "
@@ -319,7 +356,7 @@ def main(argv=None):
     gen = torch.Generator().manual_seed(args.seed)
     if args.resume:
         params = held(load_params(args.resume, kind)[0], args.resume)
-        print(f"resumed from {args.resume}")
+        say(f"resumed from {args.resume}")
     elif kind == "intra_ss":
         params = {k: v.to(device) for k, v in init_intra_ss(gen).items()}
     else:
@@ -344,14 +381,14 @@ def main(argv=None):
             saved_step = int(meta.get("step", 0))
             policy = resume_policy(tag, saved_step, args.out, args.steps)
             if policy == "stage":
-                print(f"state {state_path} (stage '{tag or 'untagged'}', "
-                      f"step {saved_step}) is a cross-stage handoff: "
-                      f"params only, fresh optimizer, step 0")
+                say(f"state {state_path} (stage '{tag or 'untagged'}', "
+                    f"step {saved_step}) is a cross-stage handoff: "
+                    f"params only, fresh optimizer, step 0")
             else:
                 p_s, o_s, s_s = load_train_state(state_path, kind)
                 if o_s is None or set(o_s["mu"]) != set(opt_state["mu"]):
-                    print(f"state restore failed ({state_path} holds no "
-                          "optimizer state of this run); params-only resume")
+                    say(f"state restore failed ({state_path} holds no "
+                        "optimizer state of this run); params-only resume")
                 else:
                     params = held(p_s, state_path)
                     opt_state = {"count": o_s["count"],
@@ -360,23 +397,30 @@ def main(argv=None):
                                  "nu": {k: v.to(device)
                                         for k, v in o_s["nu"].items()}}
                     step0 = s_s
-                    print(f"restored optimizer state + step {step0} "
-                          f"from {state_path}")
+                    say(f"restored optimizer state + step {step0} "
+                        f"from {state_path}")
         else:
-            print("params-only resume (fresh optimizer state)")
+            say("params-only resume (fresh optimizer state)")
 
     scan_k = max(args.scan_steps, 1)
     shape_hr = (crop, crop)
-    step_fn = make_train_step(optimizer, args.lmbda, shape_hr, loss=args.loss,
-                              cascade_warm=args.cascade_warm,
-                              precision=args.precision)
+
+    def make_step(warm):
+        if parallel:
+            return make_sharded_train_step(group, optimizer, args.lmbda,
+                                           shape_hr, loss=args.loss,
+                                           cascade_warm=warm,
+                                           precision=args.precision)
+        return make_train_step(optimizer, args.lmbda, shape_hr,
+                               loss=args.loss, cascade_warm=warm,
+                               precision=args.precision)
+
+    step_fn = make_step(args.cascade_warm)
     # a warm cascade also trains plain short chains (the first P-frame of
     # every GOP runs without features), alternating with the warm ones
     alt_fn = None
     if args.loss == "cascade" and args.cascade_warm > 0:
-        alt_fn = make_train_step(optimizer, args.lmbda, shape_hr,
-                                 loss=args.loss, cascade_warm=0,
-                                 precision=args.precision)
+        alt_fn = make_step(0)
 
     if args.data == "synthetic":
         data = SyntheticPairs(crop, args.seed)
@@ -390,6 +434,8 @@ def main(argv=None):
 
     def log(step, metrics, fpi):
         faulthandler.dump_traceback_later(600, repeat=True)
+        if not lead:
+            return
         m = {k: float(v) for k, v in metrics.items()}
         now = time.time()
         rate = (step - last["step"]) * batch * fpi / (now - last["t"])
@@ -399,9 +445,12 @@ def main(argv=None):
               f"mse_el={m['mse_el']:.6f}{aux} ({rate:.2f} frames/s)",
               flush=True)
 
-    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    if lead:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
 
     def save_ckpt(path, params, opt_state, label):
+        if not lead:  # the ranks hold the same state; rank 0 writes it
+            return
         # an intra checkpoint's quantiles are re-solved exactly: the stream's
         # CDF tables come from them, and the aux loss is far from converged
         saved = refit_quantiles(params) if args.loss == "intra" else params
@@ -426,9 +475,8 @@ def main(argv=None):
                 gf = args.frames - args.cascade_warm
                 bd = {k: v[:, :, :gf] for k, v in bd.items()}
                 fn = alt_fn
-            for i in range(scan_k):
-                params, opt_state, metrics = fn(
-                    params, opt_state, {k: v[i] for k, v in bd.items()})
+            params, opt_state, ms = scan(fn)(params, opt_state, bd)
+            metrics = {k: v[-1] for k, v in ms.items()}
             chunk += 1
             step += scan_k
             # the chunk may overshoot --steps: the checkpoint carries the
@@ -457,8 +505,12 @@ def main(argv=None):
     # exiting 0 means {out}_step{steps}.npz exists, even when the loop ran
     # no step (a resume at step >= --steps)
     final = f"{args.out}_step{args.steps}.npz"
-    if not os.path.exists(final):
+    if lead and not os.path.exists(final):
         save_ckpt(final, params, opt_state, args.steps)
+    if parallel:
+        dist.barrier(group)
+        if own_group:
+            dist.destroy_process_group()
     faulthandler.cancel_dump_traceback_later()
 
 

@@ -56,8 +56,9 @@ def test_bridge_layouts():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of lssvc_tpu_torch, and chip_smoke.py, imported in a
-    fresh interpreter leave no `jax` and no `lssvc_tpu` module loaded."""
+    """Every module of lssvc_tpu_torch (the parallel layer's named), and
+    chip_smoke.py, imported in a fresh interpreter leave no `jax` and no
+    `lssvc_tpu` module loaded."""
     code = r"""
 import importlib, pkgutil, sys
 import lssvc_tpu_torch
@@ -68,6 +69,10 @@ bad = sorted(n for n in sys.modules
              if n in ("jax", "lssvc_tpu") or n.startswith(("jax.", "lssvc_tpu.")))
 assert not bad, bad
 assert "lssvc_tpu_torch.models.lssvc" in sys.modules
+for name in ("ops.spatial_ctx", "ops.strips", "parallel.mesh",
+             "parallel.serve", "parallel.spatial", "parallel.train",
+             "utils.collectives", "dryrun", "train"):
+    assert "lssvc_tpu_torch." + name in sys.modules, name
 print("ok")
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
