@@ -7,7 +7,13 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. Device: CUDA must be available; prints the card's name and power limit.
 2. Build: compiles the kernels of lssvc_tpu_torch/csrc with nvcc (sm_90a)
-   and its rANS coder with g++, one compiler per source, all at once;
+   and its rANS coder with g++, one compiler per source, all at once.
+   While conv_chain.cu and int8_conv.cu build (phase 2's window), the
+   checks that time nothing and need only the warp kernels run: phase 18
+   (a)-(c) and phase 19 (a)'s plain `--stage spynet` run in this process,
+   phase 19 (a)'s torchrun run and (f)'s dry run in the background; the
+   late builds and both runs are waited for before phase 3, so nothing
+   runs beside a timed phase.  Then it
    counts the tensor-core instructions (HGMMA, HMMA) in conv_chain's SASS
    and the integer wgmma (IGMMA) in int8_conv's (cuobjdump), and fails
    without HGMMA or IGMMA; prints ptxas's report (registers, shared
@@ -190,7 +196,8 @@ Phases (any failure exits non-zero; nothing is caught):
    form, and `grouped_warp_backward`, lssvc_tpu_torch/csrc/warp_grad.cu)
    against autograd through the plain warps on the card, f32 and bf16, at
    every backward launch shape of a `pair` train step at crop 256, at the
-   1080p P-frame's warp shapes (phase 3's launches) and at edge cases:
+   1080p P-frame's warp shapes (tools/warp_bench.py's, which phase 4
+   holds phase 3's launches to) and at edge cases:
    zero flows and integer flows on the borders (the clip's ties), flows
    far past the borders, NaN flows, batch 2, unaligned widths; then the
    kernels' two scatter paths: tiles cut unevenly (2x19x37, 1x33x65) and
@@ -202,7 +209,11 @@ Phases (any failure exits non-zero; nothing is caught):
    bf16 relative RMS <= 1e-2 and the bf16 source gradient within half a
    bf16 ulp (+1e-5 max|ref|) of the f32 kernel's on the same values
    (summed in f32, rounded once), the flow and mask gradients bit-equal
-   across two launches; (b) one fp32 `pair` step and
+   across two launches; then the train step's, the 1080p frame's and the
+   edge cases again through the kernels' fixed-order variant (what
+   `torch.use_deterministic_algorithms(True)` selects: the source gradient
+   summed in 64-bit fixed point), within the same bounds, every gradient
+   bit-equal across two launches; (b) one fp32 `pair` step and
    one `cascade` chain of T=3 with no warm step at crop 256, the counts
    set to 0 just before and read just after: a backward launch for each
    forward warp whose inputs take a gradient (12 of 14 flow_warp and 1
@@ -225,7 +236,8 @@ Phases (any failure exits non-zero; nothing is caught):
    buffers), beside its byte bound, the wrapper's zero-fill and rounding
    passes, the
    plain autograd's backward and, for flow_warp, F.grid_sample's backward
-   (`tools/warp_bench.py --backward`).
+   (`tools/warp_bench.py --backward`), and the fixed-order variant's ms (a
+   wrapper call and its C entry point).
 
 19. Parallelism (about 3 minutes; NCCL takes one card a rank, so two
    ranks share the card on gloo, whose exchanges stage CUDA tensors
@@ -233,12 +245,14 @@ Phases (any failure exits non-zero; nothing is caught):
    --nproc_per_node 1 -m lssvc_tpu_torch.train --stage spynet` at crop
    256, 3 steps, a world of 1 on NCCL: its checkpoint bit-equal to the
    plain CLI's (spynet's gradients reach the warps only through the
-   flows; the backward kernels' atomic source sums make two plain `pair`
-   runs differ in the last bits, which is printed), then one
-   data-parallel `pair` step in this process, a world of 1 on NCCL, the
-   backward launches counted (12 flow_warp_backward, 1
-   grouped_warp_backward), its parameters within 10 times two plain
-   steps' own spread (at least 1e-8) of the plain step's; (b)-(e) two
+   flows), then, in this process under
+   `torch.use_deterministic_algorithms(True)` (set for the block and
+   restored after), one data-parallel `pair` step, a world of 1 on NCCL,
+   the backward launches counted (12 flow_warp_backward, 1
+   grouped_warp_backward; the 6 and 1 that take a source gradient through
+   the fixed-order variant), its parameters bit-equal to the plain step's
+   and two plain steps bit-equal (a plain step with the flag off, whose
+   atomic source sums differ in the last bits, printed beside); (b)-(e) two
    gloo ranks on cuda:0: which gloo collectives take CUDA tensors (a
    probe); the 1080p EL pair and the
    grouped warp (576 rows a rank; smooth 12 px flows, 12 + 40 px
@@ -250,10 +264,12 @@ Phases (any failure exits non-zero; nothing is caught):
    1152x1920 / BL 576x960, K=2 chained from a random DPB, the pictures
    fed back clamped as the GOP loop does) against rank 0's unsharded card
    forward: bits within 1e-3, each DPB entry within 1e-3 (frame 1) and
-   5e-3 (frame 2) relative RMS (the strips' other cuDNN / cuBLAS shapes
-   flip near-tie latent roundings, so the elementwise bounds of
-   `tests/test_spatial.py`, which the CPU tests hold, are printed, with
-   the spread a 1e-6 move of the frame makes), 14 flow_warp and 1
+   5e-3 (frame 2) relative RMS (the strips' convs are other cuDNN shapes
+   than the frame's and flip near-tie latent roundings, so the
+   elementwise bound of `tests/test_spatial.py`, rtol = atol = 1e-3,
+   which the CPU tests hold, is printed, with the spread a 1e-6 move of
+   the frame makes, and the first ops of frame 1 whose outputs the strips
+   change, by `tools/op_digests.py`'s per-row digests), 14 flow_warp and 1
    grouped_warp launches a frame a rank, s/frame, peak GiB and the warps'
    branches a rank; the IntraSS I-frame at 1080p against the unsharded
    one; `serve_streams`, two bf16 streams of 3 P-frames, each bit-equal
@@ -261,6 +277,22 @@ Phases (any failure exits non-zero; nothing is caught):
    --backend gloo` (its x1.5 frame and reference both in fp32, every DPB
    value within 1e-3, rtol and atol).  Every spatial forward runs inside
    `precision_scope(Mode("fp32"))`, as its unsharded reference does.
+
+20. The root tools' twins, each `python -m lssvc_tpu_torch.tools.<name>`
+   in a subprocess on its default device: (a) `rd_experiment` trains
+   IntraSS (BL 192) and LSSVC at full width for 2 lambdas (`--stages
+   full`, 2 steps a stage, crop 128), then evaluates them with real
+   bitstreams at 128x128, 4 frames at gop 2, in fp32, bf16 and int8 (one
+   calibration a checkpoint): its point lines equal its report's
+   numbers, each mode's JSONs exist; the launches of its evaluation
+   process (`flow_warp`, `grouped_warp`, `int8_conv`) and of its training
+   processes (the backward kernels), dumped by each process at exit
+   (`utils/launch_counts.py`, LSSVC_LAUNCH_COUNTS), must all be > 0; (b)
+   `rd_reconstruct` on its log rebuilds the report's points as printed;
+   (c) `chain_probe --precision bf16` on the first rate point's pair:
+   4 finite PSNRs, its exit code the cliff rule's; (d) `ref_scale_eval
+   --frames 3`: the 1080p YUV's size, its config and the CLI's command.
+   Prints each mode's bpp and PSNR and the phase's seconds.
 
 Then one JSON line {"kernels": [...]}: each kernel's launches counted on its
 path (the warps on the P-frame chain of phase 3, with their GOP path,
@@ -274,8 +306,9 @@ step's); the warps also with their launches a frame a rank on phase 19's
 spatial P-frame, its branches and the halo warps' errors, and with their
 launches a
 P-frame on phase 16's pipelined encode and overlapped decode and a frame
-on its four-stage frame), its times, bound and errors, after a line
-with the script's total seconds.  The last line is
+on its four-stage frame; every kernel with the launches of phase 20's
+evaluation process and training processes), its times, bound and errors,
+after a line with the script's total seconds.  The last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -292,6 +325,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -322,14 +356,16 @@ from lssvc_tpu_torch.parallel import train as ptrain
 from lssvc_tpu_torch.tools import (conv_paths, convchain_bench,
                                    int8_bench, int8_calibrate, streambench,
                                    synthetic, warp_bench, warp_tier_bench)
+from lssvc_tpu_torch.utils import launch_counts
 from lssvc_tpu_torch.utils.io import YUVReader
 from lssvc_tpu_torch.utils.padding import get_interlayer_padding
 from lssvc_tpu_torch.utils.png import read_png
+from lssvc_tpu_torch.tools.op_digests import OpDigests, first_differences
 from lssvc_tpu_torch.tools.profile_frame import iframe_flops
 from lssvc_tpu_torch.tools.timing import card, time_ms
-from lssvc_tpu_torch.tools.warp_bench import (bound_ms, flow_warp_cost,
-                                              grouped_cost, smooth_field,
-                                              uniform)
+from lssvc_tpu_torch.tools.warp_bench import (bound_ms, deterministic,
+                                              flow_warp_cost, grouped_cost,
+                                              smooth_field, uniform)
 
 EL_HW, BL_HW, K = (1152, 1920), (576, 960), 3
 # the GOP path: a 1080p source (h, w) coded at x2, EL padded to 1152x1920,
@@ -491,17 +527,45 @@ def phase_device():
     return smi
 
 
+# the sources every phase runs, and the two that build on while the
+# untimed checks run (phase 2's window: about 70-100 s of nvcc for
+# conv_chain.cu's wgmma instantiations, 25-50 s for int8_conv.cu's)
+EARLY_SOURCES = ("warp", "warp_grad", "lssvc_rans")
+LATE_SOURCES = ("conv_chain", "int8_conv")
+
+
 def phase_build():
+    """Phase 2, started: every source compiled at once, one compiler each;
+    returns when the early ones are loaded, with the late ones' builds
+    (futures) running on."""
     t0 = time.perf_counter()
-    # the kernel sources with nvcc, the rANS coder with g++, all at once
-    names = ("warp", "warp_grad", "conv_chain", "int8_conv", "lssvc_rans")
-    build.build_all(names)
-    for name in names:
+    pool = ThreadPoolExecutor(max_workers=len(LATE_SOURCES))
+    late = [pool.submit(build.build, name) for name in LATE_SOURCES]
+    pool.shutdown(wait=False)
+    build.build_all(EARLY_SOURCES)
+    for name in EARLY_SOURCES:
         build.load(name)
     log(f"# build: " + ", ".join(
         f"{build.library_path(n).name} {build.BUILD_SECONDS[n]:.2f} s"
-        for n in names)
-        + f"; {time.perf_counter() - t0:.2f} s to build all and load")
+        for n in EARLY_SOURCES)
+        + f"; {time.perf_counter() - t0:.2f} s to build and load; "
+        f"{', '.join(LATE_SOURCES)} build on while the untimed checks run")
+    return late
+
+
+def phase_build_late(late):
+    """Phase 2, finished: the late sources built and loaded; the tensor-core
+    instructions in their SASS and ptxas's report of the int8 kernels."""
+    t0 = time.perf_counter()
+    for future in late:
+        future.result()
+    for name in LATE_SOURCES:
+        build.load(name)
+    log(f"# build: " + ", ".join(
+        f"{build.library_path(n).name} {build.BUILD_SECONDS[n]:.2f} s"
+        for n in LATE_SOURCES)
+        + f"; waited {time.perf_counter() - t0:.2f} s for them after the "
+        "untimed checks")
     # the conv chain's products: tensor-core instructions in its SASS
     sass = subprocess.run(
         [str(Path(build.nvcc_path()).with_name("cuobjdump")), "-sass",
@@ -1278,15 +1342,39 @@ def _subprocess(cmd, what):
     return time.perf_counter() - t0
 
 
-def _subprocess_out(cmd, what):
-    """A subprocess's standard output, after it exits 0."""
-    torch.cuda.empty_cache()
-    res = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
-                         capture_output=True, text=True, timeout=900)
-    if res.returncode != 0:
-        raise AssertionError(f"{what} exited {res.returncode}:\n"
-                             f"{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
-    return res.stdout
+class Background:
+    """A subprocess started now and waited for later (phase 2's window),
+    its standard output and error in a file of `d`."""
+
+    def __init__(self, cmd, what, d):
+        self.what, self.t0 = what, time.perf_counter()
+        self.out = open(d / (re.sub(r"\W+", "_", what) + ".out"), "w+")
+        self.proc = subprocess.Popen(
+            cmd, cwd=Path(__file__).resolve().parent, stdout=self.out,
+            stderr=subprocess.STDOUT, text=True)
+
+    def result(self):
+        """Its output, after it exits 0 (within 900 s); `seconds` its wall
+        time since its start."""
+        code = self.proc.wait(timeout=900)
+        self.seconds = time.perf_counter() - self.t0
+        self.out.seek(0)
+        text = self.out.read()
+        self.out.close()
+        if code != 0:
+            raise AssertionError(f"{self.what} exited {code}:\n"
+                                 f"{text[-8000:]}")
+        return text
+
+    def stop(self):
+        """Ends it (and, through its SIGTERM, torchrun's workers)."""
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
 
 
 def _equal(a, b, what):
@@ -2848,7 +2936,23 @@ def _grad_counts():
 
 def _reset_grad_counts():
     _reset_counts()
-    wk.flow_warp_backward.launches = wk.grouped_warp_backward.launches = 0
+    for fn in (wk.flow_warp_backward, wk.grouped_warp_backward):
+        fn.launches = fn.fixed_launches = 0
+
+
+def _fixed_counts():
+    return {"flow_warp_backward": wk.flow_warp_backward.fixed_launches,
+            "grouped_warp_backward": wk.grouped_warp_backward.fixed_launches}
+
+
+def same_bits(a, b) -> bool:
+    """Whether two tensors (or None) hold the same bits, NaNs included."""
+    if a is None or b is None:
+        return a is None and b is None
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    view = torch.int32 if a.element_size() == 4 else torch.int16
+    return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
 
 
 def train_batch(loss, crop, nb, dev, seed=0, frames=3):
@@ -2936,9 +3040,10 @@ def _grad_inputs(gen, shape, dtype, kind, flows="random"):
 
 
 def _kernel_grads(kind, shape, srcs, flow, grads):
-    """One launch of the backward kernel: flow_warp_backward's (grad_flow,
-    grad_a, grad_b), grouped_warp_backward's (grad_x, grad_flow_x,
-    grad_flow_y, grad_mask)."""
+    """One launch of the backward kernel (its fixed-order variant under
+    the deterministic flag): flow_warp_backward's (grad_flow, grad_a,
+    grad_b), grouped_warp_backward's (grad_x, grad_flow_x, grad_flow_y,
+    grad_mask)."""
     if kind == "flow_warp_backward":
         b = srcs[1] if len(srcs) > 1 else None
         gb = grads[1] if len(grads) > 1 else None
@@ -2998,6 +3103,47 @@ def grad_case(kind, shape, dtype, gen, flows="random"):
     return err, (srcs, flow, grads)
 
 
+def fixed_case(kind, shape, dtype, gen, flows="random"):
+    """One launch of the backward kernel's fixed-order variant against
+    autograd through the plain warp, with the default path's bounds; a
+    second launch bit-equal to the first (every gradient, NaNs included);
+    a bf16 source gradient the f32 variant's on the same values rounded
+    once.  Returns max |err|."""
+    srcs, flow, grads = _grad_inputs(gen, shape, dtype, kind, flows)
+    before = _fixed_counts()[kind]
+    with deterministic():
+        got = _kernel_grads(kind, shape, srcs, flow, grads)
+        again = _kernel_grads(kind, shape, srcs, flow, grads)
+    if _fixed_counts()[kind] - before != 2:
+        raise AssertionError(f"{kind} {shape}: the fixed-order variant did "
+                             "not launch")
+    for g1, g2 in zip(got, again):
+        if not same_bits(g1, g2):
+            raise AssertionError(f"fixed-order {kind} {shape} {flows} "
+                                 f"{dtype}: two launches differ")
+    if kind == "flow_warp_backward":
+        b = srcs[1] if len(srcs) > 1 else None
+        gb = grads[1] if len(grads) > 1 else None
+        ref = wk.flow_warp_backward_plain(flow, srcs[0], grads[0], b, gb)
+        labels, src_grads = ("grad_flow", "grad_a", "grad_b"), got[1:]
+    else:
+        ref = wk.grouped_warp_backward_plain(srcs[0], *flow, shape[5],
+                                             grads[0])
+        labels = ("grad_x", "grad_flow_x", "grad_flow_y", "grad_mask")
+        src_grads = got[:1]
+    err = check_grads(f"fixed-order {kind} {shape} {flows}", labels, got,
+                      ref, dtype)
+    if dtype == torch.bfloat16:
+        with deterministic():
+            got32 = _kernel_grads(kind, shape, [s.float() for s in srcs],
+                                  flow, [g.float() for g in grads])
+        ref32 = got32[1:] if kind == "flow_warp_backward" else got32[:1]
+        for g16, g32 in zip(src_grads, ref32):
+            if g16 is not None:
+                rounded_once(f"fixed-order {kind} {shape} {flows}", g16, g32)
+    return err
+
+
 def train_launches(dev):
     """Phase 18 (b): one fp32 `pair` train step at crop 256 and one
     `cascade` chain of T=3 with no warm step, the counts set to 0 just
@@ -3044,7 +3190,7 @@ def train_launches(dev):
 def grad_kernels(dev, train_shapes, frame_calls):
     """Phase 18 (a): both backward kernels against autograd through the
     plain warps, f32 and bf16, at the pair train step's launch shapes, at
-    the 1080p P-frame's warp shapes (phase 3's launches) and at edge cases:
+    the 1080p P-frame's warp shapes (`frame_calls`) and at edge cases:
     zero flows and integer flows landing on the borders (the clip's ties),
     flows far past the borders, NaN flows, batch 2 and unaligned widths."""
     gen = torch.Generator(device=dev).manual_seed(18)
@@ -3080,7 +3226,15 @@ def grad_kernels(dev, train_shapes, frame_calls):
                  "smooth40")])
     cases = ([(k, s, "random") for k, s in train_shapes]
              + [(k, s, "random") for k, s in sorted(frame)] + edges + paths)
+    # the fixed-order variant at the train step's shapes, the 1080p
+    # frame's (and the 1080p pair and grouped warp on smooth flows) and the
+    # edge cases
+    fixed_cases = ([(k, s, "random") for k, s in train_shapes]
+                   + [(k, s, "random") for k, s in sorted(frame)] + edges
+                   + paths[-2:])
+    t0 = time.perf_counter()
     worst = {"flow_warp_backward": 0.0, "grouped_warp_backward": 0.0}
+    fixed_worst = dict(worst)
     for dtype in (torch.float32, torch.bfloat16):
         for kind, shape, flows in cases:
             err, _ = grad_case(kind, shape, dtype, gen, flows)
@@ -3090,8 +3244,21 @@ def grad_kernels(dev, train_shapes, frame_calls):
             "autograd within tolerance, flow and mask gradients "
             "bit-equal across two launches"
             + (", source gradients rounded once from f32"
-               if dtype == torch.bfloat16 else ""))
-    return worst
+               if dtype == torch.bfloat16 else "")
+            + f" ({time.perf_counter() - t0:.1f} s in)")
+        # the fixed-order variant (torch.use_deterministic_algorithms)
+        for kind, shape, flows in fixed_cases:
+            err = fixed_case(kind, shape, dtype, gen, flows)
+            if dtype == torch.float32:
+                fixed_worst[kind] = max(fixed_worst[kind], err)
+        log(f"  {len(fixed_cases)} of them through the fixed-order variant "
+            f"in {dtype}: within the same tolerance, every gradient "
+            "bit-equal across two launches"
+            + (", source gradients rounded once from f32"
+               if dtype == torch.bfloat16 else "")
+            + f"; f32 max |err| {fixed_worst} ({time.perf_counter() - t0:.1f}"
+            " s in)")
+    return worst, fixed_worst
 
 
 def grad_times(dev):
@@ -3112,7 +3279,9 @@ def grad_times(dev):
             f"{row['bound_ms']:.4f} ms, {row['bound_by']}; "
             f"{row['share_of_bound']:.3f} of it), zero-fill and rounding "
             f"{row['outside_ms']:.4f} ms, plain autograd "
-            f"{row['plain_ms']:.4f} ms{lib}")
+            f"{row['plain_ms']:.4f} ms{lib}; fixed-order variant "
+            f"{row['fixed_ms']:.4f} ms a call, "
+            f"{row['fixed_kernel_ms']:.4f} ms its C entry point")
     return out
 
 
@@ -3255,14 +3424,36 @@ def train_cli_runs(d, cfg):
     return out
 
 
-def phase_training(dev, d, cfg, frame_calls):
-    """Phase 18: training (see the module docstring)."""
+def training_checks(dev):
+    """Phase 18 (b), (a) and (c), which time nothing, in phase 2's window;
+    the 1080p P-frame's warp shapes are tools/warp_bench.py's FRAME and
+    GROUPED, which phase 4 holds phase 3's launches to.  Returns (b)'s
+    launches and (a)'s worst f32 errors of both variants."""
+    t0 = time.perf_counter()
+    log("# phase 18 (a)-(c): training's untimed checks, in phase 2's window")
+
+    def lap(part):
+        log(f"  phase 18 {part}: {time.perf_counter() - t0:.1f} s in")
+
+    counts, train_shapes = train_launches(dev)
+    lap("(b)")
+    frame_calls = ([(name, shape, 0) for name, shape in warp_bench.FRAME]
+                   + [("grouped_warp", warp_bench.GROUPED, 0)])
+    worst, fixed_worst = grad_kernels(dev, train_shapes, frame_calls)
+    lap("(a)")
+    train_cpu_vs_card(dev)
+    lap("(c)")
+    return counts, worst, fixed_worst
+
+
+def phase_training(dev, d, cfg, checks):
+    """Phase 18 (d) and (e), with (a)-(c)'s results `checks` (see the
+    module docstring)."""
     t0 = time.perf_counter()
     log("# phase 18: training")
-    counts, train_shapes = train_launches(dev)
-    worst = grad_kernels(dev, train_shapes, frame_calls)
-    train_cpu_vs_card(dev)
+    counts, worst, fixed_worst = checks
     cli_runs = train_cli_runs(d, cfg)
+    log(f"  phase 18 (d): {time.perf_counter() - t0:.1f} s in")
     times = grad_times(dev)
     log(json.dumps({"training": cli_runs, "launches": counts}))
     entries = []
@@ -3284,8 +3475,15 @@ def phase_training(dev, d, cfg, frame_calls):
             f"{smooth}_ms": times[(name, shape, "float32", smooth)]["ms"],
             "bf16_smooth_ms":
                 times[(name, shape, "bfloat16", "smooth")]["ms"],
+            "fixed_ms": t["fixed_ms"], "fixed_kernel_ms": t["fixed_kernel_ms"],
+            "fixed_smooth_ms":
+                times[(name, shape, "float32", "smooth")]["fixed_ms"],
+            "fixed_bf16_ms":
+                times[(name, shape, "bfloat16", "random")]["fixed_ms"],
+            "fixed_max_abs_err": fixed_worst[name],
             "flows": "ms at random flows (+-6 px), the wrapper's call; "
-                     "kernel_ms the kernel alone; smooth at 12 px"})
+                     "kernel_ms the kernel alone; smooth at 12 px; fixed_* "
+                     "the fixed-order variant (deterministic flag)"})
     log(f"  phase 18: {time.perf_counter() - t0:.1f} s")
     return entries
 
@@ -3460,10 +3658,13 @@ def par_frames(rank, group, sh, dev, el_hw, bl_hw):
         group, el_hw, 2.0, (0, 0, 0, 0), kernel_warps=True,
         od_offset_cap=OD_OFFSET_CAP_SERVING)
     dpb = {k: sh.shard(v).contiguous() for k, v in dpb0.items()}
-    # a warm-up frame, its counts discarded
-    with precision_scope(Mode("fp32")):
+    # a warm-up frame (the chain's first), its counts discarded, each
+    # public op's output digested (tools/op_digests.py)
+    with precision_scope(Mode("fp32")), OpDigests() as digests:
         fwd(params, sh.shard(frames[0][0]), sh.shard(frames[0][1]), dpb)
     _sync(dev)
+    rank_digests = [None] * dist.get_world_size(group)
+    dist.all_gather_object(rank_digests, digests.records, group=group)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     spatial.reset_counts()
@@ -3501,12 +3702,18 @@ def par_frames(rank, group, sh, dev, el_hw, bl_hw):
         for key, scale in (("ref", 1.0), ("moved", 1.0 + 1e-6)):
             ref_dpb, chain = dpb0, []
             with torch.no_grad(), precision_scope(Mode("fp32")):
-                for x_bl, x_el in frames:
-                    out = lssvc_model.forward_one_frame(
-                        params, x_bl * scale, x_el * scale,
-                        ref_dpb["ref_frame_bl"], ref_dpb["ref_frame_el"],
-                        ref_dpb["ref_feature_bl"], ref_dpb["ref_feature_el"],
-                        el_hw, 2.0, (0, 0, 0, 0), OD_OFFSET_CAP_SERVING)
+                for i, (x_bl, x_el) in enumerate(frames):
+                    with OpDigests() as ref_digests:
+                        out = lssvc_model.forward_one_frame(
+                            params, x_bl * scale, x_el * scale,
+                            ref_dpb["ref_frame_bl"], ref_dpb["ref_frame_el"],
+                            ref_dpb["ref_feature_bl"],
+                            ref_dpb["ref_feature_el"], el_hw, 2.0,
+                            (0, 0, 0, 0), OD_OFFSET_CAP_SERVING)
+                    if key == "ref" and i == 0:
+                        # the first ops whose outputs the strips change
+                        res["first_differences"] = first_differences(
+                            ref_digests.records, rank_digests)
                     chain.append((dict(out["dpb"]),
                                   float(out["bit_bl"] + out["bit_el"])))
                     ref_dpb = _clamped(out["dpb"])
@@ -3517,21 +3724,27 @@ def par_frames(rank, group, sh, dev, el_hw, bl_hw):
             frame = {"bits": got_bits, "bits_ref": bits_ref}
             for k, want in ref_dpb.items():
                 d = (got_dpb[k] - want).abs()
-                scale = float(want.abs().max())
-                tol = (1e-3 + 1e-3 * want.abs()) if i == 0 else 5e-3 * scale
+                moved = (moved_dpb[k] - want).abs()
+                # the elementwise bound of `tests/test_spatial.py` (and of
+                # the CPU tests), rtol = atol = 1e-3
+                tol = 1e-3 + 1e-3 * want.abs()
                 frame[k] = {
-                    "max_abs_err": float(d.max()), "max_ref": scale,
+                    "max_abs_err": float(d.max()),
+                    "max_ref": float(want.abs().max()),
                     "beyond_tol": float((d > tol).float().mean()),
+                    "differing": float((d != 0).float().mean()),
                     "rel_rms": float(d.norm() / want.norm()),
-                    "moved_rel_rms": float((moved_dpb[k] - want).norm()
-                                           / want.norm())}
+                    "moved_rel_rms": float(moved.norm() / want.norm()),
+                    "moved_beyond_tol": float((moved > tol).float().mean())}
             errs.append(frame)
-            # the strips' convs and GEMMs are other cuBLAS / cuDNN shapes
-            # than the frame's: their last bits differ and can flip a
-            # latent's rounding at a near-tie, so the DPB is held in
-            # relative RMS: 1e-3 (frame 1) and 5e-3 (frame 2), the JAX
-            # test's bounds; the elements past its elementwise bounds are
-            # printed
+            # the strips' convs are other cuDNN shapes than the frame's
+            # (the first op that differs: `first_differences`; the
+            # row-local GEMMs have one shape, `ops.nn.rows_matmul`): their
+            # last bits differ and can flip a latent's rounding at a
+            # near-tie, so the DPB is held in relative RMS: 1e-3 (frame 1)
+            # and 5e-3 (frame 2), the JAX test's bounds; the values past
+            # its elementwise bound (rtol = atol = 1e-3) are printed, and
+            # those of a 1e-6 move of the frame beside them
             bound = 1e-3 if i == 0 else 5e-3
             if abs(got_bits - bits_ref) > 1e-3 * max(bits_ref, 1.0) or \
                     any(frame[k]["rel_rms"] > bound for k in ref_dpb):
@@ -3656,36 +3869,59 @@ def _same_checkpoints(a, b):
     return equal, worst
 
 
-def par_train_world1(d):
+# phase 19 (a)'s spynet runs: 3 steps at crop 256
+SPYNET_ARGV = ["--crop", str(TRAIN_CROP), "--steps", "3", "--scan-steps",
+               "1", "--save-every", "100", "--log-every", "1", "--stage",
+               "spynet"]
+
+
+def _spynet_prefix(d, name):
+    return d / "par" / name / "lssvc"
+
+
+def world1_torchrun(d):
+    """Phase 19 (a)'s torchrun run, started in the background in phase 2's
+    window: `--stage spynet` as torchrun starts the trainer, a world of 1
+    on NCCL."""
+    return Background(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "lssvc_tpu_torch.train",
+         *SPYNET_ARGV, "--out", str(_spynet_prefix(d, "torchrun"))],
+        "torchrun train", d)
+
+
+def world1_plain(d):
+    """Phase 19 (a)'s plain CLI run of the same stage, in this process, in
+    phase 2's window."""
+    _train_cli([*SPYNET_ARGV, "--out", str(_spynet_prefix(d, "plain"))],
+               "plain spynet")
+
+
+def par_train_world1(d, torchrun):
     """(a): the trainer as torchrun starts it, a world of 1 on NCCL, against
-    the plain CLI, their checkpoints bit for bit at crop 256 after 3 steps
+    the plain CLI (both run in phase 2's window; `torchrun` its output and
+    seconds), their checkpoints bit for bit at crop 256 after 3 steps
     of `--stage spynet`, whose gradients reach the warps only through the
     flows (a pixel's flow gradient is one thread's sum); then, in this
-    process, a world of 1 on NCCL: one data-parallel `pair` step with the
-    backward kernels' launches counted as phase 18 counts them, against
-    the plain step from the same state, within 10 times the plain step
-    against itself (the source gradients' atomic sums: run to run, not
-    rank to rank), at least 1e-8."""
+    process, a world of 1 on NCCL, under
+    `torch.use_deterministic_algorithms(True)` (set for the block and
+    restored after): one data-parallel `pair` step with the backward
+    kernels' launches counted as phase 18 counts them, all of them the
+    fixed-order variant, bit-equal to the plain step from the same state,
+    and two plain steps bit-equal; one plain step with the flag off shows
+    the default path's atomic sums against them."""
     import torch.distributed as dist
 
-    prefix = {name: d / "par" / name / "lssvc" for name in ("torchrun",
-                                                            "plain")}
-    argv = ["--crop", str(TRAIN_CROP), "--steps", "3", "--scan-steps", "1",
-            "--save-every", "100", "--log-every", "1", "--stage", "spynet"]
-    t0 = time.perf_counter()
-    text = _subprocess_out(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node", "1", "-m", "lssvc_tpu_torch.train", *argv,
-         "--out", str(prefix["torchrun"])], "torchrun train")
-    torchrun_s = time.perf_counter() - t0
+    text, torchrun_s = torchrun
     if "data-parallel: 1 rank(s), global batch 1" not in text:
         raise AssertionError(f"torchrun train:\n{text}")
-    _train_cli([*argv, "--out", str(prefix["plain"])], "plain spynet")
-    equal, worst = _same_checkpoints(f"{prefix['torchrun']}_step3",
-                                     f"{prefix['plain']}_step3")
+    equal, worst = _same_checkpoints(
+        f"{_spynet_prefix(d, 'torchrun')}_step3",
+        f"{_spynet_prefix(d, 'plain')}_step3")
     log(f"  (a) spynet stage, crop {TRAIN_CROP}, 3 steps: torchrun world 1 "
         f"(nccl) against the plain CLI: bit-equal {equal} (max |diff| "
-        f"{worst:.3g}; torchrun {torchrun_s:.1f} s with its processes)")
+        f"{worst:.3g}; torchrun {torchrun_s:.1f} s with its processes, "
+        "beside phase 2's other checks)")
     if not equal:
         raise AssertionError("torchrun world 1 differs from the plain run")
     res = {"spynet_bit_equal": equal, "torchrun_s": torchrun_s}
@@ -3701,35 +3937,51 @@ def par_train_world1(d):
                                                      precision="fp32")
             plain = ptrain.make_train_step(*args, precision="fp32")
             batch = train_batch("pair", TRAIN_CROP, 1, torch.device("cuda"))
-            torch.cuda.synchronize()
-            _reset_grad_counts()
-            dp, _, _ = sharded(params, opt.init(params), batch)
-            torch.cuda.synchronize()
-            counts = _grad_counts()
-            one, _, _ = plain(params, opt.init(params), batch)
-            two, _, _ = plain(params, opt.init(params), batch)
+            with deterministic():
+                torch.cuda.synchronize()
+                _reset_grad_counts()
+                dp, _, _ = sharded(params, opt.init(params), batch)
+                torch.cuda.synchronize()
+                counts, fixed = _grad_counts(), _fixed_counts()
+                one, _, _ = plain(params, opt.init(params), batch)
+                two, _, _ = plain(params, opt.init(params), batch)
+            atomic, _, _ = plain(params, opt.init(params), batch)
         finally:
             dist.destroy_process_group()
 
     def diff(x, y):
         return max(float((x[k] - y[k]).abs().max()) for k in x)
 
-    res.update(launches=counts, pair_dp_vs_plain=diff(dp, one),
-               pair_plain_vs_plain=diff(one, two))
-    # the data-parallel step may differ from the plain one only as much as
-    # the plain step differs from itself (the atomic sums' order)
-    res["pair_bound"] = max(10 * res["pair_plain_vs_plain"], 1e-8)
-    log(f"  (a) one data-parallel pair step, world 1 on nccl, crop "
-        f"{TRAIN_CROP}: launches {counts}; parameters after it against the "
-        f"plain step's: max |diff| {res['pair_dp_vs_plain']:.3g} (bound "
-        f"{res['pair_bound']:.3g}: 10 x two plain steps' "
-        f"{res['pair_plain_vs_plain']:.3g}, at least 1e-8)")
+    def equal(x, y):
+        return all(same_bits(x[k], y[k]) for k in x)
+
+    res.update(launches=counts, fixed_launches=fixed,
+               pair_dp_bit_equal=equal(dp, one),
+               pair_plain_bit_equal=equal(one, two),
+               pair_dp_vs_plain=diff(dp, one),
+               pair_plain_vs_plain=diff(one, two),
+               pair_default_vs_fixed=diff(atomic, one))
+    log(f"  (a) under torch.use_deterministic_algorithms(True): one "
+        f"data-parallel pair step, world 1 on nccl, crop {TRAIN_CROP}: "
+        f"launches {counts}, of them the fixed-order variant {fixed}; its "
+        f"parameters bit-equal to the plain step's: "
+        f"{res['pair_dp_bit_equal']} (max |diff| "
+        f"{res['pair_dp_vs_plain']:.3g}); two plain steps bit-equal: "
+        f"{res['pair_plain_bit_equal']} (max |diff| "
+        f"{res['pair_plain_vs_plain']:.3g}); a plain step with the flag off "
+        f"(atomic f32 sums) against them: max |diff| "
+        f"{res['pair_default_vs_fixed']:.3g}")
+    # the fixed-order variant where a source takes a gradient: 6 of the
+    # pair warps' 12 (the other 6, SpyNet's, take the flow's alone, one
+    # thread's sums, the same bits on the default path) and the grouped warp
     if (counts["flow_warp_backward"], counts["grouped_warp_backward"]) != \
-            (12, 1):
-        raise AssertionError(f"data-parallel step launches {counts}")
-    if not res["pair_dp_vs_plain"] <= res["pair_bound"]:
-        raise AssertionError(f"data-parallel pair step against the plain "
-                             f"step: {res}")
+            (12, 1) or (fixed["flow_warp_backward"],
+                        fixed["grouped_warp_backward"]) != (6, 1):
+        raise AssertionError(f"data-parallel step launches {counts}, "
+                             f"fixed-order {fixed}")
+    if not (res["pair_dp_bit_equal"] and res["pair_plain_bit_equal"]):
+        raise AssertionError(f"the pair step under the deterministic flag "
+                             f"is not reproducible: {res}")
     return res
 
 
@@ -3755,11 +4007,13 @@ def par_ranks(d, dev, el_hw, bl_hw):
     return ranks
 
 
-def phase_parallel(d, smi):
-    """Phase 19: parallelism (see the module docstring)."""
+def phase_parallel(d, smi, window):
+    """Phase 19: parallelism (see the module docstring); `window` the
+    outputs and seconds of (a)'s torchrun run and (f)'s dry run, which ran
+    in phase 2's window."""
     t_phase = time.perf_counter()
     log("# phase 19: parallelism")
-    train = par_train_world1(d)
+    train = par_train_world1(d, window["torchrun"])
     log(f"  (a) {time.perf_counter() - t_phase:.1f} s")
     ranks = par_ranks(d, "cuda:0", EL_HW, BL_HW)
     log(f"  (b)-(e) two gloo ranks on cuda:0: {ranks[0]['seconds']:.1f} s "
@@ -3784,6 +4038,9 @@ def phase_parallel(d, smi):
             f"{fr['branches']} ({smi})")
         if r == 0:
             log(f"    level plan {fr['plan']}")
+            for diff in fr["first_differences"]:
+                log(f"    an op output the strips change (frame 1; "
+                    f"tools/op_digests.py): {json.dumps(diff)}")
             for i, frame in enumerate(fr["against_unsharded"]):
                 log(f"    frame {i + 1} against the unsharded card forward: "
                     f"{json.dumps(frame)}")
@@ -3802,46 +4059,214 @@ def phase_parallel(d, smi):
         f"{times['pair_strip_ms']:.4f} ms; grouped whole "
         f"{times['grouped_whole_ms']:.4f} ms, strip of 576 + 2 x "
         f"{PAR_GROUPED_HALO} rows {times['grouped_strip_ms']:.4f} ms")
-    # (f) the dry run on the card, two gloo ranks sharing it
-    t0 = time.perf_counter()
-    text = _subprocess_out([sys.executable, "-m", "lssvc_tpu_torch.dryrun",
-                            "--n", "2", "--backend", "gloo"], "dryrun")
+    # (f) the dry run on the card, two gloo ranks sharing it (run in phase
+    # 2's window)
+    text, dry_s = window["dryrun"]
     if "dryrun_multichip: 2 ranks passed" not in text:
         raise AssertionError(f"dryrun:\n{text}")
     for line in text.splitlines():
         if line.startswith("dryrun_multichip"):
             log(f"  (f) {line[:300]}")
-    log(f"  (f) {time.perf_counter() - t0:.1f} s")
+    log(f"  (f) {dry_s:.1f} s in phase 2's window, beside its other checks")
     log(f"  phase 19: {time.perf_counter() - t_phase:.1f} s")
     return train, ranks
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the root tools' twins
+
+TOOLS_LAMBDAS = ("0.003", "0.03")
+# two rate points at full width: 2 steps a stage (the trainer's chunk of 8
+# at its default --scan-steps), crop 128, the evaluation at 128x128, 4
+# frames at gop 2
+TOOLS_ARGV = ["--lambdas", *TOOLS_LAMBDAS, "--stages", "full",
+              "--steps-intra", "2", "--steps-video", "2", "--crop", "128",
+              "--eval-size", "128", "--frames", "4", "--gop", "2"]
+TOOLS_MODES = ("fp32", "bf16", "int8")
+RD_POINT = re.compile(r"^  (\w+) lmbda=([0-9.e-]+): bpp=([0-9.]+) "
+                      r"rgb-psnr=([0-9.]+)$")
+PROBE_FRAME = re.compile(r"^frame (\d+): EL rgb psnr ([0-9.-]+) dB$")
+
+
+def _tool(name, *argv, env=None, codes=(0,)):
+    """`python -m lssvc_tpu_torch.tools.<name> argv` on its default device
+    (the card): (its stdout, its exit code, which must be in `codes`)."""
+    res = subprocess.run([sys.executable, "-m",
+                          f"lssvc_tpu_torch.tools.{name}", *argv],
+                         capture_output=True, text=True, env=env,
+                         timeout=900)
+    if res.returncode not in codes:
+        raise AssertionError(f"{name} exited {res.returncode}:\n"
+                             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    return res.stdout, res.returncode
+
+
+def phase_tools(d, smi):
+    """Phase 20: the root tools' twins on the card (see the module
+    docstring).  Returns the launches of rd_experiment's evaluation
+    process and of its training processes, and the phase's results."""
+    t0 = time.perf_counter()
+    log("# phase 20: the root tools' twins")
+    out, counts_dir = d / "tools_rd", d / "tools_launches"
+    counts_dir.mkdir()
+    env = dict(os.environ, **{launch_counts.ENV: str(counts_dir)})
+    # (a) rd_experiment: train, then evaluate in three precisions
+    text, _ = _tool("rd_experiment", "--out", str(out), *TOOLS_ARGV,
+                    "--modes", *TOOLS_MODES, env=env)
+    rd_s = time.perf_counter() - t0
+    report = json.loads((out / "rd_report.json").read_text())
+    points = [m.groups() for m in map(RD_POINT.match, text.splitlines())
+              if m]
+    curves = report["curves"]
+    if list(curves) != list(TOOLS_MODES) or len(points) != \
+            len(TOOLS_MODES) * len(TOOLS_LAMBDAS):
+        raise AssertionError(f"rd_experiment: curves {curves}, lines "
+                             f"{points}")
+    for mode, lm, bpp, psnr in points:
+        got = curves[mode][TOOLS_LAMBDAS.index(lm)]
+        if (f"{got[0]:.4f}", f"{got[1]:.2f}") != (bpp, psnr) or not (
+                0 < got[0] < 100 and math.isfinite(got[1])):
+            raise AssertionError(f"rd_experiment {mode} {lm}: line "
+                                 f"{bpp} {psnr}, report {got}")
+        log(f"  (a) rd_experiment {mode} lmbda={lm}: bpp {got[0]:.4f}, "
+            f"rgb-psnr {got[1]:.2f} dB")
+        for layer in ("BL", "EL", "FL"):
+            if not (out / f"json_{mode}" / f"x2_{layer}.json").exists():
+                raise AssertionError(f"no json_{mode}/x2_{layer}.json")
+    dumps = launch_counts.read_dumps(counts_dir)
+    evaluation = [x["launches"] for x in dumps
+                  if Path(x["argv"][0]).stem == "rd_experiment"]
+    training = [x["launches"] for x in dumps
+                if Path(x["argv"][0]).stem == "train"]
+    if len(evaluation) != 1 or len(training) != 2 * len(TOOLS_LAMBDAS):
+        raise AssertionError(f"launch dumps of {[x['argv'][:1] for x in dumps]}")
+    evaluation = evaluation[0]
+    trained = {k: sum(t[k] for t in training) for k in training[0]}
+    log(f"  (a) {rd_s:.1f} s ("
+        + "; ".join(x for x in text.splitlines()
+                    if x.startswith("trained "))
+        + f"); the evaluation process's launches {evaluation}; the "
+        f"training processes' {trained}")
+    if min(evaluation["flow_warp"], evaluation["grouped_warp"],
+           evaluation["int8_conv"], trained["flow_warp_backward"],
+           trained["grouped_warp_backward"]) <= 0:
+        raise AssertionError("phase 20 did not launch every kernel of its "
+                             "path")
+    # (b) rd_reconstruct on the run's log: the report's points as printed
+    (d / "rd_log.txt").write_text(text)
+    rebuilt = d / "rd_rebuilt.json"
+    _tool("rd_reconstruct", str(d / "rd_log.txt"), "--out", str(rebuilt),
+          "--modes", *TOOLS_MODES, "--lambdas", *TOOLS_LAMBDAS)
+    got = json.loads(rebuilt.read_text())
+    want = {m: [[float(f"{b:.4f}"), float(f"{p:.2f}")] for b, p in pts]
+            for m, pts in curves.items()}
+    if got["curves"] != want or got["lambdas"] != report["lambdas"]:
+        raise AssertionError(f"rd_reconstruct: {got} against {report}")
+    log("  (b) rd_reconstruct on the log: rd_experiment's report, as "
+        f"printed ({time.perf_counter() - t0:.1f} s in)")
+    # (c) chain_probe on the first rate point's pair, in bf16
+    tag = "l0p003"
+    probe, code = _tool(
+        "chain_probe", "--video", str(out / f"video_{tag}_full_step2.npz"),
+        "--intra", str(out / f"intra_{tag}_step2.npz"), "--yuv",
+        str(out / "eval_ds" / "eval" / "x1.yuv"), "--size", "128",
+        "--frames", "4", "--precision", "bf16", codes=(0, 1))
+    psnrs = [float(m.group(2)) for m in map(PROBE_FRAME.match,
+                                             probe.splitlines()) if m]
+    if len(psnrs) != 4 or not all(map(math.isfinite, psnrs)) or \
+            code != int(psnrs[2] < 0.6 * psnrs[1]):
+        raise AssertionError(f"chain_probe (exit {code}):\n{probe}")
+    log(f"  (c) chain_probe bf16: EL rgb psnr a frame {psnrs} dB, exit "
+        f"{code} ({time.perf_counter() - t0:.1f} s in)")
+    # (d) ref_scale_eval: 3 frames of the 1080p sequence
+    ref_out = d / "ref_scale"
+    printed, _ = _tool("ref_scale_eval", "--out", str(ref_out), "--frames",
+                       "3")
+    yuv = ref_out / "ds" / "seq1080" / "x1.yuv"
+    cfg = json.loads((ref_out / "config.json").read_text())
+    if yuv.stat().st_size != 3 * 1920 * 1080 * 3 // 2 or \
+            cfg["SYN1080"]["sequences"]["seq1080"]["frames"] != 3 or \
+            "python -m lssvc_tpu_torch.test" not in printed:
+        raise AssertionError(f"ref_scale_eval:\n{printed}")
+    log(f"  (d) ref_scale_eval: {yuv.stat().st_size} bytes of 3 1080p "
+        "frames, its config, the CLI's command")
+    seconds = time.perf_counter() - t0
+    log(f"  phase 20: {seconds:.1f} s ({smi})")
+    return evaluation, trained, {"seconds": seconds, "curves": curves,
+                                 "chain_probe_psnrs": psnrs}
+
+
+def phase_window(dev, d, late):
+    """Phase 2's window: while conv_chain.cu and int8_conv.cu build, the
+    checks that time nothing and need only the early sources: phase 19
+    (f)'s dry run and (a)'s torchrun run in the background, phase 18
+    (a)-(c) and (a)'s plain spynet run in this process; then the late
+    builds and both background runs are waited for, so that nothing runs
+    beside a timed phase.  Returns phase 18's checks and the background
+    runs' (output, seconds)."""
+    t0 = time.perf_counter()
+    runs = {"dryrun": Background(
+                [sys.executable, "-m", "lssvc_tpu_torch.dryrun", "--n", "2",
+                 "--backend", "gloo"], "dryrun", d),
+            "torchrun": world1_torchrun(d)}
+    try:
+        checks = training_checks(dev)
+        world1_plain(d)
+        log(f"  phase 19 (a): the plain spynet run ("
+            f"{time.perf_counter() - t0:.1f} s in)")
+        phase_build_late(late)
+        window = {k: (r.result(), r.seconds) for k, r in runs.items()}
+    finally:
+        for r in runs.values():
+            r.stop()
+    return checks, window
+
+
 def main():
     t_start = time.perf_counter()
+
+    def lap(phase):
+        log(f"# after phase {phase}: {time.perf_counter() - t_start:.1f} s")
+
     smi = phase_device()
     dev = torch.device("cuda")
-    phase_build()
-    calls, launches = phase_main_path(dev)
-    kernels = phase_kernels(dev, calls)
-    phase_cpu_vs_card(dev)
-    chain_entry = phase_conv_chain(dev)
-    tiers = phase_warp_tiers(dev)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="gop_", dir=build.BUILD_DIR) as d:
         d = Path(d)
+        late = phase_build()
+        lap("2, started")
+        checks, window = phase_window(dev, d, late)
+        lap("2, finished, with the untimed checks")
+        calls, launches = phase_main_path(dev)
+        kernels = phase_kernels(dev, calls)
+        phase_cpu_vs_card(dev)
+        chain_entry = phase_conv_chain(dev)
+        tiers = phase_warp_tiers(dev)
+        lap(7)
         gop = gop_inputs(d)
         gop_launches, estimated_bpp = phase_gop(
             iframe_flops(GOP_EL_HW, GOP_BL_HW), d, *gop)
         phase_iframe_cpu_vs_card(dev)
+        lap(9)
         stream_launches = phase_stream(dev, d, *gop, estimated_bpp)
+        lap(10)
         modes = phase_modes(dev)
         phase_precision_gates(dev)
         pair_packed, grouped_packed, _ = phase_packed_stores(dev)
         bf16_stream = phase_bf16_stream(dev, d, *gop)
+        lap(14)
         int8_entry = phase_int8(dev, d, *gop, modes)
+        lap(15)
         pipelined, staged = phase_serving(dev, d, *gop, modes)
+        lap(16)
         phase_evaluation(dev, d, *gop)
-        grad_entries = phase_training(dev, d, gop[0], calls)
-        par_train, par_ranks = phase_parallel(d, smi)
+        lap(17)
+        grad_entries = phase_training(dev, d, gop[0], checks)
+        lap(18)
+        par_train, par_ranks = phase_parallel(d, smi, window)
+        lap(19)
+        tools_eval, tools_train, _ = phase_tools(d, smi)
+        lap(20)
     n_p = GOP_FRAMES - -(-GOP_FRAMES // GOP)
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -3880,6 +4305,10 @@ def main():
         k["data_parallel_launches"] = par_train["launches"][k["name"]]
     kernels += [pair_packed, grouped_packed, chain_entry, int8_entry,
                 *grad_entries]
+    # phase 20: rd_experiment's evaluation process and its training stages
+    for k in kernels:
+        k["tools_eval_launches"] = tools_eval.get(k["name"], 0)
+        k["tools_train_launches"] = tools_train.get(k["name"], 0)
     log(f"# chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernels' "
         "build included")
     log(json.dumps({"kernels": kernels}))

@@ -91,6 +91,28 @@
 // (pixel, unit) are summed over its channels in one thread, written into
 // the staged flows in place and stored out coalesced in the block layout.
 //
+// The fixed-order variant (`lssvc_*_backward_fixed`, what the wrappers
+// launch under torch.use_deterministic_algorithms).  The f32 sums above
+// take their contributions in the order the threads run, so two launches
+// may differ in the last bits.  This variant adds each source-gradient
+// contribution v as the integer round(v * 2^s) into a 64-bit accumulator
+// with integer atomics, whose sums are the same in any order, and turns
+// the sum into f32 (or bf16) once at the end.  s comes from one max
+// reduction over the output gradient (times one over the mask for the
+// grouped warp), M <= 2^e: a source element takes at most K contributions
+// of size M (each output pixel's four tap weights sum to 1, and taps past
+// a border clamp onto the edge pixels; K = h * w, times a group's units
+// for the grouped warp), so s = 62 - ceil(log2 K) - e leaves no sum room
+// to overflow.  At the 1080p EL pair a value's grid is M * 2^-40, far
+// below f32's rounding of the default path.  A non-finite contribution
+// goes into an f32 sum of its own, whose value (inf, -inf or NaN) does not
+// depend on the order either, and replaces the element's fixed-point sum.
+// Both kernels run in this mode as templates of the default ones: the flow
+// warp adds a column's channels one 64-bit reduction each (Hopper has no
+// vector integer reduction), the grouped warp keeps its shared-memory box
+// with 64-bit integer atomics at half the pixels.  The flow and mask
+// gradients are one thread's sums in both modes.
+//
 // Arithmetic is f32 with explicit round-to-nearest intrinsics (no FMA
 // contraction); indices are clamped into range after conversion, as in
 // warp.cu, so a NaN flow never reads or writes out of range; offsets are
@@ -98,6 +120,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <limits.h>
 #include <stdint.h>
 
@@ -175,6 +198,81 @@ __device__ __forceinline__ void red2(float* p, float a, float b) {
                : "memory");
 }
 
+// The fixed-order variant's scale exponent s from the maxima mx[0..slots)
+// (f32 bits of each, finite values only) and the most contributions k an
+// element takes: k * prod(mx) * 2^s <= 2^62, s within f32's normal range.
+__device__ __forceinline__ int fixed_exp(const unsigned* mx, int slots,
+                                         long long k) {
+  int e = 0;
+  for (int i = 0; i < slots; ++i) {
+    int ei;
+    frexpf(__uint_as_float(mx[i]), &ei);  // mx < 2^ei (0 for 0)
+    e += ei;
+  }
+  int lk = 0;
+  while ((1LL << lk) < k) ++lk;
+  const int s = 62 - lk - e;
+  return s < -126 ? -126 : (s > 126 ? 126 : s);
+}
+
+// 2^s for s in [-126, 127]
+__device__ __forceinline__ float pow2(int s) {
+  return __int_as_float((s + 127) << 23);
+}
+
+// v into element i of the fixed-point sums q (scaled by `scale`), or of
+// the non-finite sums nf
+__device__ __forceinline__ void fixed_add(unsigned long long* q, float* nf,
+                                          int64_t i, float v, float scale) {
+  if (v == 0.f) return;
+  if (isfinite(v)) {
+    atomicAdd(q + i,
+              (unsigned long long)__float2ll_rn(__fmul_rn(v, scale)));
+  } else {
+    atomicAdd(nf + i, v);
+  }
+}
+
+// The largest finite |x[i]| into *out (as f32 bits, which order as
+// unsigned integers for values >= 0).
+template <typename T>
+__global__ void absmax_kernel(const T* __restrict__ x, int64_t n,
+                              unsigned* __restrict__ out) {
+  float m = 0.f;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const float v = fabsf(to_f32(x[i]));
+    if (v <= FLT_MAX) m = fmaxf(m, v);  // not inf, not NaN
+  }
+  const unsigned b = __reduce_max_sync(0xffffffffu, __float_as_uint(m));
+  if (threadIdx.x % 32 == 0 && b != 0) atomicMax(out, b);
+}
+
+// out[i] = the fixed-point sum q[i] / 2^s, or the non-finite sum nf[i]
+// where there is one; out may be nf.  An f32 out is rounded once; a bf16
+// out too: q is first rounded to f32 toward zero with the lowest bit set
+// where that was inexact (round to odd), which bf16's rounding then
+// rounds as it would the exact value.
+template <typename T>
+__global__ void fixed_finish_kernel(const long long* q, const float* nf,
+                                    T* out, int64_t n,
+                                    const unsigned* __restrict__ mx,
+                                    int slots, long long k) {
+  const float inv = pow2(-fixed_exp(mx, slots, k));
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const float sp = nf[i];
+    const long long v = q[i];
+    if constexpr (sizeof(T) == 4) {
+      out[i] = sp != 0.f ? sp : __fmul_rn(__ll2float_rn(v), inv);
+    } else {
+      float f = __ll2float_rz(v);
+      if (__float2ll_rz(f) != v) f = __uint_as_float(__float_as_uint(f) | 1u);
+      out[i] = __float2bfloat16_rn(sp != 0.f ? sp : __fmul_rn(f, inv));
+    }
+  }
+}
+
 // One axis of a sample: clip(pos + f, 0, size-1) -> (i0, i1, frac) as in
 // warp.cu, and the clip's gradient factor, as torch.minimum(torch.maximum(
 // p, 0), size-1) differentiates it (the JAX package's jnp.clip).
@@ -242,16 +340,23 @@ constexpr int kFwRunsPerBlock = kFwThreads / kFwG;
 constexpr int kFwBlockPix = kFwRunsPerBlock * kFwRun;  // a row's pixels
 
 // One source of flow_warp_backward: x (N, H, W, c), the output gradient g
-// of the same shape, and gx, the f32 accumulator of x's gradient (null when
-// x needs none).  c = 0: no source.  vec: units of 4 channels (c % 4 == 0,
-// x and g aligned to 4 elements, gx to 16 bytes), else of one channel.
+// of the same shape, and gx, the f32 accumulator of x's gradient, or, in
+// the fixed-order variant, gq and gnf, its fixed-point and non-finite
+// sums (null when x needs none).  c = 0: no source.  vec: units of 4
+// channels (c % 4 == 0, x and g aligned to 4 elements, gx to 16 bytes),
+// else of one channel.
 template <typename T>
 struct Src {
   const T* x;
   const T* g;
   float* gx;
+  unsigned long long* gq;
+  float* gnf;
   int c;
   int vec;
+  __device__ __forceinline__ bool grad() const {
+    return gx != nullptr || gq != nullptr;
+  }
 };
 
 // A source column of a run's scatter: CHU channels added at rows y0 (top)
@@ -272,13 +377,23 @@ __device__ __forceinline__ void red_n(float* p, const float* v) {
   }
 }
 
-// A column's values into gx (channels ch.. of pixel rows of image row0).
-template <int CHU>
-__device__ __forceinline__ void col_out(const Col<CHU>& col, float* gx,
-                                        int c, int ch, int64_t row0, int w) {
-  red_n<CHU>(gx + ((row0 + col.y0) * w + col.x) * c + ch, col.top);
-  if (col.y1 != col.y0) {
-    red_n<CHU>(gx + ((row0 + col.y1) * w + col.x) * c + ch, col.bot);
+// A column's values into the source's gradient (channels ch.. of pixel
+// rows of image row0): f32 reductions, or fixed-point sums.
+template <int CHU, bool FIXED, typename T>
+__device__ __forceinline__ void col_out(const Col<CHU>& col, const Src<T>& s,
+                                        int ch, int64_t row0, int w,
+                                        float scale) {
+  const int64_t i0 = ((row0 + col.y0) * w + col.x) * s.c + ch;
+  const int64_t i1 = ((row0 + col.y1) * w + col.x) * s.c + ch;
+  if constexpr (FIXED) {
+#pragma unroll
+    for (int k = 0; k < CHU; ++k) {
+      fixed_add(s.gq, s.gnf, i0 + k, col.top[k], scale);
+      if (col.y1 != col.y0) fixed_add(s.gq, s.gnf, i1 + k, col.bot[k], scale);
+    }
+  } else {
+    red_n<CHU>(s.gx + i0, col.top);
+    if (col.y1 != col.y0) red_n<CHU>(s.gx + i1, col.bot);
   }
 }
 
@@ -292,13 +407,13 @@ struct Run {
 // pixels in order, each pixel's two tap columns merged with the column
 // pending from the pixel before where they meet, the flow gradient's terms
 // into sx, sy (one entry per pixel).
-template <typename T, int CHU>
+template <typename T, int CHU, bool FIXED>
 __device__ __forceinline__ void fw_source(const Src<T>& s, const Run& r,
                                           int npx, int64_t row0, int iy,
                                           int xs, int h, int w,
-                                          bool flow_grad, float* sx,
-                                          float* sy) {
-  if (s.c == 0 || (s.gx == nullptr && !flow_grad)) return;
+                                          bool flow_grad, float scale,
+                                          float* sx, float* sy) {
+  if (s.c == 0 || (!s.grad() && !flow_grad)) return;
   const int units = s.c / CHU;
   for (int u = threadIdx.x % kFwG; u < units; u += kFwG) {
     const int ch = u * CHU;
@@ -334,7 +449,7 @@ __device__ __forceinline__ void fw_source(const Src<T>& s, const Run& r,
           sy[i] = __fadd_rn(sy[i], __fmul_rn(g[k], __fsub_rn(bot, top)));
         }
       }
-      if (s.gx == nullptr) continue;
+      if (!s.grad()) continue;
       Col<CHU> left{x0, y0, y1}, right{x1, y0, y1};
 #pragma unroll
       for (int k = 0; k < CHU; ++k) {
@@ -362,27 +477,31 @@ __device__ __forceinline__ void fw_source(const Src<T>& s, const Run& r,
         }
         have = false;
       }
-      if (have) col_out<CHU>(pend, s.gx, s.c, ch, row0, w);
+      if (have) col_out<CHU, FIXED>(pend, s, ch, row0, w, scale);
       if (x1 != x0) {
-        col_out<CHU>(left, s.gx, s.c, ch, row0, w);
+        col_out<CHU, FIXED>(left, s, ch, row0, w, scale);
         pend = right;
       } else {
         pend = left;
       }
       have = true;
     }
-    if (have) col_out<CHU>(pend, s.gx, s.c, ch, row0, w);
+    if (have) col_out<CHU, FIXED>(pend, s, ch, row0, w, scale);
   }
 }
 
 // Block: kFwBlockPix pixels of row blockIdx.y of image blockIdx.z from
 // column blockIdx.x * kFwBlockPix; thread (run, lane) takes kFwRun pixels
 // of them.  gflow (N, H, W, 2) f32, null when the flow needs no gradient.
-template <typename T>
+// FIXED: the fixed-order variant, scaled by the maximum mx[0].
+template <typename T, bool FIXED>
 __global__ void __launch_bounds__(kFwThreads)
     flow_warp_backward_kernel(Src<T> a, Src<T> b,
                               const float* __restrict__ flow,
-                              float* __restrict__ gflow, int h, int w) {
+                              float* __restrict__ gflow, int h, int w,
+                              const unsigned* __restrict__ mx) {
+  float scale = 0.f;
+  if constexpr (FIXED) scale = pow2(fixed_exp(mx, 1, (long long)h * w));
   const int iy = blockIdx.y;
   const int64_t row0 = (int64_t)blockIdx.z * h;  // the image's first row
   const int xs = blockIdx.x * kFwBlockPix + threadIdx.x / kFwG * kFwRun;
@@ -406,14 +525,18 @@ __global__ void __launch_bounds__(kFwThreads)
 #pragma unroll
   for (int i = 0; i < kFwRun; ++i) sx[i] = sy[i] = 0.f;
   if (a.vec) {
-    fw_source<T, 4>(a, r, npx, row0, iy, xs, h, w, flow_grad, sx, sy);
+    fw_source<T, 4, FIXED>(a, r, npx, row0, iy, xs, h, w, flow_grad, scale,
+                           sx, sy);
   } else {
-    fw_source<T, 1>(a, r, npx, row0, iy, xs, h, w, flow_grad, sx, sy);
+    fw_source<T, 1, FIXED>(a, r, npx, row0, iy, xs, h, w, flow_grad, scale,
+                           sx, sy);
   }
   if (b.vec) {
-    fw_source<T, 4>(b, r, npx, row0, iy, xs, h, w, flow_grad, sx, sy);
+    fw_source<T, 4, FIXED>(b, r, npx, row0, iy, xs, h, w, flow_grad, scale,
+                           sx, sy);
   } else {
-    fw_source<T, 1>(b, r, npx, row0, iy, xs, h, w, flow_grad, sx, sy);
+    fw_source<T, 1, FIXED>(b, r, npx, row0, iy, xs, h, w, flow_grad, scale,
+                           sx, sy);
   }
   if (!flow_grad) return;
 #pragma unroll
@@ -448,6 +571,9 @@ struct GwArgs {
   float* gfx;
   float* gfy;
   float* gmask;
+  unsigned long long* gq;  // the fixed-order variant's sums of x's gradient
+  float* gnf;              // and its non-finite sums
+  const unsigned* mx;      // its maxima: |g|, |mask|
   int h, w, c_src, go, gn;
   int gstride;  // elements of T a staged pixel of g
   int vec_g;    // g staged by 16-byte loads
@@ -515,15 +641,33 @@ __device__ __forceinline__ void red_group3(float* gx, int64_t q, int gr,
   }
 }
 
+// A tap's value v of group channel k in the fixed-order variant: into the
+// box (64-bit fixed point, box pixel bq) or, with no box or a non-finite
+// v, into the global sums (element e).
+__device__ __forceinline__ void gw_fixed_tap(const GwArgs& args,
+                                             float* box, int area, int k,
+                                             int bq, int64_t e, float v,
+                                             float scale) {
+  if (box != nullptr && isfinite(v)) {
+    if (v != 0.f) {
+      atomicAdd(reinterpret_cast<unsigned long long*>(box) + k * area + bq,
+                (unsigned long long)__float2ll_rn(__fmul_rn(v, scale)));
+    }
+  } else {
+    fixed_add(args.gq, args.gnf, e, v, scale);
+  }
+}
+
 // Unit j of group gr over the tile: its taps scattered into the warp's box
-// (cg planes of b.area() floats, with shared-memory atomics) or, with no
-// box, into gx; its flow and mask gradients written over its staged flows
-// and mask.
-template <typename T, bool MODEL>
+// (cg planes of b.area() floats, with shared-memory atomics; 64-bit
+// integers in the fixed-order variant) or, with no box, into gx; its flow
+// and mask gradients written over its staged flows and mask.
+template <typename T, bool MODEL, bool FIXED>
 __device__ void gw_unit(const GwArgs& args, const GwShape<MODEL>& sh,
                         const T* gs, float* fs, int fstride, float* box,
                         const Box& b, int j, int gr, int64_t img, int tx0,
-                        int ty0) {
+                        int ty0, float scale) {
+  const bool want_x = FIXED ? args.gq != nullptr : args.gx != nullptr;
   const int h = args.h, w = args.w;
   const T* x = static_cast<const T*>(args.x);
   const bool need_v =
@@ -596,10 +740,16 @@ __device__ void gw_unit(const GwArgs& args, const GwShape<MODEL>& sh,
           sy = __fadd_rn(sy, __fmul_rn(gm, __fsub_rn(bot, top)));
         }
       }
-      if (args.gx != nullptr) {
+      if (want_x) {
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
-          if (box != nullptr) {
+          if constexpr (FIXED) {
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+              gw_fixed_tap(args, box, area, k, bq[t], q[t] * 48 + src0 + k,
+                           add[t][k], scale);
+            }
+          } else if (box != nullptr) {
 #pragma unroll
             for (int k = 0; k < 3; ++k) {
               atomicAdd(box + k * area + bq[t], add[t][k]);
@@ -618,10 +768,13 @@ __device__ void gw_unit(const GwArgs& args, const GwShape<MODEL>& sh,
         const float gb = __fmul_rn(gm, wy);
         const float add[4] = {__fmul_rn(gt, ax), __fmul_rn(gt, wx),
                               __fmul_rn(gb, ax), __fmul_rn(gb, wx)};
-        if (args.gx != nullptr) {
+        if (want_x) {
 #pragma unroll
           for (int t = 0; t < 4; ++t) {
-            if (box != nullptr) {
+            if constexpr (FIXED) {
+              gw_fixed_tap(args, box, area, k, bq[t], q[t] * sh.c_src + c,
+                           add[t], scale);
+            } else if (box != nullptr) {
               atomicAdd(box + k * area + bq[t], add[t]);
             } else {
               atomicAdd(args.gx + q[t] * sh.c_src + c, add[t]);
@@ -652,10 +805,10 @@ __device__ void gw_unit(const GwArgs& args, const GwShape<MODEL>& sh,
   }
 }
 
-// A warp's box (cg planes of b.area() floats) added to group gr's
-// channels of gx, lanes over box pixels; pixels whose values are all 0 are
-// skipped.
-template <bool MODEL>
+// A warp's box (cg planes of b.area() floats, or of 64-bit integers in the
+// fixed-order variant) added to group gr's channels of gx, lanes over box
+// pixels; values of 0 are skipped.
+template <bool MODEL, bool FIXED>
 __device__ void gw_flush(const GwArgs& args, const GwShape<MODEL>& sh,
                          const float* box, const Box& b, int gr,
                          int64_t img) {
@@ -663,7 +816,15 @@ __device__ void gw_flush(const GwArgs& args, const GwShape<MODEL>& sh,
   for (int bp = threadIdx.x % 32; bp < area; bp += 32) {
     const int by = bp / b.bw, bx = bp - by * b.bw;
     const int64_t q = (img * args.h + b.y0 + by) * args.w + b.x0 + bx;
-    if constexpr (MODEL) {
+    if constexpr (FIXED) {
+      const unsigned long long* bq =
+          reinterpret_cast<const unsigned long long*>(box);
+      unsigned long long* dst = args.gq + q * sh.c_src + gr * sh.cg;
+      for (int k = 0; k < sh.cg; ++k) {
+        const unsigned long long v = bq[k * area + bp];
+        if (v != 0) atomicAdd(dst + k, v);
+      }
+    } else if constexpr (MODEL) {
       const float v[3] = {box[bp], box[area + bp], box[2 * area + bp]};
       if (v[0] != 0.f || v[1] != 0.f || v[2] != 0.f) {
         red_group3(args.gx, q, gr, v);
@@ -678,18 +839,28 @@ __device__ void gw_flush(const GwArgs& args, const GwShape<MODEL>& sh,
   }
 }
 
-// A warp's box holds cg planes of a footprint of at most kGwBox floats.
+// A warp's box holds cg planes of a footprint of at most kGwBox floats
+// (kGwBox / 2 64-bit integers in the fixed-order variant).
+template <bool FIXED>
 __device__ __forceinline__ bool gw_fits(const Box& b, int cg) {
-  return b.area() * cg <= kGwBox;
+  return b.area() * cg * (FIXED ? 2 : 1) <= kGwBox;
 }
 
 // Block: tile (blockIdx.x, blockIdx.y) of image blockIdx.z; shared memory
 // [3][kGwPix][go + 1] f32 staged flows and mask (then their gradients),
-// [kGwWarps][kGwBox] f32 boxes, [kGwPix][gstride] T staged g.
-template <typename T, bool MODEL>
+// [kGwWarps][kGwBox] f32 boxes, [kGwPix][gstride] T staged g.  FIXED: the
+// fixed-order variant, scaled by the maxima mx[0] |g| and mx[1] |mask|.
+template <typename T, bool MODEL, bool FIXED>
 __global__ void __launch_bounds__(kGwThreads)
     grouped_warp_backward_kernel(GwArgs args) {
   const GwShape<MODEL> sh(args);
+  float scale = 0.f;
+  if constexpr (FIXED) {
+    scale = pow2(fixed_exp(args.mx, 2, (long long)args.h * args.w *
+                                           ((sh.go + sh.gn - 1) / sh.gn)));
+  }
+  const bool want_x = FIXED ? args.gq != nullptr : args.gx != nullptr;
+  const int box_words = FIXED ? 2 : 1;  // floats a box value
   const int h = args.h, w = args.w, go = sh.go, cgo = sh.go * sh.cg;
   const int fstride = go + 1;
   extern __shared__ float4 gw_smem[];
@@ -764,7 +935,7 @@ __global__ void __launch_bounds__(kGwThreads)
   for (int gr = warp; gr < sh.gn; gr += kGwWarps) {
     bool shared = false;
     Box u{0, 0, 0, 0};
-    if (args.gx != nullptr && gr + sh.gn < go) {
+    if (want_x && gr + sh.gn < go) {
       // the group's units share one box where their union is no larger
       // than their boxes together
       int ylo = INT_MAX, yhi = -1, xlo = INT_MAX, xhi = -1;
@@ -778,38 +949,42 @@ __global__ void __launch_bounds__(kGwThreads)
         sum += bj.area();
       }
       u = Box{ylo, xlo, yhi - ylo + 1, xhi - xlo + 1};
-      shared = u.area() <= sum && gw_fits(u, sh.cg);
+      shared = u.area() <= sum && gw_fits<FIXED>(u, sh.cg);
     }
     if (shared) {
-      for (int i = tid % 32; i < sh.cg * u.bh * u.bw; i += 32) box[i] = 0.f;
-      __syncwarp();
-      for (int j = gr; j < go; j += sh.gn) {
-        gw_unit<T, MODEL>(args, sh, gs, fs, fstride, box, u, j, gr, img,
-                          tx0, ty0);
+      for (int i = tid % 32; i < box_words * sh.cg * u.bh * u.bw; i += 32) {
+        box[i] = 0.f;
       }
       __syncwarp();
-      gw_flush<MODEL>(args, sh, box, u, gr, img);
+      for (int j = gr; j < go; j += sh.gn) {
+        gw_unit<T, MODEL, FIXED>(args, sh, gs, fs, fstride, box, u, j, gr,
+                                 img, tx0, ty0, scale);
+      }
+      __syncwarp();
+      gw_flush<MODEL, FIXED>(args, sh, box, u, gr, img);
       __syncwarp();
       continue;
     }
     for (int j = gr; j < go; j += sh.gn) {
       Box bj{0, 0, 0, 0};
       bool boxed = false;
-      if (args.gx != nullptr) {
+      if (want_x) {
         bj = gw_footprint(fs, fstride, j, tx0, ty0, h, w);
-        boxed = gw_fits(bj, sh.cg);
+        boxed = gw_fits<FIXED>(bj, sh.cg);
       }
       if (boxed) {
-        for (int i = tid % 32; i < sh.cg * bj.bh * bj.bw; i += 32) {
+        for (int i = tid % 32; i < box_words * sh.cg * bj.bh * bj.bw;
+             i += 32) {
           box[i] = 0.f;
         }
         __syncwarp();
       }
-      gw_unit<T, MODEL>(args, sh, gs, fs, fstride, boxed ? box : nullptr,
-                        bj, j, gr, img, tx0, ty0);
+      gw_unit<T, MODEL, FIXED>(args, sh, gs, fs, fstride,
+                               boxed ? box : nullptr, bj, j, gr, img, tx0,
+                               ty0, scale);
       if (boxed) {
         __syncwarp();
-        gw_flush<MODEL>(args, sh, box, bj, gr, img);
+        gw_flush<MODEL, FIXED>(args, sh, box, bj, gr, img);
         __syncwarp();
       }
     }
@@ -863,12 +1038,37 @@ bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 // a source of flow_warp_backward; units of 4 channels need c % 4 == 0,
 // x and g aligned to 4 elements and gx to 16 bytes
 template <typename T>
-Src<T> src(const void* x, const void* g, void* gx, int c) {
-  Src<T> s{(const T*)x, (const T*)g, (float*)gx, c, 0};
+Src<T> src(const void* x, const void* g, void* gx, void* gq, void* gnf,
+           int c) {
+  Src<T> s{(const T*)x, (const T*)g,          (float*)gx,
+           (unsigned long long*)gq, (float*)gnf, c, 0};
   const uintptr_t unit = 4 * sizeof(T);
   s.vec = c > 0 && c % 4 == 0 && (uintptr_t)x % unit == 0 &&
           (uintptr_t)g % unit == 0 && aligned16(gx);
   return s;
+}
+
+// The largest finite |x| of n values of T into *mx (already 0 or lower).
+template <typename T>
+void absmax(const void* x, int64_t n, unsigned* mx, cudaStream_t s) {
+  if (x == nullptr || n <= 0) return;
+  int blocks = blocks_for(n, 256);
+  if (blocks > 132 * 8) blocks = 132 * 8;
+  absmax_kernel<T><<<blocks, 256, 0, s>>>((const T*)x, n, mx);
+}
+
+// out = the fixed-point sums q of n values, scaled by the maxima mx[0..
+// slots) and at most k contributions a value (fixed_exp), or their
+// non-finite sums nf; out null: nothing.
+template <typename T>
+void fixed_finish(const void* q, const void* nf, void* out, int64_t n,
+                  const unsigned* mx, int slots, long long k,
+                  cudaStream_t s) {
+  if (out == nullptr || n <= 0) return;
+  int blocks = blocks_for(n, 256);
+  if (blocks > 132 * 64) blocks = 132 * 64;
+  fixed_finish_kernel<T><<<blocks, 256, 0, s>>>(
+      (const long long*)q, (const float*)nf, (T*)out, n, mx, slots, k);
 }
 
 template <typename T>
@@ -879,29 +1079,61 @@ int flow_backward(const void* a, const void* ga, void* gxa, int ca,
   if (n <= 0 || h <= 0 || w <= 0) return (int)cudaGetLastError();
   if (n > 65535 || h > 65535) return (int)cudaErrorInvalidValue;  // grid
   const dim3 grid((w + kFwBlockPix - 1) / kFwBlockPix, h, (unsigned)n);
-  flow_warp_backward_kernel<T><<<grid, kFwThreads, 0, s>>>(
-      src<T>(a, ga, gxa, ca), src<T>(b, gb, gxb, cb), (const float*)flow,
-      (float*)gflow, h, w);
+  flow_warp_backward_kernel<T, false><<<grid, kFwThreads, 0, s>>>(
+      src<T>(a, ga, gxa, nullptr, nullptr, ca),
+      src<T>(b, gb, gxb, nullptr, nullptr, cb), (const float*)flow,
+      (float*)gflow, h, w, nullptr);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool MODEL>
+// The fixed-order variant: the maximum of the output gradients that a
+// source gradient is taken of, the kernel into the fixed-point sums (qa,
+// qb) and non-finite sums (nfa, nfb), then each source gradient (outa,
+// outb; may be nfa, nfb for f32) from them.
+template <typename T>
+int flow_backward_fixed(const void* a, const void* ga, void* qa, void* nfa,
+                        void* outa, int ca, const void* b, const void* gb,
+                        void* qb, void* nfb, void* outb, int cb,
+                        const void* flow, void* gflow, unsigned* mx,
+                        int64_t n, int h, int w, cudaStream_t s) {
+  if (n <= 0 || h <= 0 || w <= 0) return (int)cudaGetLastError();
+  if (n > 65535 || h > 65535) return (int)cudaErrorInvalidValue;  // grid
+  const int64_t pix = n * h * w;
+  if (qa != nullptr) absmax<T>(ga, pix * ca, mx, s);
+  if (qb != nullptr && cb > 0) absmax<T>(gb, pix * cb, mx, s);
+  const dim3 grid((w + kFwBlockPix - 1) / kFwBlockPix, h, (unsigned)n);
+  flow_warp_backward_kernel<T, true><<<grid, kFwThreads, 0, s>>>(
+      src<T>(a, ga, nullptr, qa, nfa, ca), src<T>(b, gb, nullptr, qb, nfb, cb),
+      (const float*)flow, (float*)gflow, h, w, mx);
+  const long long k = (long long)h * w;
+  if (qa != nullptr) fixed_finish<T>(qa, nfa, outa, pix * ca, mx, 1, k, s);
+  if (qb != nullptr && cb > 0) {
+    fixed_finish<T>(qb, nfb, outb, pix * cb, mx, 1, k, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool MODEL, bool FIXED>
 int launch_grouped(const GwArgs& args, int64_t n, int smem, cudaStream_t s) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      grouped_warp_backward_kernel<T, MODEL>,
+      grouped_warp_backward_kernel<T, MODEL, FIXED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((args.w + kGwTw - 1) / kGwTw, (args.h + kGwTh - 1) / kGwTh,
                   (unsigned)n);
-  grouped_warp_backward_kernel<T, MODEL><<<grid, kGwThreads, smem, s>>>(args);
+  grouped_warp_backward_kernel<T, MODEL, FIXED>
+      <<<grid, kGwThreads, smem, s>>>(args);
   return (int)cudaGetLastError();
 }
 
+// Both modes: gx the f32 accumulator (gq, gnf, mx null), or, for the
+// fixed-order variant, gq and gnf its sums and mx its maxima (gx null).
 template <typename T>
 int grouped_backward(const void* x, const void* g, const void* fx,
                      const void* fy, const void* mask, void* gx, void* gfx,
-                     void* gfy, void* gmask, int64_t n, int h, int w,
-                     int c_src, int go, int group_num, cudaStream_t s) {
+                     void* gfy, void* gmask, void* gq, void* gnf,
+                     unsigned* mx, int64_t n, int h, int w, int c_src,
+                     int go, int group_num, cudaStream_t s) {
   if (n <= 0 || h <= 0 || w <= 0 || go <= 0) return (int)cudaGetLastError();
   if (n > 65535) return (int)cudaErrorInvalidValue;  // gridDim.z
   const int cg = c_src / group_num, cgo = go * cg;
@@ -914,17 +1146,42 @@ int grouped_backward(const void* x, const void* g, const void* fx,
                        (int64_t)kGwWarps * kGwBox * 4 +
                        (int64_t)kGwPix * gstride * sizeof(T);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  GwArgs args{x,  g,  (const float*)fx, (const float*)fy, (const float*)mask,
-              (float*)gx, (float*)gfx, (float*)gfy, (float*)gmask,
-              h,  w,  c_src, go, group_num, gstride, 0, 0};
+  GwArgs args{x,
+              g,
+              (const float*)fx,
+              (const float*)fy,
+              (const float*)mask,
+              (float*)gx,
+              (float*)gfx,
+              (float*)gfy,
+              (float*)gmask,
+              (unsigned long long*)gq,
+              (float*)gnf,
+              mx,
+              h,
+              w,
+              c_src,
+              go,
+              group_num,
+              gstride,
+              0,
+              0};
   args.vec_g = (cgo * sizeof(T)) % 16 == 0 && aligned16(g);
   args.vec_f = go % 4 == 0 && aligned16(fx) && aligned16(fy) &&
                aligned16(mask) && aligned16(gfx) && aligned16(gfy) &&
                aligned16(gmask);
   const bool model = c_src == 48 && go == 32 && group_num == 16 &&
                      aligned16(x) && aligned16(gx);
-  if (model) return launch_grouped<T, true>(args, n, (int)smem, s);
-  return launch_grouped<T, false>(args, n, (int)smem, s);
+  if (mx != nullptr) {  // the fixed-order variant
+    if (gq != nullptr) {
+      absmax<T>(g, n * h * w * cgo, mx, s);
+      absmax<float>(mask, n * h * w * go, mx + 1, s);
+    }
+    if (model) return launch_grouped<T, true, true>(args, n, (int)smem, s);
+    return launch_grouped<T, false, true>(args, n, (int)smem, s);
+  }
+  if (model) return launch_grouped<T, true, false>(args, n, (int)smem, s);
+  return launch_grouped<T, false, false>(args, n, (int)smem, s);
 }
 
 }  // namespace
@@ -964,11 +1221,68 @@ extern "C" int lssvc_grouped_warp_backward(const void* x, const void* g,
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
     return grouped_backward<float>(x, g, fx, fy, mask, gx, gfx, gfy, gmask,
-                                   n, h, w, c_src, go, group_num, s);
+                                   nullptr, nullptr, nullptr, n, h, w, c_src,
+                                   go, group_num, s);
   }
-  return grouped_backward<__nv_bfloat16>(x, g, fx, fy, mask, gx, gfx, gfy,
-                                         gmask, n, h, w, c_src, go,
-                                         group_num, s);
+  return grouped_backward<__nv_bfloat16>(
+      x, g, fx, fy, mask, gx, gfx, gfy, gmask, nullptr, nullptr, nullptr, n,
+      h, w, c_src, go, group_num, s);
+}
+
+// The fixed-order variant of lssvc_flow_warp_backward: the same inputs;
+// qa, qb zeroed int64 (N,H,W,c) fixed-point sums and nfa, nfb zeroed f32
+// (N,H,W,c) non-finite sums of the sources' gradients (null where a source
+// needs none), outa, outb those gradients in the sources' dtype (f32: may
+// be nfa, nfb); mx a zeroed 32-bit word.  The source gradients do not
+// depend on the order in which threads run: two launches on the same
+// inputs give the same bits.
+extern "C" int lssvc_flow_warp_backward_fixed(
+    const void* a, const void* ga, void* qa, void* nfa, void* outa, int ca,
+    const void* b, const void* gb, void* qb, void* nfb, void* outb, int cb,
+    const void* flow, void* gflow, void* mx, int64_t n, int h, int w,
+    int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) {
+    return flow_backward_fixed<float>(a, ga, qa, nfa, outa, ca, b, gb, qb,
+                                      nfb, outb, cb, flow, gflow,
+                                      (unsigned*)mx, n, h, w, s);
+  }
+  return flow_backward_fixed<__nv_bfloat16>(a, ga, qa, nfa, outa, ca, b, gb,
+                                            qb, nfb, outb, cb, flow, gflow,
+                                            (unsigned*)mx, n, h, w, s);
+}
+
+// The fixed-order variant of lssvc_grouped_warp_backward: qx a zeroed
+// int64 and nfx a zeroed f32 (N,H,W,c_src) for x's gradient (null where x
+// needs none), outx that gradient in x's dtype (f32: may be nfx); mx two
+// zeroed 32-bit words.
+extern "C" int lssvc_grouped_warp_backward_fixed(
+    const void* x, const void* g, const void* fx, const void* fy,
+    const void* mask, void* qx, void* nfx, void* outx, void* gfx, void* gfy,
+    void* gmask, void* mx, int64_t n, int h, int w, int c_src, int go,
+    int group_num, int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long k =
+      (long long)h * w * ((go + group_num - 1) / (group_num > 0 ? group_num : 1));
+  const int64_t elems = n * h * w * c_src;
+  int err;
+  if (dtype == 0) {
+    err = grouped_backward<float>(x, g, fx, fy, mask, nullptr, gfx, gfy,
+                                  gmask, qx, nfx, (unsigned*)mx, n, h, w,
+                                  c_src, go, group_num, s);
+    if (err == 0 && qx != nullptr) {
+      fixed_finish<float>(qx, nfx, outx, elems, (unsigned*)mx, 2, k, s);
+    }
+  } else {
+    err = grouped_backward<__nv_bfloat16>(x, g, fx, fy, mask, nullptr, gfx,
+                                          gfy, gmask, qx, nfx, (unsigned*)mx,
+                                          n, h, w, c_src, go, group_num, s);
+    if (err == 0 && qx != nullptr) {
+      fixed_finish<__nv_bfloat16>(qx, nfx, outx, elems, (unsigned*)mx, 2, k,
+                                  s);
+    }
+  }
+  return err != 0 ? err : (int)cudaGetLastError();
 }
 
 // dst[i] = bf16(src[i]), rounded to nearest even: a bf16 source's gradient

@@ -33,7 +33,6 @@ import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-import numpy as np
 import torch
 
 from .harness.runner import RATIO_FACTORS
@@ -42,8 +41,7 @@ from .models.lssvc_stream import decode_frame_overlapped
 from .ops import pad_nhwc
 from .ops.nn import od_offset_cap_from_env, precision_from_cli
 from .parallel.scheduler import load_intra, load_video
-from .utils.color import rgb_to_ycbcr420
-from .utils.io import YUVWriter
+from .utils.io import YUVWriter, yuv420_bytes
 from .utils.padding import get_interlayer_padding, inverse_padding_size
 from .utils.platform import resolve_device
 from .utils.stream import decode_p
@@ -56,10 +54,7 @@ def yuv_frame(picture: torch.Tensor, p_size) -> bytes:
     (a bf16 picture as f32, exactly)."""
     rgb = pad_nhwc(picture, inverse_padding_size(p_size))[0] \
         .permute(2, 0, 1).float().cpu().numpy()
-    y, uv = rgb_to_ycbcr420(rgb)
-    planes = [np.clip(np.rint(p * 255), 0, 255).astype(np.uint8)
-              for p in (y, uv)]
-    return planes[0].tobytes() + planes[1].tobytes()
+    return yuv420_bytes(rgb)
 
 
 def parse_args(argv=None):

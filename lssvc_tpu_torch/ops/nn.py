@@ -10,6 +10,13 @@ The numerics are a `Mode` (the JAX package's process-wide precision,
 packed-width and 1x1-einsum switches): a model enters its mode with
 `precision_scope` around each public call, and the functions here read it
 through `current_mode()`.  Nothing outlives the scope.
+
+Row-local products (GDN's `x^2 @ gamma^T`, the 1x1 convs run as matmuls,
+OffsetDiversity's fusion) go through `rows_matmul`: GEMMs of one fixed
+row count, so that a row's result does not depend on how many rows the
+tensor holds.  cuBLAS (and the CPU's BLAS) pick their kernel, and with it
+the order of a row's sums, by the matrix's shape; an H-strip of a frame
+then gave other last bits than the frame's own rows.
 """
 
 from __future__ import annotations
@@ -202,20 +209,60 @@ def _operands(x, w, b):
     return x, w, b
 
 
+# rows of one GEMM of `rows_matmul`: on the card enough to fill it (a
+# 32768 x 128 x 128 product is 256 tiles of 128 x 128), on the CPU few, so
+# that the CPU tests' small frames pad little
+ROWS_CUDA, ROWS_CPU = 32768, 1024
+
+
+def rows_matmul(a, b, out_dtype=None):
+    """a (..., K) @ b (K, N), a's rows flattened and taken `ROWS_CUDA`
+    (`ROWS_CPU` on the CPU) at a time, the last chunk padded with zero
+    rows: every GEMM runs at one shape, so a row's result is the same bits
+    in a tensor of any row count (an H-strip and its whole frame).  Each
+    chunk's product is written in place into the one output (under
+    autograd, where `out=` does not differentiate, the chunks are
+    concatenated).  `out_dtype` float32: bf16 operands with an f32 product
+    (`torch.mm(..., out_dtype=)`, on the card)."""
+    lead, k, n = a.shape[:-1], a.shape[-1], b.shape[-1]
+    rows = a.reshape(-1, k)
+    if type(rows) is not torch.Tensor:  # a strips.Whole level
+        rows = rows.as_subclass(torch.Tensor)
+    m = rows.shape[0]
+    step = ROWS_CUDA if rows.is_cuda else ROWS_CPU
+    kw = {} if out_dtype is None else {"out_dtype": out_dtype}
+
+    def padded(chunk):  # the last, short chunk at the GEMMs' one shape
+        r = chunk.shape[0]
+        return torch.mm(F.pad(chunk, (0, 0, 0, step - r)), b, **kw)[:r]
+
+    if torch.is_grad_enabled() and (rows.requires_grad or b.requires_grad):
+        parts = [padded(rows[i:i + step]) for i in range(0, m, step)]
+        out = torch.cat(parts) if parts else torch.mm(rows, b, **kw)
+        return out.reshape(*lead, n)
+    out = torch.empty((m, n), dtype=out_dtype or torch.promote_types(
+        rows.dtype, b.dtype), device=rows.device)
+    for i in range(0, m, step):
+        if m - i >= step:
+            torch.mm(rows[i:i + step], b, **kw, out=out[i:i + step])
+        else:
+            out[i:] = padded(rows[i:])
+    return out.reshape(*lead, n)
+
+
 def matmul_f32out(a, b):
     """a @ b with operands in the compute dtype and an f32 product (the
-    JAX package's `einsum(..., preferred_element_type=float32)`).  With
-    bf16 operands on the card: cuBLAS's bf16 GEMM with an f32 output (f32
-    accumulation on the tensor cores); on the CPU the bf16-rounded
-    operands multiply in f32.  Neither reads the process-wide TF32 flags,
-    which another thread's scope may hold."""
+    JAX package's `einsum(..., preferred_element_type=float32)`), by
+    `rows_matmul`.  With bf16 operands on the card: cuBLAS's bf16 GEMM with
+    an f32 output (f32 accumulation on the tensor cores); on the CPU the
+    bf16-rounded operands multiply in f32.  Neither reads the process-wide
+    TF32 flags, which another thread's scope may hold."""
     if compute_dtype() == torch.float32:
-        return torch.matmul(a, b)
+        return rows_matmul(a, b)
     a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
     if not a.is_cuda:
-        return torch.matmul(a.float(), b.float())
-    out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
-    return out.reshape(*a.shape[:-1], b.shape[-1])
+        return rows_matmul(a.float(), b.float())
+    return rows_matmul(a, b, torch.float32)
 
 
 def matmul_highest(a, b):
@@ -328,7 +375,7 @@ def _conv2d(x, w, b, stride, padding, groups):
             and tuple(padding) == (0, 0)):
         # the JAX package's `ops/nn.py:184-195,248-255`: a matmul, then
         # the bias in the output's dtype
-        out = torch.matmul(x, w[:, :, 0, 0].t())
+        out = rows_matmul(x, w[:, :, 0, 0].t())
         return out if b is None else out + b.to(out.dtype)
     return _nhwc(F.conv2d(_nchw(x), w, b, stride=stride, padding=padding,
                           groups=groups))
@@ -499,8 +546,9 @@ def gdn(x, beta, gamma, inverse: bool = False):
         - _PEDESTAL
     # the JAX package's einsum of bf16 x^2 with the f32 gamma computes in
     # f32 (type promotion), and so does x * rsqrt(f32 norm); torch's
-    # matmul takes one dtype, so the square is cast explicitly
-    norm = torch.matmul(torch.square(x).to(gamma.dtype), gamma.t()) + beta
+    # matmul takes one dtype, so the square is cast explicitly; the product
+    # is row-local, in GEMMs of one shape (`rows_matmul`)
+    norm = rows_matmul(torch.square(x).to(gamma.dtype), gamma.t()) + beta
     if inverse:
         return x * torch.sqrt(norm)
     return x * torch.rsqrt(norm)

@@ -43,6 +43,14 @@ take no gradient (training never packs): under grad they raise.  On the
 CPU the plain versions are differentiated by autograd itself, and
 `flow_warp_backward_plain` / `grouped_warp_backward_plain` are that
 autograd, which the kernels are held to.
+
+Reproducible training.  The backward kernels sum each source pixel's
+gradient with atomics, so by default two launches may differ in the last
+bits.  Under `torch.use_deterministic_algorithms(True)` both launch
+their fixed-order variant
+(`lssvc_*_backward_fixed`): the source gradient summed in 64-bit fixed
+point with integer atomics, the same bits in any order, counted on
+`<wrapper>.fixed_launches` as well.
 """
 
 from __future__ import annotations
@@ -98,6 +106,14 @@ def _grad_lib():
         lib.lssvc_grouped_warp_backward.restype = i32
         lib.lssvc_f32_to_bf16.argtypes = [vp, vp, i64, vp]
         lib.lssvc_f32_to_bf16.restype = i32
+        lib.lssvc_flow_warp_backward_fixed.argtypes = [
+            vp, vp, vp, vp, vp, i32, vp, vp, vp, vp, vp, i32, vp, vp, vp,
+            i64, i32, i32, i32, vp]
+        lib.lssvc_flow_warp_backward_fixed.restype = i32
+        lib.lssvc_grouped_warp_backward_fixed.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32,
+            i32, i32, i32, i32, vp]
+        lib.lssvc_grouped_warp_backward_fixed.restype = i32
         _GRAD_LIB = lib
     return _GRAD_LIB
 
@@ -340,6 +356,30 @@ grouped_warp.packed_launches = 0
 # ---------------------------------------------------------------------------
 # The backward kernels and their plain versions
 
+class _FixedSums:
+    """The fixed-order variant's buffers of one source's gradient: zeroed
+    int64 fixed-point sums and f32 non-finite sums, and the gradient in
+    the source's dtype (an f32 gradient is written over its non-finite
+    sums)."""
+
+    def __init__(self, like):
+        self.q = torch.zeros(like.shape, dtype=torch.int64,
+                             device=like.device)
+        self.nf = torch.zeros(like.shape, dtype=torch.float32,
+                              device=like.device)
+        self.out = self.nf if like.dtype == torch.float32 else \
+            torch.empty(like.shape, dtype=like.dtype, device=like.device)
+
+
+def _fixed(like, need):
+    return _FixedSums(like) if need else None
+
+
+def _fixed_ptrs(f):
+    return (0, 0, 0) if f is None else (f.q.data_ptr(), f.nf.data_ptr(),
+                                        f.out.data_ptr())
+
+
 def _source_grad(acc, like):
     """A source's gradient from its f32 accumulator, in the source's dtype:
     a bf16 source's is rounded once by the kernel library."""
@@ -361,10 +401,13 @@ def flow_warp_backward(flow, a, grad_a, b=None, grad_b=None, need_a=True,
     flow (N, H, W, 2) f32; a, b (N, H, W, c) f32 or bf16; grad_a, grad_b
     the outputs' gradients.  On the GPU one launch of
     `lssvc_flow_warp_backward` (counted on `flow_warp_backward.launches`):
-    the sources' gradients summed in f32 (a tile's taps in a shared-memory
-    box flushed with vector reductions, or straight to global memory where
-    the box does not fit) and returned in their dtype, the flow's in f32,
-    summed over both sources' channels.  On the CPU
+    the sources' gradients summed in f32 (direct vector reductions of a
+    thread's tap columns) and returned in their dtype, the flow's in f32,
+    summed over both sources' channels.  Under
+    `torch.use_deterministic_algorithms(True)` it launches
+    `lssvc_flow_warp_backward_fixed` instead where a source takes a
+    gradient, whose source gradients are the same bits every launch (also
+    counted on `flow_warp_backward.fixed_launches`).  On the CPU
     `flow_warp_backward_plain`."""
     if a.device.type == "cpu":
         gf, ga, gb = flow_warp_backward_plain(flow, a, grad_a, b, grad_b)
@@ -385,14 +428,27 @@ def flow_warp_backward(flow, a, grad_a, b=None, grad_b=None, need_a=True,
         _check("b", b, (n, h, w, cb), (a.dtype,), a.device)
         _check("grad_b", grad_b, (n, h, w, cb), (a.dtype,), a.device)
     need_b = need_b and b is not None
+    gflow = torch.empty((n, h, w, 2), dtype=torch.float32,
+                        device=a.device) if need_flow else None
+    if torch.are_deterministic_algorithms_enabled() and (need_a or need_b):
+        fa, fb = _fixed(a, need_a), _fixed(b, need_b)
+        mx = torch.zeros(1, dtype=torch.int32, device=a.device)
+        err = _grad_lib().lssvc_flow_warp_backward_fixed(
+            a.data_ptr(), grad_a.data_ptr(), *_fixed_ptrs(fa), ca, _ptr(b),
+            _ptr(grad_b), *_fixed_ptrs(fb), cb, flow.data_ptr(),
+            _ptr(gflow), mx.data_ptr(), n, h, w, _DTYPES[a.dtype],
+            _stream(a))
+        _raise_on(err, "flow_warp_backward_fixed")
+        flow_warp_backward.launches += 1
+        flow_warp_backward.fixed_launches += 1
+        return (gflow, None if fa is None else fa.out,
+                None if fb is None else fb.out)
 
     def acc(t, need):
         return torch.zeros(t.shape, dtype=torch.float32,
                            device=t.device) if need else None
 
     acc_a, acc_b = acc(a, need_a), acc(b, need_b)
-    gflow = torch.empty((n, h, w, 2), dtype=torch.float32,
-                        device=a.device) if need_flow else None
     err = _grad_lib().lssvc_flow_warp_backward(
         a.data_ptr(), grad_a.data_ptr(), _ptr(acc_a), ca, _ptr(b),
         _ptr(grad_b), _ptr(acc_b), cb, flow.data_ptr(), _ptr(gflow), n, h, w,
@@ -403,6 +459,7 @@ def flow_warp_backward(flow, a, grad_a, b=None, grad_b=None, need_a=True,
 
 
 flow_warp_backward.launches = 0
+flow_warp_backward.fixed_launches = 0
 
 
 def flow_warp_backward_plain(flow, a, grad_a, b=None, grad_b=None):
@@ -431,9 +488,13 @@ def grouped_warp_backward(x, flow_x, flow_y, mask, group_num, grad,
     `grouped_warp_backward.launches`): x's gradient summed in f32 over the
     units (each unit's taps over a tile in a shared-memory box flushed with
     vector reductions, or straight to global memory) and returned in x's
-    dtype, the flows' and mask's per unit in f32.  The kernel refuses a
-    shape whose staged tile passes its shared memory (go * cg past about
-    1,000 in f32).  On the CPU `grouped_warp_backward_plain`."""
+    dtype, the flows' and mask's per unit in f32.  Under
+    `torch.use_deterministic_algorithms(True)` it launches
+    `lssvc_grouped_warp_backward_fixed` instead where x takes a gradient,
+    whose x gradient is the same bits every launch (also counted on
+    `grouped_warp_backward.fixed_launches`).  The kernel refuses a shape
+    whose staged tile passes its shared memory (go * cg past about 1,000
+    in f32).  On the CPU `grouped_warp_backward_plain`."""
     if x.device.type == "cpu":
         got = grouped_warp_backward_plain(x, flow_x, flow_y, mask, group_num,
                                           grad)
@@ -450,14 +511,26 @@ def grouped_warp_backward(x, flow_x, flow_y, mask, group_num, grad,
     grad = grad.to(x.dtype).contiguous()
     _check("grad", grad, (n, h, w, go * cg), (x.dtype,), x.device)
     need_x, need_fx, need_fy, need_m = need
-    acc_x = torch.zeros(x.shape, dtype=torch.float32,
-                        device=x.device) if need_x else None
 
     def unit_grad(nd):
         return torch.empty((n, h, w, go), dtype=torch.float32,
                            device=x.device) if nd else None
 
     gfx, gfy, gm = unit_grad(need_fx), unit_grad(need_fy), unit_grad(need_m)
+    if torch.are_deterministic_algorithms_enabled() and need_x:
+        fx_ = _FixedSums(x)
+        mx = torch.zeros(2, dtype=torch.int32, device=x.device)
+        err = _grad_lib().lssvc_grouped_warp_backward_fixed(
+            x.data_ptr(), grad.data_ptr(), flow_x.data_ptr(),
+            flow_y.data_ptr(), mask.data_ptr(), *_fixed_ptrs(fx_), _ptr(gfx),
+            _ptr(gfy), _ptr(gm), mx.data_ptr(), n, h, w, c_src, go,
+            group_num, _DTYPES[x.dtype], _stream(x))
+        _raise_on(err, "grouped_warp_backward_fixed")
+        grouped_warp_backward.launches += 1
+        grouped_warp_backward.fixed_launches += 1
+        return fx_.out, gfx, gfy, gm
+    acc_x = torch.zeros(x.shape, dtype=torch.float32,
+                        device=x.device) if need_x else None
     err = _grad_lib().lssvc_grouped_warp_backward(
         x.data_ptr(), grad.data_ptr(), flow_x.data_ptr(), flow_y.data_ptr(),
         mask.data_ptr(), _ptr(acc_x), _ptr(gfx), _ptr(gfy), _ptr(gm), n, h, w,
@@ -468,6 +541,7 @@ def grouped_warp_backward(x, flow_x, flow_y, mask, group_num, grad,
 
 
 grouped_warp_backward.launches = 0
+grouped_warp_backward.fixed_launches = 0
 
 
 def grouped_warp_backward_plain(x, flow_x, flow_y, mask, group_num, grad):

@@ -40,7 +40,9 @@ which pace the calls at the crop), both with CUDA events.  Beside each:
 its byte bound (the output gradient,
 the source and the flows and mask read once, their gradients written
 once), the zero-fill and bf16 rounding passes the wrapper runs around
-the kernel, and unless
+the kernel, the fixed-order variant that
+`torch.use_deterministic_algorithms(True)` selects (its wrapper call and
+its C entry point, where the tree has one), and unless
 `--kernel-only` the plain autograd's backward and, for the pair,
 `F.grid_sample`'s backward.  It calls only the two public wrappers, so
 
@@ -53,8 +55,10 @@ times an older tree's kernels in the same way.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import inspect
 import json
+import os
 
 import torch
 import torch.nn.functional as F
@@ -336,12 +340,68 @@ def kernel_ms(kind, shape, srcs, flow, grads):
     return time_ms(lambda: fn(*args))
 
 
+# what PyTorch asks of cuBLAS before it runs under the deterministic flag
+CUBLAS_DETERMINISTIC = ":4096:8"
+
+
+@contextlib.contextmanager
+def deterministic():
+    """`torch.use_deterministic_algorithms(True)` for the block, the flag
+    restored after; cuBLAS's workspace setting that the flag needs
+    (`CUBLAS_WORKSPACE_CONFIG`, read at each cuBLAS call) set for the block
+    where the environment has none."""
+    before = torch.are_deterministic_algorithms_enabled()
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    if env is None:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_DETERMINISTIC
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before)
+        if env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+
+
+def fixed_kernel_ms(kind, shape, srcs, flow, grads):
+    """Device ms of the fixed-order variant's C entry point
+    (`lssvc_*_backward_fixed`: the max reduction, the kernel and the
+    conversion out of fixed point) back to back on preallocated buffers
+    (its sums not zeroed again between calls: the same work)."""
+    lib, dev = wk._grad_lib(), srcs[0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    dtype = wk._DTYPES[srcs[0].dtype]
+    sums = [wk._FixedSums(s) for s in srcs]
+    mx = torch.zeros(2, dtype=torch.int32, device=dev)
+    n, h, w = shape[:3]
+    if kind == "flow_warp_backward":
+        gflow = torch.empty((n, h, w, 2), dtype=torch.float32, device=dev)
+        args = (srcs[0].data_ptr(), grads[0].data_ptr(),
+                *wk._fixed_ptrs(sums[0]), shape[3], srcs[1].data_ptr(),
+                grads[1].data_ptr(), *wk._fixed_ptrs(sums[1]), shape[4],
+                flow.data_ptr(), gflow.data_ptr(), mx.data_ptr(), n, h, w,
+                dtype, stream)
+        fn = lib.lssvc_flow_warp_backward_fixed
+    else:
+        outs = [torch.empty(flow[0].shape, dtype=torch.float32, device=dev)
+                for _ in range(3)]
+        args = (srcs[0].data_ptr(), grads[0].data_ptr(),
+                *(t.data_ptr() for t in flow), *wk._fixed_ptrs(sums[0]),
+                *(t.data_ptr() for t in outs), mx.data_ptr(), n, h, w,
+                *shape[3:], dtype, stream)
+        fn = lib.lssvc_grouped_warp_backward_fixed
+    if fn(*args) != 0:
+        raise RuntimeError(f"{kind} {shape}: the fixed-order launch failed")
+    return time_ms(lambda: fn(*args))
+
+
 def backward_run(dev, kernel_only=False):
     """Each backward case's ms a wrapper call and ms of the kernel alone
     beside its bound, the wrapper's zero-fill and rounding passes and
     (unless kernel_only) the plain and library backward: a list of
     dicts."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    fixed = hasattr(wk, "_FixedSums")  # a tree with the fixed-order variant
     out = []
     for kind, shape in BACKWARD:
         for dtype in (torch.float32, torch.bfloat16):
@@ -374,6 +434,11 @@ def backward_run(dev, kernel_only=False):
                        "bound_ms": bound, "bound_by": by,
                        "outside_ms": time_ms(outside)}
                 row["share_of_bound"] = bound / row["kernel_ms"]
+                if fixed:
+                    with deterministic():
+                        row["fixed_ms"] = time_ms(kernel)
+                    row["fixed_kernel_ms"] = fixed_kernel_ms(
+                        kind, shape, srcs, flow, grads)
                 if not kernel_only:
                     row["plain_ms"], row["library_ms"] = \
                         _plain_and_library_ms(kind, shape, srcs, flow, grads)

@@ -46,6 +46,7 @@ import time
 import numpy as np
 import torch
 
+from .utils.launch_counts import dump_at_exit_from_env
 from .utils.resize import imresize
 
 
@@ -289,6 +290,7 @@ def apply_stage(args):
 
 def main(argv=None):
     args = parse_args(argv)
+    dump_at_exit_from_env()
 
     if args.skip_if_done:
         done = f"{args.out}_step{args.steps}.npz"

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .color import rgb_to_ycbcr420
+
 
 class YUVReader:
     def __init__(self, src_path, width, height, skip_frame=0):
@@ -43,9 +45,19 @@ class YUVReader:
         self.file.close()
 
 
+def yuv420_bytes(rgb: np.ndarray) -> bytes:
+    """A 3xHxW RGB frame in [0, 1] as one 8-bit 4:2:0 frame: converted to
+    YCbCr 4:2:0, then rint(x * 255) clipped to [0, 255] (the JAX package's
+    `YUVWriter.write_one_frame(rgb=...)`)."""
+    y, uv = rgb_to_ycbcr420(rgb)
+    return b"".join(np.clip(np.rint(p * 255), 0, 255).astype(np.uint8)
+                    .tobytes() for p in (y, uv))
+
+
 class YUVWriter:
     """Writes 8-bit 4:2:0 frames, each a W x H Y plane then the U and V
-    planes at half width and height (`decode.yuv_frame` makes them)."""
+    planes at half width and height (`decode.yuv_frame` and `yuv420_bytes`
+    make them)."""
 
     def __init__(self, dst_path, width, height):
         self.frame_size = width * height * 3 // 2

@@ -56,8 +56,8 @@ def test_bridge_layouts():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of lssvc_tpu_torch (the parallel layer's named), and
-    chip_smoke.py, imported in a fresh interpreter leave no `jax` and no
+    """Every module of lssvc_tpu_torch (the parallel layer's and the root
+    tools' twins named), and chip_smoke.py, imported in a fresh interpreter leave no `jax` and no
     `lssvc_tpu` module loaded."""
     code = r"""
 import importlib, pkgutil, sys
@@ -71,7 +71,9 @@ assert not bad, bad
 assert "lssvc_tpu_torch.models.lssvc" in sys.modules
 for name in ("ops.spatial_ctx", "ops.strips", "parallel.mesh",
              "parallel.serve", "parallel.spatial", "parallel.train",
-             "utils.collectives", "dryrun", "train"):
+             "utils.collectives", "dryrun", "train", "tools.rd_experiment",
+             "tools.rd_reconstruct", "tools.chain_probe",
+             "tools.ref_scale_eval"):
     assert "lssvc_tpu_torch." + name in sys.modules, name
 print("ok")
 """

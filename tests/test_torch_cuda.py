@@ -24,8 +24,10 @@ from lssvc_tpu_torch.models.lssvc_stream import LSSVCExtend
 from lssvc_tpu_torch.tools.synthetic import write_dataset
 from lssvc_tpu_torch.ops import conv_chain as cc
 from lssvc_tpu_torch.ops import int8 as q8
+from lssvc_tpu_torch.ops import nn as tnn
 from lssvc_tpu_torch.ops import warp as plain
 from lssvc_tpu_torch.ops import warp_kernels as wk
+from lssvc_tpu_torch.tools.warp_bench import deterministic
 
 from torch_threads import share_cores
 
@@ -1058,3 +1060,104 @@ def test_train_step_on_the_card_matches_the_cpu(dev):
         den = float(r.norm())
         err = float((g_d[k] - r).norm())
         assert err <= 5e-2 * den if den else err == 0, k
+
+
+# ---------------------------------------------------------------------------
+# The fixed-order variant of the backward kernels (deterministic flag)
+
+def _same_bits(a, b):
+    view = torch.int32 if a.element_size() == 4 else torch.int16
+    return a.dtype == b.dtype and torch.equal(a.contiguous().view(view),
+                                              b.contiguous().view(view))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("flows", ["random", "past"])
+def test_fixed_order_flow_warp_backward(dev, dtype, flows):
+    """Under the deterministic flag: one launch of the fixed-order variant, its
+    gradients within the default path's bounds of the plain autograd
+    (`_grad_tol`) and bit-equal across two launches."""
+    n, h, w = 2, 37, 53
+    a = _uniform((n, h, w, 3), 21, 0, 1, dev, dtype)
+    b = _uniform((n, h, w, 48), 22, 0, 1, dev, dtype)
+    span = 6 if flows == "random" else 3 * w  # "past": taps on the borders
+    flow = _uniform((n, h, w, 2), 23, -span, span, dev)
+    g_a = _uniform((n, h, w, 3), 24, -1, 1, dev, dtype)
+    g_b = _uniform((n, h, w, 48), 25, -1, 1, dev, dtype)
+    before = wk.flow_warp_backward.fixed_launches
+    with deterministic():
+        got = wk.flow_warp_backward(flow, a, g_a, b, g_b)
+        again = wk.flow_warp_backward(flow, a, g_a, b, g_b)
+    assert wk.flow_warp_backward.fixed_launches == before + 2
+    ref = wk.flow_warp_backward_plain(flow, a, g_a, b, g_b)
+    for x, y, z in zip(got, again, ref):
+        assert _same_bits(x, y)
+        _grad_tol(x, z, dtype if x.dtype == dtype else torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [8.0, 40.0])
+def test_fixed_order_grouped_warp_backward(dev, dtype, offset):
+    n, h, w, c_src, go, gn = 2, 21, 35, 48, 32, 16
+    x = _uniform((n, h, w, c_src), 26, 0, 1, dev, dtype)
+    fx = _uniform((n, h, w, go), 27, -offset, offset, dev)
+    fy = _uniform((n, h, w, go), 28, -offset, offset, dev)
+    mask = _uniform((n, h, w, go), 29, 0, 1, dev)
+    g = _uniform((n, h, w, go * c_src // gn), 30, -1, 1, dev, dtype)
+    before = wk.grouped_warp_backward.fixed_launches
+    with deterministic():
+        got = wk.grouped_warp_backward(x, fx, fy, mask, gn, g)
+        again = wk.grouped_warp_backward(x, fx, fy, mask, gn, g)
+    assert wk.grouped_warp_backward.fixed_launches == before + 2
+    ref = wk.grouped_warp_backward_plain(x, fx, fy, mask, gn, g)
+    for u, v, r in zip(got, again, ref):
+        assert _same_bits(u, v)
+        _grad_tol(u, r, dtype if u.dtype == dtype else torch.float32)
+
+
+def test_train_step_is_reproducible_under_the_deterministic_flag(
+        dev, monkeypatch):
+    """Under `torch.use_deterministic_algorithms(True)` (cuBLAS's workspace
+    set as PyTorch asks for it) two fp32 `pair` steps from the same state
+    give bit-equal parameters."""
+    from lssvc_tpu_torch.parallel import train as ptrain
+    from lssvc_tpu_torch.train import SyntheticPairs, make_batch
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    params = {k: v.to(dev) for k, v in
+              init_lssvc(torch.Generator().manual_seed(0)).items()}
+    batch = make_batch(SyntheticPairs(128, 3), "pair", 1, 2, dev)[0]
+    opt = ptrain.Adam(1e-4)
+    step = ptrain.make_train_step(opt, 0.01, (128, 128), precision="fp32")
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        one, _, _ = step(params, opt.init(params), batch)
+        two, _, _ = step(params, opt.init(params), batch)
+    finally:
+        torch.use_deterministic_algorithms(before)
+    assert all(_same_bits(one[k], two[k]) for k in one)
+
+
+# ---------------------------------------------------------------------------
+# Row-local products in GEMMs of one shape (`ops.nn.rows_matmul`)
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_rows_matmul_strip_rows_equal_the_frame_rows(dev, precision):
+    """On the card, GDN's product and OffsetDiversity's fusion product
+    (`matmul_f32out`, bf16 operands with an f32 product in bf16) over a
+    288 x 480 level (138,240 rows: four GEMMs of `ROWS_CUDA` rows and a
+    padded fifth) and over strips of it (a half with a 16-row halo each
+    side, a band of 40 rows): every strip's rows bit-equal to the
+    frame's."""
+    x = _uniform((1, 288, 480, 64), 31, -2, 2, dev)
+    beta = _uniform((64,), 32, 0.5, 1.5, dev)
+    gamma = _uniform((64, 64), 33, 0, 0.1, dev)
+    w = _uniform((64, 48), 34, -0.1, 0.1, dev)
+    with tnn.precision_scope(tnn.Mode(precision)):
+        for fn in (lambda t: tnn.gdn(t, beta, gamma),
+                   lambda t: tnn.matmul_f32out(t, w)):
+            whole = fn(x)
+            for lo, hi in ((0, 160), (128, 288), (37, 77)):
+                part = fn(x[:, lo:hi].contiguous())
+                assert torch.equal(part, whole[:, lo:hi]), (lo, hi)
