@@ -210,10 +210,14 @@ Phases (any failure exits non-zero; nothing is caught):
    bf16 ulp (+1e-5 max|ref|) of the f32 kernel's on the same values
    (summed in f32, rounded once), the flow and mask gradients bit-equal
    across two launches; then the train step's, the 1080p frame's and the
-   edge cases again through the kernels' fixed-order variant (what
-   `torch.use_deterministic_algorithms(True)` selects: the source gradient
-   summed in 64-bit fixed point), within the same bounds, every gradient
-   bit-equal across two launches; (b) one fp32 `pair` step and
+   edge cases and the scatter paths again through the kernels'
+   fixed-order variant (what `torch.use_deterministic_algorithms(True)`
+   selects: each tap's value converted to a 64-bit integer on its own and
+   summed exactly), its source gradients bit-equal to the plain version
+   (`flow_warp_backward_fixed_plain`, `grouped_warp_backward_fixed_plain`:
+   the same integers summed by an int64 index_add_, rounded once), every
+   gradient within the same bounds of plain autograd and bit-equal across
+   two launches; (b) one fp32 `pair` step and
    one `cascade` chain of T=3 with no warm step at crop 256, the counts
    set to 0 just before and read just after: a backward launch for each
    forward warp whose inputs take a gradient (12 of 14 flow_warp and 1
@@ -237,7 +241,8 @@ Phases (any failure exits non-zero; nothing is caught):
    passes, the
    plain autograd's backward and, for flow_warp, F.grid_sample's backward
    (`tools/warp_bench.py --backward`), and the fixed-order variant's ms (a
-   wrapper call and its C entry point).
+   wrapper call and its C entry point) with, for the pair, F.grid_sample's
+   backward under the deterministic flag (its ms, or PyTorch's refusal).
 
 19. Parallelism (about 3 minutes; NCCL takes one card a rank, so two
    ranks share the card on gloo, whose exchanges stage CUDA tensors
@@ -263,16 +268,17 @@ Phases (any failure exits non-zero; nothing is caught):
    launch times; the spatial P-frame (LSSVC, fp32, cap 10 px, EL
    1152x1920 / BL 576x960, K=2 chained from a random DPB, the pictures
    fed back clamped as the GOP loop does) against rank 0's unsharded card
-   forward: bits within 1e-3, each DPB entry within 1e-3 (frame 1) and
-   5e-3 (frame 2) relative RMS (the strips' convs are other cuDNN shapes
-   than the frame's and flip near-tie latent roundings, so the
-   elementwise bound of `tests/test_spatial.py`, rtol = atol = 1e-3,
-   which the CPU tests hold, is printed, with the spread a 1e-6 move of
-   the frame makes, and the first ops of frame 1 whose outputs the strips
-   change, by `tools/op_digests.py`'s per-row digests), 14 flow_warp and 1
+   forward: bits within 1e-3 and, on both frames, each DPB entry within
+   the elementwise bound of `tests/test_spatial.py`, rtol = atol = 1e-3
+   (the values past it and the spread a 1e-6 move of the frame makes are
+   printed), and no op of frame 1 whose output the strips change
+   (`tools/op_digests.py`'s per-row digests: each conv shape takes the
+   cheapest route whose rows a probe found to be the frame's bits,
+   `ops/strips.py` `conv2d`; the routes' counts and the warm-up frame's
+   time, probes included, are printed), 14 flow_warp and 1
    grouped_warp launches a frame a rank, s/frame, peak GiB and the warps'
-   branches a rank; the IntraSS I-frame at 1080p against the unsharded
-   one; `serve_streams`, two bf16 streams of 3 P-frames, each bit-equal
+   branches a rank; the IntraSS I-frame at 1080p, twice (the first call
+   probes), its picture bit-equal to the unsharded one's; `serve_streams`, two bf16 streams of 3 P-frames, each bit-equal
    to its stream run alone; (f) `python -m lssvc_tpu_torch.dryrun --n 2
    --backend gloo` (its x1.5 frame and reference both in fp32, every DPB
    value within 1e-3, rtol and atol).  Every spatial forward runs inside
@@ -348,6 +354,7 @@ from lssvc_tpu_torch.native import rans
 from lssvc_tpu_torch.ops import OD_OFFSET_CAP_SERVING
 from lssvc_tpu_torch.ops import conv_chain as cc
 from lssvc_tpu_torch.ops import int8 as q8
+from lssvc_tpu_torch.ops import strips
 from lssvc_tpu_torch.ops import warp as plain
 from lssvc_tpu_torch.ops import warp_kernels as wk
 from lssvc_tpu_torch.ops.nn import Mode, precision_scope
@@ -3104,11 +3111,15 @@ def grad_case(kind, shape, dtype, gen, flows="random"):
 
 
 def fixed_case(kind, shape, dtype, gen, flows="random"):
-    """One launch of the backward kernel's fixed-order variant against
-    autograd through the plain warp, with the default path's bounds; a
-    second launch bit-equal to the first (every gradient, NaNs included);
-    a bf16 source gradient the f32 variant's on the same values rounded
-    once.  Returns max |err|."""
+    """One launch of the backward kernel's fixed-order variant: its source
+    gradients bit-equal to the plain version's
+    (`flow_warp_backward_fixed_plain` / `grouped_warp_backward_fixed_plain`:
+    each tap's value as round(v 2^s) summed in int64, rounded once), and
+    every gradient within the default path's bounds of plain autograd
+    through the plain warp (the check of the scale and the sums at this
+    shape that the plain version, sharing them, cannot give); a second
+    launch bit-equal to the first (every gradient, NaNs included).
+    Returns max |err| against plain autograd."""
     srcs, flow, grads = _grad_inputs(gen, shape, dtype, kind, flows)
     before = _fixed_counts()[kind]
     with deterministic():
@@ -3124,24 +3135,24 @@ def fixed_case(kind, shape, dtype, gen, flows="random"):
     if kind == "flow_warp_backward":
         b = srcs[1] if len(srcs) > 1 else None
         gb = grads[1] if len(grads) > 1 else None
-        ref = wk.flow_warp_backward_plain(flow, srcs[0], grads[0], b, gb)
-        labels, src_grads = ("grad_flow", "grad_a", "grad_b"), got[1:]
+        ref = wk.flow_warp_backward_fixed_plain(flow, srcs[0], grads[0], b,
+                                                gb)
+        auto = wk.flow_warp_backward_plain(flow, srcs[0], grads[0], b, gb)
+        labels, src = ("grad_flow", "grad_a", "grad_b"), (1, 2)
     else:
-        ref = wk.grouped_warp_backward_plain(srcs[0], *flow, shape[5],
-                                             grads[0])
+        ref = wk.grouped_warp_backward_fixed_plain(srcs[0], *flow, shape[5],
+                                                   grads[0])
+        auto = wk.grouped_warp_backward_plain(srcs[0], *flow, shape[5],
+                                              grads[0])
         labels = ("grad_x", "grad_flow_x", "grad_flow_y", "grad_mask")
-        src_grads = got[:1]
-    err = check_grads(f"fixed-order {kind} {shape} {flows}", labels, got,
-                      ref, dtype)
-    if dtype == torch.bfloat16:
-        with deterministic():
-            got32 = _kernel_grads(kind, shape, [s.float() for s in srcs],
-                                  flow, [g.float() for g in grads])
-        ref32 = got32[1:] if kind == "flow_warp_backward" else got32[:1]
-        for g16, g32 in zip(src_grads, ref32):
-            if g16 is not None:
-                rounded_once(f"fixed-order {kind} {shape} {flows}", g16, g32)
-    return err
+        src = (0,)
+    for i in src:
+        if not same_bits(got[i], ref[i]):
+            raise AssertionError(f"fixed-order {kind} {shape} {flows} "
+                                 f"{dtype}: {labels[i]} is not the plain "
+                                 "version's bits")
+    return check_grads(f"fixed-order {kind} {shape} {flows}", labels, got,
+                       auto, dtype)
 
 
 def train_launches(dev):
@@ -3227,11 +3238,12 @@ def grad_kernels(dev, train_shapes, frame_calls):
     cases = ([(k, s, "random") for k, s in train_shapes]
              + [(k, s, "random") for k, s in sorted(frame)] + edges + paths)
     # the fixed-order variant at the train step's shapes, the 1080p
-    # frame's (and the 1080p pair and grouped warp on smooth flows) and the
-    # edge cases
+    # frame's and the edge cases, and on its scatter paths (boxes that fit,
+    # one launch with tiles of both paths, the 40 px offsets, the 1080p
+    # pair and grouped warp on smooth flows)
     fixed_cases = ([(k, s, "random") for k, s in train_shapes]
                    + [(k, s, "random") for k, s in sorted(frame)] + edges
-                   + paths[-2:])
+                   + paths)
     t0 = time.perf_counter()
     worst = {"flow_warp_backward": 0.0, "grouped_warp_backward": 0.0}
     fixed_worst = dict(worst)
@@ -3252,12 +3264,11 @@ def grad_kernels(dev, train_shapes, frame_calls):
             if dtype == torch.float32:
                 fixed_worst[kind] = max(fixed_worst[kind], err)
         log(f"  {len(fixed_cases)} of them through the fixed-order variant "
-            f"in {dtype}: within the same tolerance, every gradient "
-            "bit-equal across two launches"
-            + (", source gradients rounded once from f32"
-               if dtype == torch.bfloat16 else "")
-            + f"; f32 max |err| {fixed_worst} ({time.perf_counter() - t0:.1f}"
-            " s in)")
+            f"in {dtype}: source gradients bit-equal to the plain fixed-order "
+            "version, every gradient within the same tolerance of plain "
+            "autograd and bit-equal across two launches; f32 max |err| "
+            f"{fixed_worst} "
+            f"({time.perf_counter() - t0:.1f} s in)")
     return worst, fixed_worst
 
 
@@ -3281,7 +3292,10 @@ def grad_times(dev):
             f"{row['outside_ms']:.4f} ms, plain autograd "
             f"{row['plain_ms']:.4f} ms{lib}; fixed-order variant "
             f"{row['fixed_ms']:.4f} ms a call, "
-            f"{row['fixed_kernel_ms']:.4f} ms its C entry point")
+            f"{row['fixed_kernel_ms']:.4f} ms its C entry point"
+            + ("" if row["fixed_library"] is None else
+               f", F.grid_sample backward under the deterministic flag: "
+               f"{row['fixed_library']}"))
     return out
 
 
@@ -3480,10 +3494,17 @@ def phase_training(dev, d, cfg, checks):
                 times[(name, shape, "float32", "smooth")]["fixed_ms"],
             "fixed_bf16_ms":
                 times[(name, shape, "bfloat16", "random")]["fixed_ms"],
+            "fixed_kernel_smooth_ms":
+                times[(name, shape, "float32", "smooth")]["fixed_kernel_ms"],
             "fixed_max_abs_err": fixed_worst[name],
+            "fixed_library": t["fixed_library"],
             "flows": "ms at random flows (+-6 px), the wrapper's call; "
                      "kernel_ms the kernel alone; smooth at 12 px; fixed_* "
-                     "the fixed-order variant (deterministic flag)"})
+                     "the fixed-order variant (deterministic flag), its "
+                     "source gradients bit-equal to its plain version, "
+                     "fixed_max_abs_err every gradient's against plain "
+                     "autograd; "
+                     "fixed_library the one PyTorch call under the flag"})
     log(f"  phase 18: {time.perf_counter() - t0:.1f} s")
     return entries
 
@@ -3659,15 +3680,19 @@ def par_frames(rank, group, sh, dev, el_hw, bl_hw):
         od_offset_cap=OD_OFFSET_CAP_SERVING)
     dpb = {k: sh.shard(v).contiguous() for k, v in dpb0.items()}
     # a warm-up frame (the chain's first), its counts discarded, each
-    # public op's output digested (tools/op_digests.py)
+    # public op's output digested (tools/op_digests.py); it probes each
+    # conv shape's route (`ops/strips.py` `conv2d`)
+    t0 = time.perf_counter()
     with precision_scope(Mode("fp32")), OpDigests() as digests:
         fwd(params, sh.shard(frames[0][0]), sh.shard(frames[0][1]), dpb)
     _sync(dev)
+    warm_s = time.perf_counter() - t0
     rank_digests = [None] * dist.get_world_size(group)
     dist.all_gather_object(rank_digests, digests.records, group=group)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     spatial.reset_counts()
+    strips.reset_route_calls()
     before = _launches()
     outs, secs = [], []
     for x_bl, x_el in frames:
@@ -3681,7 +3706,8 @@ def par_frames(rank, group, sh, dev, el_hw, bl_hw):
                      float(bits)))
         dpb = _clamped(dpb)
     after = _launches()
-    res = {"s_per_frame": secs, "peak_gib":
+    res = {"s_per_frame": secs, "warm_up_s": warm_s,
+           "conv_routes": strips.route_counts(), "peak_gib":
            torch.cuda.max_memory_allocated() / 2 ** 30
            if dev.type == "cuda" else None,
            "launches_per_frame": [(after[0] - before[0]) / PAR_FRAMES,
@@ -3737,26 +3763,27 @@ def par_frames(rank, group, sh, dev, el_hw, bl_hw):
                     "moved_rel_rms": float(moved.norm() / want.norm()),
                     "moved_beyond_tol": float((moved > tol).float().mean())}
             errs.append(frame)
-            # the strips' convs are other cuDNN shapes than the frame's
-            # (the first op that differs: `first_differences`; the
-            # row-local GEMMs have one shape, `ops.nn.rows_matmul`): their
-            # last bits differ and can flip a latent's rounding at a
-            # near-tie, so the DPB is held in relative RMS: 1e-3 (frame 1)
-            # and 5e-3 (frame 2), the JAX test's bounds; the values past
-            # its elementwise bound (rtol = atol = 1e-3) are printed, and
-            # those of a 1e-6 move of the frame beside them
-            bound = 1e-3 if i == 0 else 5e-3
-            if abs(got_bits - bits_ref) > 1e-3 * max(bits_ref, 1.0) or \
-                    any(frame[k]["rel_rms"] > bound for k in ref_dpb):
-                raise AssertionError(f"spatial frame {i}: {frame}")
         res["against_unsharded"] = errs
+        # the JAX test's elementwise bound on both frames, and no op whose
+        # output the strips change: each conv takes a route whose rows are
+        # the frame's bits, the row-local GEMMs one shape
+        past = [i for i, f in enumerate(errs)
+                if abs(f["bits"] - f["bits_ref"]) > 1e-3 * max(
+                    f["bits_ref"], 1.0)
+                or any(f[k]["beyond_tol"] > 0 for k in refs["ref"][0][0])]
+        if past or res["first_differences"]:
+            raise AssertionError(
+                f"spatial frames {past} past the bound: {errs}; ops whose "
+                f"outputs the strips change: {res['first_differences']}")
     dist.barrier(group)
     return res
 
 
 def par_intra(rank, group, sh, dev, el_hw, bl_hw):
-    """(d): the IntraSS spatial I-frame at 1080p against the unsharded one
-    (rank 0)."""
+    """(d): the IntraSS spatial I-frame at 1080p, twice (the first call
+    probes each conv shape's route, `ops/strips.py` `conv2d`), against the
+    unsharded one (rank 0): the picture bit for bit, the bits within
+    1e-3."""
     from lssvc_tpu_torch.models import intra_ss
     from lssvc_tpu_torch.parallel import spatial
 
@@ -3770,12 +3797,17 @@ def par_intra(rank, group, sh, dev, el_hw, bl_hw):
     x_bl = uniform(gen, (1, *bl_hw, 3), 0, 1)
     x_el = uniform(gen, (1, *el_hw, 3), 0, 1)
     fwd = spatial.make_spatial_intra_forward(group, el_hw)
-    _sync(dev)
-    t0 = time.perf_counter()
-    with precision_scope(Mode("fp32")):
-        x_hat, bits = fwd(el, bl, sh.shard(x_bl), sh.shard(x_el))
-    _sync(dev)
-    res = {"s": time.perf_counter() - t0, "bits": float(bits)}
+    secs = []
+    for _ in range(2):
+        strips.reset_route_calls()
+        _sync(dev)
+        t0 = time.perf_counter()
+        with precision_scope(Mode("fp32")):
+            x_hat, bits = fwd(el, bl, sh.shard(x_bl), sh.shard(x_el))
+        _sync(dev)
+        secs.append(time.perf_counter() - t0)
+    res = {"s": secs[1], "first_s": secs[0], "bits": float(bits),
+           "conv_routes": strips.route_counts()}
     full = sh.gather(x_hat)
     if rank == 0:
         with torch.no_grad(), precision_scope(Mode("fp32")):
@@ -3785,7 +3817,7 @@ def par_intra(rank, group, sh, dev, el_hw, bl_hw):
         err = float((full - r).abs().max())
         tol = max(1e-3, 1e-3 * float(r.abs().max()))
         res.update(max_abs_err=err, tol=tol, bits_ref=bits_ref)
-        if err > tol or abs(res["bits"] - bits_ref) > 1e-3 * bits_ref:
+        if err != 0 or abs(res["bits"] - bits_ref) > 1e-3 * bits_ref:
             raise AssertionError(f"spatial intra: {res}")
     return res
 
@@ -4035,20 +4067,23 @@ def phase_parallel(d, smi, window):
             f"{[round(s, 4) for s in fr['s_per_frame']]}, peak "
             f"{fr['peak_gib']:.2f} GiB, launches a frame (flow_warp, "
             f"grouped_warp) {fr['launches_per_frame']}, branches "
-            f"{fr['branches']} ({smi})")
+            f"{fr['branches']} ({smi}); the warm-up frame, each conv "
+            f"shape's route probed, {fr['warm_up_s']:.4f} s; conv routes "
+            f"{json.dumps(fr['conv_routes'])}")
         if r == 0:
             log(f"    level plan {fr['plan']}")
-            for diff in fr["first_differences"]:
-                log(f"    an op output the strips change (frame 1; "
-                    f"tools/op_digests.py): {json.dumps(diff)}")
+            log(f"    ops whose outputs the strips change (frame 1; "
+                f"tools/op_digests.py): {len(fr['first_differences'])}")
             for i, frame in enumerate(fr["against_unsharded"]):
                 log(f"    frame {i + 1} against the unsharded card forward: "
                     f"{json.dumps(frame)}")
         it = rk["intra"]
-        log(f"  (d) rank {r}: spatial I-frame 1080p: {it['s']:.3f} s, bits "
-            f"{it['bits']:.1f}" + (
+        log(f"  (d) rank {r}: spatial I-frame 1080p: {it['s']:.3f} s "
+            f"({it['first_s']:.3f} s the first call, its convs' routes "
+            f"probed; the second's routes {json.dumps(it['conv_routes'])}), "
+            f"bits {it['bits']:.1f}" + (
                 f" (unsharded {it['bits_ref']:.1f}), max |err| "
-                f"{it['max_abs_err']:.3g} (tol {it['tol']:.3g})"
+                f"{it['max_abs_err']:.3g} (0 required)"
                 if r == 0 else ""))
         sv = rk["serve"]
         log(f"  (e) rank {r}: serve_streams bf16: {sv['s_per_frame']:.4f} "

@@ -94,24 +94,43 @@
 // The fixed-order variant (`lssvc_*_backward_fixed`, what the wrappers
 // launch under torch.use_deterministic_algorithms).  The f32 sums above
 // take their contributions in the order the threads run, so two launches
-// may differ in the last bits.  This variant adds each source-gradient
-// contribution v as the integer round(v * 2^s) into a 64-bit accumulator
-// with integer atomics, whose sums are the same in any order, and turns
-// the sum into f32 (or bf16) once at the end.  s comes from one max
-// reduction over the output gradient (times one over the mask for the
-// grouped warp), M <= 2^e: a source element takes at most K contributions
-// of size M (each output pixel's four tap weights sum to 1, and taps past
-// a border clamp onto the edge pixels; K = h * w, times a group's units
-// for the grouped warp), so s = 62 - ceil(log2 K) - e leaves no sum room
-// to overflow.  At the 1080p EL pair a value's grid is M * 2^-40, far
-// below f32's rounding of the default path.  A non-finite contribution
-// goes into an f32 sum of its own, whose value (inf, -inf or NaN) does not
-// depend on the order either, and replaces the element's fixed-point sum.
-// Both kernels run in this mode as templates of the default ones: the flow
-// warp adds a column's channels one 64-bit reduction each (Hopper has no
-// vector integer reduction), the grouped warp keeps its shared-memory box
-// with 64-bit integer atomics at half the pixels.  The flow and mask
-// gradients are one thread's sums in both modes.
+// may differ in the last bits.  This variant converts each tap's value v
+// on its own to the integer round(v * 2^s) and sums the integers exactly
+// in 64 bits, whose sums are the same in any order, then turns each sum
+// into f32 (or bf16) once: the plain version (`ops/warp_kernels.py`
+// `*_fixed_plain`, an int64 index_add_ of the same integers) is its bits.
+// s comes from one max reduction over the output gradient (times one over
+// the mask for the grouped warp), M <= 2^e: a source element takes at
+// most K contributions of size M (each output pixel's four tap weights sum
+// to 1, and taps past a border clamp onto the edge pixels; K = h * w,
+// times a group's units for the grouped warp), so s = 62 - ceil(log2 K) -
+// e leaves no sum room to overflow.  At the 1080p EL pair a value's grid
+// is M * 2^-40, far below f32's rounding of the default path.  A
+// non-finite value sets a byte of flags of its element (+inf, -inf, NaN),
+// from which the element's f32 sum of non-finite values follows, whatever
+// the order.
+// Hopper has no vector integer reduction, and a 64-bit shared-memory
+// atomic add compiles to a compare-and-swap loop (`ATOMS.CAST.SPIN.64`;
+// `tools/atomics_bench.py`): the boxes below add 64-bit integers as two
+// native 32-bit adds, the low word's returned value giving the carry
+// (`smem_add64`).
+// The pair: `fx_cover_kernel` first counts, for each source pixel, the
+// tiles of 8 x 32 output pixels whose taps touch it.  Then
+// `flow_warp_backward_fixed_kernel`, a thread a pixel, sums a tile's taps
+// into a shared-memory box of its footprint, kFxChunk channels a pass; a
+// near tile (footprint within kFxReachY rows and kFxReachX columns, at
+// most kFxArea pixels) finishes the pixels its taps alone touch straight
+// into the gradient and stores the values of the others (a bit a pixel,
+// ranked) into its own slot of a workspace; `fx_gather_kernel` adds, for
+// each such element, the slot values of the near tiles whose footprint
+// holds it (at most 15, a list a pixel), converts once and writes it: no
+// accumulator to zero and read back, no global reduction.  A far tile
+// adds into 64-bit global sums, which the gather reads where a far tile's
+// tap touched the pixel.  The grouped warp keeps the default kernel's
+// template: its box per unit (or group) holds 64-bit
+// values, flushed with lanes over a pixel's contiguous channels, and a
+// finish pass converts the global sums.  The flow and mask gradients are
+// one thread's sums in a fixed order in both.
 //
 // Arithmetic is f32 with explicit round-to-nearest intrinsics (no FMA
 // contraction); indices are clamped into range after conversion, as in
@@ -220,56 +239,121 @@ __device__ __forceinline__ float pow2(int s) {
   return __int_as_float((s + 127) << 23);
 }
 
+// The fixed-order variant's non-finite contributions: a byte of flags an
+// element (1 +inf, 2 -inf, 4 NaN) in 32-bit words, set by atomicOr.  Their
+// f32 sum, which does not depend on the order, follows from the flags:
+// NaN where a NaN or both infinities came, else the infinity that came.
+constexpr unsigned kPosInf = 1u, kNegInf = 2u, kNaN = 4u;
+
+__device__ __forceinline__ void nonfinite_add(unsigned* flags, int64_t i,
+                                              float v) {
+  const unsigned bit = isnan(v) ? kNaN : (v > 0.f ? kPosInf : kNegInf);
+  atomicOr(flags + (i >> 2), bit << (8 * (int)(i & 3)));
+}
+
 // v into element i of the fixed-point sums q (scaled by `scale`), or of
-// the non-finite sums nf
-__device__ __forceinline__ void fixed_add(unsigned long long* q, float* nf,
-                                          int64_t i, float v, float scale) {
+// the non-finite flags
+__device__ __forceinline__ void fixed_add(unsigned long long* q,
+                                          unsigned* flags, int64_t i, float v,
+                                          float scale) {
   if (v == 0.f) return;
   if (isfinite(v)) {
     atomicAdd(q + i,
               (unsigned long long)__float2ll_rn(__fmul_rn(v, scale)));
   } else {
-    atomicAdd(nf + i, v);
+    nonfinite_add(flags, i, v);
   }
 }
 
 // The largest finite |x[i]| into *out (as f32 bits, which order as
-// unsigned integers for values >= 0).
+// unsigned integers for values >= 0); four values a load where x is 16-
+// or 8-byte aligned (vec), the last n % 4 one at a time.
 template <typename T>
 __global__ void absmax_kernel(const T* __restrict__ x, int64_t n,
-                              unsigned* __restrict__ out) {
+                              unsigned* __restrict__ out, int vec) {
   float m = 0.f;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t head = vec ? n / 4 * 4 : 0;
+  for (int64_t i = first; i < head / 4; i += stride) {
+    float v[4];
+    ld_n<T, 4>(x + 4 * i, v);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float a = fabsf(v[k]);
+      if (a <= FLT_MAX) m = fmaxf(m, a);  // not inf, not NaN
+    }
+  }
+  for (int64_t i = head + first; i < n; i += stride) {
     const float v = fabsf(to_f32(x[i]));
-    if (v <= FLT_MAX) m = fmaxf(m, v);  // not inf, not NaN
+    if (v <= FLT_MAX) m = fmaxf(m, v);
   }
   const unsigned b = __reduce_max_sync(0xffffffffu, __float_as_uint(m));
   if (threadIdx.x % 32 == 0 && b != 0) atomicMax(out, b);
 }
 
-// out[i] = the fixed-point sum q[i] / 2^s, or the non-finite sum nf[i]
-// where there is one; out may be nf.  An f32 out is rounded once; a bf16
-// out too: q is first rounded to f32 toward zero with the lowest bit set
-// where that was inexact (round to odd), which bf16's rounding then
+// The finished value of a 64-bit fixed-point sum v (scaled by 1 / inv)
+// with non-finite flags f (NaN as 0x7fc00000, bf16 0x7fc0): f32 rounded
+// once; bf16 by way of f32 rounded to odd, which bf16's rounding then
 // rounds as it would the exact value.
 template <typename T>
-__global__ void fixed_finish_kernel(const long long* q, const float* nf,
-                                    T* out, int64_t n,
-                                    const unsigned* __restrict__ mx,
-                                    int slots, long long k) {
-  const float inv = pow2(-fixed_exp(mx, slots, k));
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const float sp = nf[i];
-    const long long v = q[i];
-    if constexpr (sizeof(T) == 4) {
-      out[i] = sp != 0.f ? sp : __fmul_rn(__ll2float_rn(v), inv);
-    } else {
-      float f = __ll2float_rz(v);
-      if (__float2ll_rz(f) != v) f = __uint_as_float(__float_as_uint(f) | 1u);
-      out[i] = __float2bfloat16_rn(sp != 0.f ? sp : __fmul_rn(f, inv));
+__device__ __forceinline__ T finish_value(long long v, unsigned f,
+                                          float inv) {
+  if constexpr (sizeof(T) == 4) {
+    return f == 0 ? __fmul_rn(__ll2float_rn(v), inv)
+           : (f & kNaN) || f == (kPosInf | kNegInf)
+               ? __int_as_float(0x7fc00000)
+               : __int_as_float(f == kPosInf ? 0x7f800000 : 0xff800000);
+  } else {
+    if (f != 0) {
+      return __ushort_as_bfloat16(
+          (f & kNaN) || f == (kPosInf | kNegInf)
+              ? (unsigned short)0x7fc0
+              : (unsigned short)(f == kPosInf ? 0x7f80 : 0xff80));
     }
+    float r = __ll2float_rz(v);
+    if (__float2ll_rz(r) != v) r = __uint_as_float(__float_as_uint(r) | 1u);
+    return __float2bfloat16_rn(__fmul_rn(r, inv));
+  }
+}
+
+// out[i] = the finished value of the fixed-point sum q[i] with the flags
+// of element i, four elements a thread where n, q, flags and out allow
+// 16-byte loads (q: 32 bytes) and a store of four values.
+template <typename T>
+__global__ void fixed_finish_kernel(const long long* __restrict__ q,
+                                    const unsigned char* __restrict__ flags,
+                                    T* __restrict__ out, int64_t n,
+                                    const unsigned* __restrict__ mx,
+                                    int slots, long long k, int vec) {
+  const float inv = pow2(-fixed_exp(mx, slots, k));
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  if (vec) {
+    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+         i < n / 4; i += stride) {
+      const longlong2 lo = reinterpret_cast<const longlong2*>(q)[2 * i];
+      const longlong2 hi = reinterpret_cast<const longlong2*>(q)[2 * i + 1];
+      const unsigned f = reinterpret_cast<const unsigned*>(flags)[i];
+      const T r0 = finish_value<T>(lo.x, f & 0xffu, inv);
+      const T r1 = finish_value<T>(lo.y, (f >> 8) & 0xffu, inv);
+      const T r2 = finish_value<T>(hi.x, (f >> 16) & 0xffu, inv);
+      const T r3 = finish_value<T>(hi.y, f >> 24, inv);
+      if constexpr (sizeof(T) == 4) {
+        reinterpret_cast<float4*>(out)[i] = make_float4(r0, r1, r2, r3);
+      } else {
+        uint2 packed;
+        packed.x = (unsigned)__bfloat16_as_ushort(r0) |
+                   ((unsigned)__bfloat16_as_ushort(r1) << 16);
+        packed.y = (unsigned)__bfloat16_as_ushort(r2) |
+                   ((unsigned)__bfloat16_as_ushort(r3) << 16);
+        reinterpret_cast<uint2*>(out)[i] = packed;
+      }
+    }
+    return;
+  }
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    out[i] = finish_value<T>(q[i], flags[i], inv);
   }
 }
 
@@ -340,23 +424,18 @@ constexpr int kFwRunsPerBlock = kFwThreads / kFwG;
 constexpr int kFwBlockPix = kFwRunsPerBlock * kFwRun;  // a row's pixels
 
 // One source of flow_warp_backward: x (N, H, W, c), the output gradient g
-// of the same shape, and gx, the f32 accumulator of x's gradient, or, in
-// the fixed-order variant, gq and gnf, its fixed-point and non-finite
-// sums (null when x needs none).  c = 0: no source.  vec: units of 4
-// channels (c % 4 == 0, x and g aligned to 4 elements, gx to 16 bytes),
-// else of one channel.
+// of the same shape, and gx, the f32 accumulator of x's gradient (null
+// when x needs none).  c = 0: no source.  vec: units of 4 channels (c % 4
+// == 0, x and g aligned to 4 elements, gx to 16 bytes), else of one
+// channel.
 template <typename T>
 struct Src {
   const T* x;
   const T* g;
   float* gx;
-  unsigned long long* gq;
-  float* gnf;
   int c;
   int vec;
-  __device__ __forceinline__ bool grad() const {
-    return gx != nullptr || gq != nullptr;
-  }
+  __device__ __forceinline__ bool grad() const { return gx != nullptr; }
 };
 
 // A source column of a run's scatter: CHU channels added at rows y0 (top)
@@ -378,23 +457,14 @@ __device__ __forceinline__ void red_n(float* p, const float* v) {
 }
 
 // A column's values into the source's gradient (channels ch.. of pixel
-// rows of image row0): f32 reductions, or fixed-point sums.
-template <int CHU, bool FIXED, typename T>
+// rows of image row0) by f32 reductions.
+template <int CHU, typename T>
 __device__ __forceinline__ void col_out(const Col<CHU>& col, const Src<T>& s,
-                                        int ch, int64_t row0, int w,
-                                        float scale) {
+                                        int ch, int64_t row0, int w) {
   const int64_t i0 = ((row0 + col.y0) * w + col.x) * s.c + ch;
   const int64_t i1 = ((row0 + col.y1) * w + col.x) * s.c + ch;
-  if constexpr (FIXED) {
-#pragma unroll
-    for (int k = 0; k < CHU; ++k) {
-      fixed_add(s.gq, s.gnf, i0 + k, col.top[k], scale);
-      if (col.y1 != col.y0) fixed_add(s.gq, s.gnf, i1 + k, col.bot[k], scale);
-    }
-  } else {
-    red_n<CHU>(s.gx + i0, col.top);
-    if (col.y1 != col.y0) red_n<CHU>(s.gx + i1, col.bot);
-  }
+  red_n<CHU>(s.gx + i0, col.top);
+  if (col.y1 != col.y0) red_n<CHU>(s.gx + i1, col.bot);
 }
 
 // The samples of a thread's run of pixels.
@@ -407,12 +477,12 @@ struct Run {
 // pixels in order, each pixel's two tap columns merged with the column
 // pending from the pixel before where they meet, the flow gradient's terms
 // into sx, sy (one entry per pixel).
-template <typename T, int CHU, bool FIXED>
+template <typename T, int CHU>
 __device__ __forceinline__ void fw_source(const Src<T>& s, const Run& r,
                                           int npx, int64_t row0, int iy,
                                           int xs, int h, int w,
-                                          bool flow_grad, float scale,
-                                          float* sx, float* sy) {
+                                          bool flow_grad, float* sx,
+                                          float* sy) {
   if (s.c == 0 || (!s.grad() && !flow_grad)) return;
   const int units = s.c / CHU;
   for (int u = threadIdx.x % kFwG; u < units; u += kFwG) {
@@ -477,31 +547,27 @@ __device__ __forceinline__ void fw_source(const Src<T>& s, const Run& r,
         }
         have = false;
       }
-      if (have) col_out<CHU, FIXED>(pend, s, ch, row0, w, scale);
+      if (have) col_out<CHU>(pend, s, ch, row0, w);
       if (x1 != x0) {
-        col_out<CHU, FIXED>(left, s, ch, row0, w, scale);
+        col_out<CHU>(left, s, ch, row0, w);
         pend = right;
       } else {
         pend = left;
       }
       have = true;
     }
-    if (have) col_out<CHU, FIXED>(pend, s, ch, row0, w, scale);
+    if (have) col_out<CHU>(pend, s, ch, row0, w);
   }
 }
 
 // Block: kFwBlockPix pixels of row blockIdx.y of image blockIdx.z from
 // column blockIdx.x * kFwBlockPix; thread (run, lane) takes kFwRun pixels
 // of them.  gflow (N, H, W, 2) f32, null when the flow needs no gradient.
-// FIXED: the fixed-order variant, scaled by the maximum mx[0].
-template <typename T, bool FIXED>
+template <typename T>
 __global__ void __launch_bounds__(kFwThreads)
     flow_warp_backward_kernel(Src<T> a, Src<T> b,
                               const float* __restrict__ flow,
-                              float* __restrict__ gflow, int h, int w,
-                              const unsigned* __restrict__ mx) {
-  float scale = 0.f;
-  if constexpr (FIXED) scale = pow2(fixed_exp(mx, 1, (long long)h * w));
+                              float* __restrict__ gflow, int h, int w) {
   const int iy = blockIdx.y;
   const int64_t row0 = (int64_t)blockIdx.z * h;  // the image's first row
   const int xs = blockIdx.x * kFwBlockPix + threadIdx.x / kFwG * kFwRun;
@@ -525,18 +591,14 @@ __global__ void __launch_bounds__(kFwThreads)
 #pragma unroll
   for (int i = 0; i < kFwRun; ++i) sx[i] = sy[i] = 0.f;
   if (a.vec) {
-    fw_source<T, 4, FIXED>(a, r, npx, row0, iy, xs, h, w, flow_grad, scale,
-                           sx, sy);
+    fw_source<T, 4>(a, r, npx, row0, iy, xs, h, w, flow_grad, sx, sy);
   } else {
-    fw_source<T, 1, FIXED>(a, r, npx, row0, iy, xs, h, w, flow_grad, scale,
-                           sx, sy);
+    fw_source<T, 1>(a, r, npx, row0, iy, xs, h, w, flow_grad, sx, sy);
   }
   if (b.vec) {
-    fw_source<T, 4, FIXED>(b, r, npx, row0, iy, xs, h, w, flow_grad, scale,
-                           sx, sy);
+    fw_source<T, 4>(b, r, npx, row0, iy, xs, h, w, flow_grad, sx, sy);
   } else {
-    fw_source<T, 1, FIXED>(b, r, npx, row0, iy, xs, h, w, flow_grad, scale,
-                           sx, sy);
+    fw_source<T, 1>(b, r, npx, row0, iy, xs, h, w, flow_grad, sx, sy);
   }
   if (!flow_grad) return;
 #pragma unroll
@@ -555,11 +617,672 @@ __global__ void __launch_bounds__(kFwThreads)
 }
 
 // ---------------------------------------------------------------------------
+// flow_warp_backward_fixed: per-tile boxes of 64-bit sums, gathered
+
+constexpr int kFxTw = 32, kFxTh = 8, kFxThreads = kFxTw * kFxTh;
+constexpr int kFxCap = 8192;  // 64-bit values of a block's box: 64 KB
+constexpr int kFxChunk = 16;  // channels of a source a pass of the box takes
+// A tile is near where its footprint lies within kFxReachY rows and
+// kFxReachX columns of the tile and covers at most kFxArea pixels: its box
+// is stored in its slot of kFxArea pixels and gathered; the footprints of
+// other tiles are far and add straight into the global sums.
+constexpr int kFxReachY = 16, kFxReachX = 32, kFxArea = 1024;
+// the most near tiles whose footprints can hold a pixel: 5 tile rows x 3
+// tile columns
+constexpr int kFxList = 16;
+// a source pixel's cover: the near tiles whose taps touch it, and this bit
+// where a far tile's tap does
+constexpr int kFxFarBit = 1 << 30;
+// the tiles whose footprints can hold a pixel of a gather block: 6 tile
+// rows x 4 tile columns around its own tile
+constexpr int kFxCand = 24;
+
+// x into the 64-bit integer at p of shared memory, exactly, by two native
+// 32-bit atomic adds (a 64-bit shared-memory add compiles to a
+// compare-and-swap loop): the low word, and the high word with the carry
+// out of the low one.  The sum of any adds in any order is their sum
+// modulo 2^64.
+__device__ __forceinline__ void smem_add64(unsigned long long* p,
+                                           unsigned long long x) {
+  unsigned* word = reinterpret_cast<unsigned*>(p);
+  const unsigned lo = (unsigned)x, hi = (unsigned)(x >> 32);
+  const unsigned old = atomicAdd(word, lo);
+  const unsigned carry = old + lo < old ? 1u : 0u;
+  if (hi + carry != 0) atomicAdd(word + 1, hi + carry);
+}
+
+// One source of the fixed-order variant: x (N, H, W, c), its output
+// gradient g, the global fixed-point sums q, non-finite flags and tile
+// slots of its gradient (null when x needs none), the gradient out; vec as
+// in Src.
+template <typename T>
+struct FxSrc {
+  const T* x;
+  const T* g;
+  unsigned long long* q;
+  unsigned* flags;
+  long long* slots;
+  T* out;
+  int c;
+  int vec;
+};
+
+// A thread's pixel: its four taps (global pixel indices) and their
+// places in the box, the sample's weights and clip factors.
+struct FxPix {
+  int64_t tap[4];
+  int bq[4];
+  float wx, wy, dx, dy;
+  bool ok;
+};
+
+// Channels [c0, c0 + cw) of source s at the thread's pixel: each tap's
+// value converted to a 64-bit integer on its own and added into the box
+// (`boxed`, pixel-major with `stride` values a pixel) or straight into
+// s.q; the flow gradient's terms added into sx, sy channel by channel.
+// A non-finite value sets its flags and *nf.
+template <typename T, int U>
+__device__ __forceinline__ void fx_pass(const FxSrc<T>& s, const FxPix& px,
+                                        int64_t pix, int c0, int cw,
+                                        bool grad, bool flow_grad,
+                                        unsigned long long* box, int stride,
+                                        bool boxed, float scale, float& sx,
+                                        float& sy, int* nf) {
+  const float ax = __fsub_rn(1.f, px.wx), ay = __fsub_rn(1.f, px.wy);
+  for (int k0 = 0; k0 < cw; k0 += U) {
+    const int ch = c0 + k0;
+    float g[U];
+    ld_n<T, U>(s.g + pix * s.c + ch, g);
+    if (flow_grad) {
+      float v[4][U];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) ld_n<T, U>(s.x + px.tap[t] * s.c + ch, v[t]);
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        const float gt = __fmul_rn(g[k], ay);
+        const float gb = __fmul_rn(g[k], px.wy);
+        const float top =
+            __fadd_rn(__fmul_rn(v[0][k], ax), __fmul_rn(v[1][k], px.wx));
+        const float bot =
+            __fadd_rn(__fmul_rn(v[2][k], ax), __fmul_rn(v[3][k], px.wx));
+        sx = __fadd_rn(
+            sx, __fadd_rn(__fmul_rn(gt, __fsub_rn(v[1][k], v[0][k])),
+                          __fmul_rn(gb, __fsub_rn(v[3][k], v[2][k]))));
+        sy = __fadd_rn(sy, __fmul_rn(g[k], __fsub_rn(bot, top)));
+      }
+    }
+    if (!grad) continue;
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const float gt = __fmul_rn(g[k], ay);
+      const float gb = __fmul_rn(g[k], px.wy);
+      const float tv[4] = {__fmul_rn(gt, ax), __fmul_rn(gt, px.wx),
+                           __fmul_rn(gb, ax), __fmul_rn(gb, px.wx)};
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float v = tv[t];
+        if (v == 0.f) continue;
+        if (!isfinite(v)) {
+          nonfinite_add(s.flags, px.tap[t] * s.c + ch + k, v);
+          *nf = 1;
+          continue;
+        }
+        const unsigned long long iv =
+            (unsigned long long)__float2ll_rn(__fmul_rn(v, scale));
+        if (boxed) {
+          smem_add64(box + px.bq[t] * stride + k0 + k, iv);
+        } else {
+          atomicAdd(s.q + px.tap[t] * s.c + ch + k, iv);
+        }
+      }
+    }
+  }
+}
+
+// A near tile's touched box pixels, by the cover of each: `excl` (its
+// taps alone touch it) and `shared` (another tile's too), each in rank
+// order (the box pixel of each rank) with its count.
+struct FxOrder {
+  const int* excl;
+  const int* shared;
+  int n_excl, n_shared;
+};
+
+// A near tile's part of `fx_flush`, U channels a thread (U = 4: one
+// 16- or 8-byte store of the finished values, two 16-byte slot stores).
+template <typename T, int U>
+__device__ __forceinline__ void fx_flush_near(
+    const FxSrc<T>& s, const Box& b, const FxOrder& ord, int64_t tile,
+    int64_t row0, int w, int c0, int cw, unsigned long long* box, int stride,
+    float inv, const int* nf) {
+  const int units = cw / U;
+  for (int i = threadIdx.x; i < ord.n_excl * units; i += kFxThreads) {
+    const int r = i / units, k = (i - r * units) * U;
+    const int bp = ord.excl[r];
+    unsigned long long* p = box + bp * stride + k;
+    const int by = bp / b.bw, bx = bp - by * b.bw;
+    const int64_t e = ((row0 + b.y0 + by) * w + b.x0 + bx) * s.c + c0 + k;
+    T v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const unsigned f =
+          *nf ? reinterpret_cast<const unsigned char*>(s.flags)[e + u] : 0u;
+      v[u] = finish_value<T>((long long)p[u], f, inv);
+      p[u] = 0;
+    }
+    if constexpr (U == 4 && sizeof(T) == 4) {
+      *reinterpret_cast<float4*>(s.out + e) = make_float4(v[0], v[1], v[2],
+                                                          v[3]);
+    } else if constexpr (U == 4) {
+      uint2 packed;
+      packed.x = (unsigned)__bfloat16_as_ushort(v[0]) |
+                 ((unsigned)__bfloat16_as_ushort(v[1]) << 16);
+      packed.y = (unsigned)__bfloat16_as_ushort(v[2]) |
+                 ((unsigned)__bfloat16_as_ushort(v[3]) << 16);
+      *reinterpret_cast<uint2*>(s.out + e) = packed;
+    } else {
+      s.out[e] = v[0];
+    }
+  }
+  long long* slot = s.slots + tile * kFxArea * s.c + c0;
+  for (int i = threadIdx.x; i < ord.n_shared * units; i += kFxThreads) {
+    const int r = i / units, k = (i - r * units) * U;
+    unsigned long long* p = box + ord.shared[r] * stride + k;
+    long long* dst = slot + (int64_t)r * s.c + k;
+    if constexpr (U == 4) {
+      reinterpret_cast<longlong2*>(dst)[0] =
+          make_longlong2((long long)p[0], (long long)p[1]);
+      reinterpret_cast<longlong2*>(dst)[1] =
+          make_longlong2((long long)p[2], (long long)p[3]);
+    } else {
+      dst[0] = (long long)p[0];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) p[u] = 0;
+  }
+}
+
+// The box's values of channels [c0, c0 + cw), each set back to 0.  A near
+// tile: a pixel only its taps touched is finished here (the gradient in
+// out, its flags read where the block met a non-finite value, *nf); the
+// others go to its slot, a pixel's c values at its rank among them.  A far
+// tile: its nonzero values into s.q.  Lanes over (pixel, channel), so
+// that a warp's stores and reductions fall on neighbouring pixels'
+// contiguous channels.
+template <typename T>
+__device__ __forceinline__ void fx_flush(const FxSrc<T>& s, const Box& b,
+                                         bool near, const FxOrder& ord,
+                                         int64_t tile, int64_t row0, int w,
+                                         int c0, int cw,
+                                         unsigned long long* box, int stride,
+                                         float inv, const int* nf) {
+  if (near) {
+    if (s.vec) {  // cw % 4 == 0: four channels a thread
+      fx_flush_near<T, 4>(s, b, ord, tile, row0, w, c0, cw, box, stride, inv,
+                          nf);
+    } else {
+      fx_flush_near<T, 1>(s, b, ord, tile, row0, w, c0, cw, box, stride, inv,
+                          nf);
+    }
+    return;
+  }
+  const int n = b.bh * b.bw * cw;
+  for (int i = threadIdx.x; i < n; i += kFxThreads) {
+    const int bp = i / cw, k = i - bp * cw;
+    unsigned long long* p = box + bp * stride + k;
+    const unsigned long long v = *p;
+    if (v != 0) {
+      const int by = bp / b.bw, bx = bp - by * b.bw;
+      atomicAdd(s.q + ((row0 + b.y0 + by) * w + b.x0 + bx) * s.c + c0 + k,
+                v);
+      *p = 0;
+    }
+  }
+}
+
+// The channels a pass of the box takes for a source of c channels whose
+// footprint covers `area` pixels: the most (a multiple of 4 for vec, at
+// most kFxChunk) whose box, an odd number of values a pixel (no two
+// neighbouring pixels' values on one bank), fits kFxCap; 0: none fits.
+__device__ __forceinline__ int fx_chunk(int c, bool vec, long long area) {
+  int ch = min(c, kFxChunk);
+  if (vec) ch &= ~3;
+  while (ch > 0 && area * (ch | 1) > kFxCap) ch -= vec ? 4 : 1;
+  return ch;
+}
+
+// One source of a block: its channels in passes of the box (or, where no
+// box fits a far footprint, straight to global memory).
+template <typename T>
+__device__ void fx_source(const FxSrc<T>& s, const FxPix& px, int64_t pix,
+                          const Box& b, bool near, const FxOrder& ord,
+                          int64_t tile, int64_t row0, int w, bool flow_grad,
+                          unsigned long long* box, float scale, float& sx,
+                          float& sy, int* nf) {
+  const bool grad = s.q != nullptr;
+  if (s.c == 0 || (!grad && !flow_grad)) return;
+  int ch = grad ? fx_chunk(s.c, s.vec, b.area()) : 0;
+  const bool boxed = ch > 0;
+  if (!boxed) ch = s.vec ? min(s.c, kFxChunk) & ~3 : min(s.c, kFxChunk);
+  const int stride = ch | 1;
+  for (int c0 = 0; c0 < s.c; c0 += ch) {
+    const int cw = min(ch, s.c - c0);
+    if (px.ok) {
+      if (s.vec) {
+        fx_pass<T, 4>(s, px, pix, c0, cw, grad, flow_grad, box, stride,
+                      boxed, scale, sx, sy, nf);
+      } else {
+        fx_pass<T, 1>(s, px, pix, c0, cw, grad, flow_grad, box, stride,
+                      boxed, scale, sx, sy, nf);
+      }
+    }
+    if (boxed) {
+      __syncthreads();
+      fx_flush(s, b, near, ord, tile, row0, w, c0, cw, box, stride,
+               1.f / scale, nf);
+      __syncthreads();
+    }
+  }
+}
+
+// A tile of kFxTh rows x kFxTw columns of image blockIdx.z, a thread a
+// pixel: the thread's sample (x, y), whether its pixel lies in the image,
+// the box of the tile's taps (its footprint; the block's threads must all
+// call it) and whether the tile is near.
+struct FxTile {
+  Axis ax, ay;
+  Box box;
+  bool ok, near;
+};
+
+__device__ __forceinline__ FxTile fx_tile(const float* __restrict__ flow,
+                                          int h, int w, int* bounds) {
+  FxTile tl;
+  const int ty0 = blockIdx.y * kFxTh, tx0 = blockIdx.x * kFxTw;
+  const int iy = ty0 + threadIdx.x / kFxTw;
+  const int ix = tx0 + threadIdx.x % kFxTw;
+  const int64_t pix = ((int64_t)blockIdx.z * h + iy) * w + ix;
+  tl.ok = iy < h && ix < w;
+  tl.ax = Axis{0, 0, 0.f, 0.f};
+  tl.ay = Axis{0, 0, 0.f, 0.f};
+  int ylo = INT_MAX, yhi = -1, xlo = INT_MAX, xhi = -1;
+  if (tl.ok) {
+    tl.ax = axis(__ldg(flow + 2 * pix), ix, w);
+    tl.ay = axis(__ldg(flow + 2 * pix + 1), iy, h);
+    ylo = tl.ay.i0;
+    yhi = tl.ay.i1;
+    xlo = tl.ax.i0;
+    xhi = tl.ax.i1;
+  }
+  if (threadIdx.x == 0) {
+    bounds[0] = bounds[2] = INT_MAX;
+    bounds[1] = bounds[3] = -1;
+  }
+  __syncthreads();
+  warp_bounds(ylo, yhi, xlo, xhi);
+  if (threadIdx.x % 32 == 0) {
+    atomicMin(bounds, ylo);
+    atomicMax(bounds + 1, yhi);
+    atomicMin(bounds + 2, xlo);
+    atomicMax(bounds + 3, xhi);
+  }
+  __syncthreads();
+  tl.box = Box{bounds[0], bounds[2], bounds[1] - bounds[0] + 1,
+               bounds[3] - bounds[2] + 1};
+  tl.near = tl.box.area() <= kFxArea && tl.box.y0 >= ty0 - kFxReachY &&
+            tl.box.y0 + tl.box.bh <= ty0 + kFxTh + kFxReachY &&
+            tl.box.x0 >= tx0 - kFxReachX &&
+            tl.box.x0 + tl.box.bw <= tx0 + kFxTw + kFxReachX;
+  return tl;
+}
+
+// The box pixels a near tile's taps touch, a bit each (bits zeroed, the
+// block's threads all calling it).
+__device__ __forceinline__ void fx_touch(const FxTile& tl, unsigned* bits) {
+  if (!tl.ok) return;
+  const int ys[2] = {tl.ay.i0, tl.ay.i1}, xs[2] = {tl.ax.i0, tl.ax.i1};
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int bq = tl.box.at(ys[t / 2], xs[t % 2]);
+    atomicOr(bits + bq / 32, 1u << (bq % 32));
+  }
+}
+
+// The first pass: each source pixel's cover, the near tiles whose taps
+// touch it (one add a tile), with kFxFarBit where a far tile's tap does
+// (cover zeroed before).
+__global__ void __launch_bounds__(kFxThreads)
+    fx_cover_kernel(const float* __restrict__ flow, int h, int w,
+                    int* __restrict__ cover) {
+  __shared__ int bounds[4];
+  __shared__ unsigned bits[kFxArea / 32];
+  const FxTile tl = fx_tile(flow, h, w, bounds);
+  const int64_t row0 = (int64_t)blockIdx.z * h;
+  if (!tl.near) {
+    if (tl.ok) {
+      const int ys[2] = {tl.ay.i0, tl.ay.i1}, xs[2] = {tl.ax.i0, tl.ax.i1};
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        atomicOr(cover + (row0 + ys[t / 2]) * w + xs[t % 2], kFxFarBit);
+      }
+    }
+    return;
+  }
+  if (threadIdx.x < kFxArea / 32) bits[threadIdx.x] = 0;
+  __syncthreads();
+  fx_touch(tl, bits);
+  __syncthreads();
+  for (int i = threadIdx.x; i < tl.box.area(); i += kFxThreads) {
+    if ((bits[i / 32] >> (i % 32)) & 1u) {
+      const int by = i / tl.box.bw, bx = i - by * tl.box.bw;
+      atomicAdd(cover + (row0 + tl.box.y0 + by) * w + tl.box.x0 + bx, 1);
+    }
+  }
+}
+
+// Exclusive ranks of the set bits of bits[0..32) into ranks, by one warp
+// (lanes 0-31 of the block); the count of set bits is returned to lane 0's
+// ... every lane.
+__device__ __forceinline__ int fx_ranks(const unsigned* bits, int* ranks) {
+  const int lane = threadIdx.x;
+  const int cnt = __popc(bits[lane]);
+  int incl = cnt;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int up = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += up;
+  }
+  ranks[lane] = incl - cnt;
+  return __shfl_sync(0xffffffffu, incl, 31);
+}
+
+// Block: a tile of kFxTh rows x kFxTw columns of image blockIdx.z, a
+// thread a pixel; dynamic shared memory kFxCap 64-bit values, the box of
+// the tile's footprint.  Each source's channels pass through the box
+// kFxChunk at a time: every tap's value is converted to a 64-bit integer
+// on its own (the plain version's contributions) and added with two
+// native 32-bit shared-memory atomics.  A near tile then finishes the
+// pixels only its taps touched (the cover says so) straight into the
+// gradient, and stores the values of the others into its slot, with their
+// bits and ranks for the gather; a far tile adds into the global sums with
+// one reduction per value it reached.  The flow gradient is the thread's
+// sum over a's then b's channels in order.  state[1] is set by a
+// non-finite value.
+template <typename T>
+__global__ void __launch_bounds__(kFxThreads)
+    flow_warp_backward_fixed_kernel(FxSrc<T> a, FxSrc<T> b,
+                                    const float* __restrict__ flow,
+                                    float* __restrict__ gflow,
+                                    const int* __restrict__ cover,
+                                    int4* tiles, unsigned* tile_bits,
+                                    int* tile_ranks, int h, int w,
+                                    unsigned* state) {
+  extern __shared__ unsigned long long fx_box[];
+  // a near tile's touched box pixels (a bit each), those of them another
+  // tile touches too, ranks of each, and the box pixel of each rank
+  __shared__ unsigned bits[kFxArea / 32], shared_bits[kFxArea / 32];
+  __shared__ int excl_ranks[kFxArea / 32], shared_ranks[kFxArea / 32];
+  __shared__ int excl[kFxArea], shared[kFxArea];
+  __shared__ int counts[2];
+  __shared__ int bounds[4];
+  __shared__ int nf;
+  const float scale = pow2(fixed_exp(state, 1, (long long)h * w));
+  const int iy = blockIdx.y * kFxTh + threadIdx.x / kFxTw;
+  const int ix = blockIdx.x * kFxTw + threadIdx.x % kFxTw;
+  const int64_t row0 = (int64_t)blockIdx.z * h;
+  const int64_t pix = (row0 + iy) * w + ix;
+  const int64_t tile =
+      ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0) nf = 0;
+  const FxTile tl = fx_tile(flow, h, w, bounds);
+  const Box& box = tl.box;
+  const bool near = tl.near;
+  if (threadIdx.x == 0) {
+    tiles[tile] = near ? make_int4(box.y0, box.x0, box.bh, box.bw)
+                       : make_int4(0, 0, 0, 0);
+  }
+  const long long zero = min((long long)kFxCap, box.area() * (kFxChunk | 1));
+  for (long long i = threadIdx.x; i < zero; i += kFxThreads) fx_box[i] = 0;
+  if (threadIdx.x < kFxArea / 32) {
+    bits[threadIdx.x] = shared_bits[threadIdx.x] = 0;
+  }
+  __syncthreads();
+  FxPix px;
+  px.ok = tl.ok;
+  px.wx = tl.ax.frac;
+  px.wy = tl.ay.frac;
+  px.dx = tl.ax.dclip;
+  px.dy = tl.ay.dclip;
+  const int ys[2] = {tl.ay.i0, tl.ay.i1}, xs[2] = {tl.ax.i0, tl.ax.i1};
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    px.tap[t] = (row0 + ys[t / 2]) * w + xs[t % 2];
+    px.bq[t] = px.ok && box.area() <= kFxCap ? box.at(ys[t / 2], xs[t % 2])
+                                              : 0;
+  }
+  FxOrder ord{excl, shared, 0, 0};
+  if (near) {
+    fx_touch(tl, bits);
+    __syncthreads();
+    for (int i = threadIdx.x; i < box.area(); i += kFxThreads) {
+      if ((bits[i / 32] >> (i % 32)) & 1u) {
+        const int by = i / box.bw, bx = i - by * box.bw;
+        if (cover[(row0 + box.y0 + by) * w + box.x0 + bx] != 1) {
+          atomicOr(shared_bits + i / 32, 1u << (i % 32));
+        }
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      bits[threadIdx.x] &= ~shared_bits[threadIdx.x];  // only this tile's
+      const int n_excl = fx_ranks(bits, excl_ranks);
+      const int n_shared = fx_ranks(shared_bits, shared_ranks);
+      tile_bits[tile * 32 + threadIdx.x] = shared_bits[threadIdx.x];
+      tile_ranks[tile * 32 + threadIdx.x] = shared_ranks[threadIdx.x];
+      if (threadIdx.x == 0) {
+        counts[0] = n_excl;
+        counts[1] = n_shared;
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < box.area(); i += kFxThreads) {
+      const unsigned below = (1u << (i % 32)) - 1u;
+      const unsigned we = bits[i / 32], ws = shared_bits[i / 32];
+      if ((we >> (i % 32)) & 1u) {
+        excl[excl_ranks[i / 32] + __popc(we & below)] = i;
+      } else if ((ws >> (i % 32)) & 1u) {
+        shared[shared_ranks[i / 32] + __popc(ws & below)] = i;
+      }
+    }
+    __syncthreads();
+    ord.n_excl = counts[0];
+    ord.n_shared = counts[1];
+  }
+  const bool flow_grad = gflow != nullptr;
+  float sx = 0.f, sy = 0.f;
+  fx_source(a, px, pix, box, near, ord, tile, row0, w, flow_grad, fx_box,
+            scale, sx, sy, &nf);
+  fx_source(b, px, pix, box, near, ord, tile, row0, w, flow_grad, fx_box,
+            scale, sx, sy, &nf);
+  if (flow_grad && px.ok) {
+    reinterpret_cast<float2*>(gflow)[pix] =
+        make_float2(clipped(sx, px.dx), clipped(sy, px.dy));
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && nf) atomicOr(state + 1, 1u);
+}
+
+// One source of the gather: lanes over (pixel, unit of U channels) of
+// the block's pixels that are not done, each unit's values summed over its
+// pixel's list of slot entries (U = 4: two 16-byte loads an entry), the
+// global sums added where a far tile touched the pixel, finished and
+// stored (U values at once).
+template <typename T, int U>
+__device__ __forceinline__ void fx_gather_source(
+    const FxSrc<T>& s, int64_t img_tile0, const int (*list)[kFxList],
+    const int* count, int ty0, int tx0, int h, int w, int64_t row0,
+    bool nonfinite, float inv) {
+  const long long* slots = s.slots + img_tile0 * kFxArea * s.c;
+  const int units = s.c / U;
+  for (int i = threadIdx.x; i < kFxThreads * units; i += kFxThreads) {
+    const int p = i / units, k = (i - p * units) * U;
+    const int y = ty0 + p / kFxTw, x = tx0 + p % kFxTw;
+    if (y >= h || x >= w || count[p] < 0) continue;
+    long long v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) v[u] = 0;
+    const int n = count[p] % (kFxList + 1);
+    const bool far = count[p] > kFxList;
+    // two entries at a time, their loads issued together
+    for (int j = 0; j < n; j += 2) {
+      const long long* src0 = slots + (int64_t)list[p][j] * s.c + k;
+      const long long* src1 =
+          j + 1 < n ? slots + (int64_t)list[p][j + 1] * s.c + k : nullptr;
+      if constexpr (U == 4) {
+        const longlong2 lo0 = *reinterpret_cast<const longlong2*>(src0);
+        const longlong2 hi0 = *reinterpret_cast<const longlong2*>(src0 + 2);
+        longlong2 lo1{0, 0}, hi1{0, 0};
+        if (src1 != nullptr) {
+          lo1 = *reinterpret_cast<const longlong2*>(src1);
+          hi1 = *reinterpret_cast<const longlong2*>(src1 + 2);
+        }
+        v[0] += lo0.x + lo1.x;
+        v[1] += lo0.y + lo1.y;
+        v[2] += hi0.x + hi1.x;
+        v[3] += hi0.y + hi1.y;
+      } else {
+        v[0] += *src0 + (src1 != nullptr ? *src1 : 0);
+      }
+    }
+    const int64_t e = ((row0 + y) * w + x) * s.c + k;
+    T r[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long sum = far ? v[u] + (long long)s.q[e + u] : v[u];
+      const unsigned f =
+          nonfinite ? reinterpret_cast<const unsigned char*>(s.flags)[e + u]
+                    : 0u;
+      r[u] = finish_value<T>(sum, f, inv);
+    }
+    if constexpr (U == 4 && sizeof(T) == 4) {
+      *reinterpret_cast<float4*>(s.out + e) =
+          make_float4(r[0], r[1], r[2], r[3]);
+    } else if constexpr (U == 4) {
+      uint2 packed;
+      packed.x = (unsigned)__bfloat16_as_ushort(r[0]) |
+                 ((unsigned)__bfloat16_as_ushort(r[1]) << 16);
+      packed.y = (unsigned)__bfloat16_as_ushort(r[2]) |
+                 ((unsigned)__bfloat16_as_ushort(r[3]) << 16);
+      *reinterpret_cast<uint2*>(s.out + e) = packed;
+    } else {
+      s.out[e] = r[0];
+    }
+  }
+}
+
+// Each source gradient where the tile kernel left it: block (blockIdx.x,
+// blockIdx.y) of image blockIdx.z takes the kFxTh x kFxTw source pixels of
+// that tile's place.  A pixel that one near tile alone touched is done.
+// For the others a thread lists the slot entries of the near tiles whose
+// footprint holds its pixel (the tiles that can: within kFxReachY rows and
+// kFxReachX columns, staged once for the block) and whether a far tile
+// touched it; then lanes over (pixel, channels) add those entries and,
+// where a far tile touched the pixel, the global sums, and write the
+// finished value (its flags where a value was non-finite): 0 where no tap
+// touched the pixel.
+template <typename T>
+__global__ void __launch_bounds__(kFxThreads)
+    fx_gather_kernel(FxSrc<T> a, FxSrc<T> b, const int4* __restrict__ tiles,
+                     const int* __restrict__ cover,
+                     const unsigned* __restrict__ tile_bits,
+                     const int* __restrict__ tile_ranks, int h, int w,
+                     const unsigned* __restrict__ state) {
+  __shared__ int list[kFxThreads][kFxList];
+  // the pixel's list length, kFxList + 1 more where a far tile touched
+  // it, -1 where one near tile alone did
+  __shared__ int count[kFxThreads];
+  // the tiles whose footprint can hold a pixel of the block: tile rows
+  // blockIdx.y - 3 .. + 2, tile columns blockIdx.x - 2 .. + 1
+  __shared__ int4 cand_box[kFxCand];
+  __shared__ unsigned cand_bits[kFxCand][32];
+  __shared__ int cand_rank[kFxCand][32];
+  const float inv = pow2(-fixed_exp(state, 1, (long long)h * w));
+  const bool nonfinite = state[1] != 0;
+  const int ty0 = blockIdx.y * kFxTh, tx0 = blockIdx.x * kFxTw;
+  const int iy = ty0 + threadIdx.x / kFxTw;
+  const int ix = tx0 + threadIdx.x % kFxTw;
+  const int tiles_y = gridDim.y, tiles_x = gridDim.x;
+  const int64_t img_tile0 = (int64_t)blockIdx.z * tiles_y * tiles_x;
+  const int64_t row0 = (int64_t)blockIdx.z * h;
+  for (int i = threadIdx.x; i < kFxCand * 32; i += kFxThreads) {
+    const int k = i / 32, word = i % 32;
+    const int r = (int)blockIdx.y - 3 + k / 4, c = (int)blockIdx.x - 2 + k % 4;
+    if (r < 0 || r >= tiles_y || c < 0 || c >= tiles_x) {
+      if (word == 0) cand_box[k] = make_int4(0, 0, 0, 0);
+      continue;
+    }
+    const int64_t t = img_tile0 + r * tiles_x + c;
+    if (word == 0) cand_box[k] = tiles[t];
+    cand_bits[k][word] = tile_bits[t * 32 + word];
+    cand_rank[k][word] = tile_ranks[t * 32 + word];
+  }
+  __syncthreads();
+  int found = -1;
+  if (iy < h && ix < w) {
+    const int cv = cover[(row0 + iy) * w + ix];
+    if (cv != 1) {
+      found = 0;
+      for (int k = 0; k < kFxCand; ++k) {
+        const int4 bx = cand_box[k];  // y0, x0, bh, bw
+        if (iy >= bx.x && iy < bx.x + bx.z && ix >= bx.y &&
+            ix < bx.y + bx.w && found < kFxList) {
+          // the pixel's rank among the tile's box pixels that other tiles
+          // touch too
+          const int bp = (iy - bx.x) * bx.w + (ix - bx.y);
+          const unsigned bitsw = cand_bits[k][bp / 32];
+          if ((bitsw >> (bp % 32)) & 1u) {
+            const int t = ((int)blockIdx.y - 3 + k / 4) * tiles_x +
+                          (int)blockIdx.x - 2 + k % 4;
+            list[threadIdx.x][found++] =
+                t * kFxArea + cand_rank[k][bp / 32] +
+                __popc(bitsw & ((1u << (bp % 32)) - 1u));
+          }
+        }
+      }
+      if (cv & kFxFarBit) found += kFxList + 1;
+    }
+  }
+  count[threadIdx.x] = found;
+  __syncthreads();
+  if (a.q != nullptr && a.c > 0) {
+    if (a.vec) {
+      fx_gather_source<T, 4>(a, img_tile0, list, count, ty0, tx0, h, w, row0,
+                             nonfinite, inv);
+    } else {
+      fx_gather_source<T, 1>(a, img_tile0, list, count, ty0, tx0, h, w, row0,
+                             nonfinite, inv);
+    }
+  }
+  if (b.q != nullptr && b.c > 0) {
+    if (b.vec) {
+      fx_gather_source<T, 4>(b, img_tile0, list, count, ty0, tx0, h, w, row0,
+                             nonfinite, inv);
+    } else {
+      fx_gather_source<T, 1>(b, img_tile0, list, count, ty0, tx0, h, w, row0,
+                             nonfinite, inv);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // grouped_warp_backward
 
 constexpr int kGwTh = 8, kGwTw = 8, kGwPix = kGwTh * kGwTw;
 constexpr int kGwThreads = 256, kGwWarps = kGwThreads / 32;
 constexpr int kGwBox = 1536;  // box floats a warp: 6 KB
+// the fixed-order variant's box: 960 64-bit values a warp (7.5 KB), 320
+// pixels of 3 channels, so that two blocks fit an SM
+constexpr int kGwBoxFixed = 1920;
 
 struct GwArgs {
   const void* x;
@@ -572,7 +1295,7 @@ struct GwArgs {
   float* gfy;
   float* gmask;
   unsigned long long* gq;  // the fixed-order variant's sums of x's gradient
-  float* gnf;              // and its non-finite sums
+  unsigned* gflags;        // and its non-finite flags
   const unsigned* mx;      // its maxima: |g|, |mask|
   int h, w, c_src, go, gn;
   int gstride;  // elements of T a staged pixel of g
@@ -641,20 +1364,21 @@ __device__ __forceinline__ void red_group3(float* gx, int64_t q, int gr,
   }
 }
 
-// A tap's value v of group channel k in the fixed-order variant: into the
-// box (64-bit fixed point, box pixel bq) or, with no box or a non-finite
-// v, into the global sums (element e).
+// A tap's value v of group channel k (of cg) in the fixed-order variant:
+// into the box (64-bit fixed point, pixel-major: box pixel bq's cg values
+// side by side) or, with no box or a non-finite v, into the global sums
+// (element e).
 __device__ __forceinline__ void gw_fixed_tap(const GwArgs& args,
-                                             float* box, int area, int k,
+                                             float* box, int cg, int k,
                                              int bq, int64_t e, float v,
                                              float scale) {
   if (box != nullptr && isfinite(v)) {
     if (v != 0.f) {
-      atomicAdd(reinterpret_cast<unsigned long long*>(box) + k * area + bq,
-                (unsigned long long)__float2ll_rn(__fmul_rn(v, scale)));
+      smem_add64(reinterpret_cast<unsigned long long*>(box) + bq * cg + k,
+                 (unsigned long long)__float2ll_rn(__fmul_rn(v, scale)));
     }
   } else {
-    fixed_add(args.gq, args.gnf, e, v, scale);
+    fixed_add(args.gq, args.gflags, e, v, scale);
   }
 }
 
@@ -746,7 +1470,7 @@ __device__ void gw_unit(const GwArgs& args, const GwShape<MODEL>& sh,
           if constexpr (FIXED) {
 #pragma unroll
             for (int k = 0; k < 3; ++k) {
-              gw_fixed_tap(args, box, area, k, bq[t], q[t] * 48 + src0 + k,
+              gw_fixed_tap(args, box, 3, k, bq[t], q[t] * 48 + src0 + k,
                            add[t][k], scale);
             }
           } else if (box != nullptr) {
@@ -772,7 +1496,7 @@ __device__ void gw_unit(const GwArgs& args, const GwShape<MODEL>& sh,
 #pragma unroll
           for (int t = 0; t < 4; ++t) {
             if constexpr (FIXED) {
-              gw_fixed_tap(args, box, area, k, bq[t], q[t] * sh.c_src + c,
+              gw_fixed_tap(args, box, sh.cg, k, bq[t], q[t] * sh.c_src + c,
                            add[t], scale);
             } else if (box != nullptr) {
               atomicAdd(box + k * area + bq[t], add[t]);
@@ -805,26 +1529,33 @@ __device__ void gw_unit(const GwArgs& args, const GwShape<MODEL>& sh,
   }
 }
 
-// A warp's box (cg planes of b.area() floats, or of 64-bit integers in the
-// fixed-order variant) added to group gr's channels of gx, lanes over box
-// pixels; values of 0 are skipped.
+// A warp's box added to group gr's channels of x's gradient; values of 0
+// are skipped.  f32: cg planes of b.area() floats into gx, lanes over box
+// pixels.  The fixed-order variant: b.area() pixels of cg 64-bit values
+// into gq, lanes over (pixel, channel), so that a warp's reductions fall
+// on a pixel's contiguous channels.
 template <bool MODEL, bool FIXED>
 __device__ void gw_flush(const GwArgs& args, const GwShape<MODEL>& sh,
                          const float* box, const Box& b, int gr,
                          int64_t img) {
   const int area = b.bh * b.bw;
+  if constexpr (FIXED) {
+    const unsigned long long* bq =
+        reinterpret_cast<const unsigned long long*>(box);
+    for (int i = threadIdx.x % 32; i < area * sh.cg; i += 32) {
+      const unsigned long long v = bq[i];
+      if (v == 0) continue;
+      const int bp = i / sh.cg, k = i - bp * sh.cg;
+      const int by = bp / b.bw, bx = bp - by * b.bw;
+      const int64_t q = (img * args.h + b.y0 + by) * args.w + b.x0 + bx;
+      atomicAdd(args.gq + q * sh.c_src + gr * sh.cg + k, v);
+    }
+    return;
+  }
   for (int bp = threadIdx.x % 32; bp < area; bp += 32) {
     const int by = bp / b.bw, bx = bp - by * b.bw;
     const int64_t q = (img * args.h + b.y0 + by) * args.w + b.x0 + bx;
-    if constexpr (FIXED) {
-      const unsigned long long* bq =
-          reinterpret_cast<const unsigned long long*>(box);
-      unsigned long long* dst = args.gq + q * sh.c_src + gr * sh.cg;
-      for (int k = 0; k < sh.cg; ++k) {
-        const unsigned long long v = bq[k * area + bp];
-        if (v != 0) atomicAdd(dst + k, v);
-      }
-    } else if constexpr (MODEL) {
+    if constexpr (MODEL) {
       const float v[3] = {box[bp], box[area + bp], box[2 * area + bp]};
       if (v[0] != 0.f || v[1] != 0.f || v[2] != 0.f) {
         red_group3(args.gx, q, gr, v);
@@ -839,17 +1570,19 @@ __device__ void gw_flush(const GwArgs& args, const GwShape<MODEL>& sh,
   }
 }
 
-// A warp's box holds cg planes of a footprint of at most kGwBox floats
-// (kGwBox / 2 64-bit integers in the fixed-order variant).
+// A warp's box holds cg values of a footprint's pixels: at most kGwBox
+// floats (kGwBoxFixed / 2 64-bit integers in the fixed-order variant).
 template <bool FIXED>
 __device__ __forceinline__ bool gw_fits(const Box& b, int cg) {
-  return b.area() * cg * (FIXED ? 2 : 1) <= kGwBox;
+  return FIXED ? b.area() * cg * 2 <= kGwBoxFixed : b.area() * cg <= kGwBox;
 }
 
 // Block: tile (blockIdx.x, blockIdx.y) of image blockIdx.z; shared memory
 // [3][kGwPix][go + 1] f32 staged flows and mask (then their gradients),
-// [kGwWarps][kGwBox] f32 boxes, [kGwPix][gstride] T staged g.  FIXED: the
-// fixed-order variant, scaled by the maxima mx[0] |g| and mx[1] |mask|.
+// [kGwWarps][kGwBox] f32 boxes ([kGwWarps][kGwBoxFixed] floats of 64-bit
+// values in the fixed-order variant), [kGwPix][gstride] T staged g.
+// FIXED: the fixed-order variant, scaled by the maxima mx[0] |g| and
+// mx[1] |mask|.
 template <typename T, bool MODEL, bool FIXED>
 __global__ void __launch_bounds__(kGwThreads)
     grouped_warp_backward_kernel(GwArgs args) {
@@ -866,7 +1599,8 @@ __global__ void __launch_bounds__(kGwThreads)
   extern __shared__ float4 gw_smem[];
   float* fs = reinterpret_cast<float*>(gw_smem);
   float* boxes = fs + 3 * kGwPix * fstride;
-  T* gs = reinterpret_cast<T*>(boxes + kGwWarps * kGwBox);
+  constexpr int box_floats = FIXED ? kGwBoxFixed : kGwBox;
+  T* gs = reinterpret_cast<T*>(boxes + kGwWarps * box_floats);
   const int tid = threadIdx.x;
   const int tx0 = blockIdx.x * kGwTw, ty0 = blockIdx.y * kGwTh;
   const int64_t img = blockIdx.z;
@@ -931,7 +1665,7 @@ __global__ void __launch_bounds__(kGwThreads)
   __syncthreads();
   // 3. a warp takes whole groups: the units j = gr, gr + gn, ...
   const int warp = tid / 32;
-  float* box = boxes + warp * kGwBox;
+  float* box = boxes + warp * box_floats;
   for (int gr = warp; gr < sh.gn; gr += kGwWarps) {
     bool shared = false;
     Box u{0, 0, 0, 0};
@@ -1037,38 +1771,67 @@ bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 // a source of flow_warp_backward; units of 4 channels need c % 4 == 0,
 // x and g aligned to 4 elements and gx to 16 bytes
+bool vec_src(const void* x, const void* g, int c, size_t elt) {
+  const uintptr_t unit = 4 * elt;
+  return c > 0 && c % 4 == 0 && (uintptr_t)x % unit == 0 &&
+         (uintptr_t)g % unit == 0;
+}
+
 template <typename T>
-Src<T> src(const void* x, const void* g, void* gx, void* gq, void* gnf,
-           int c) {
-  Src<T> s{(const T*)x, (const T*)g,          (float*)gx,
-           (unsigned long long*)gq, (float*)gnf, c, 0};
-  const uintptr_t unit = 4 * sizeof(T);
-  s.vec = c > 0 && c % 4 == 0 && (uintptr_t)x % unit == 0 &&
-          (uintptr_t)g % unit == 0 && aligned16(gx);
-  return s;
+Src<T> src(const void* x, const void* g, void* gx, int c) {
+  return Src<T>{(const T*)x, (const T*)g, (float*)gx, c,
+                vec_src(x, g, c, sizeof(T)) && aligned16(gx)};
+}
+
+// a source of the fixed-order pair; units of 4 channels need, besides
+// src's, the gradient out aligned to 4 elements
+template <typename T>
+FxSrc<T> fx_src(const void* x, const void* g, void* q, void* flags,
+                void* slots, void* out, int c) {
+  return FxSrc<T>{(const T*)x,       (const T*)g,       (unsigned long long*)q,
+                  (unsigned*)flags,  (long long*)slots, (T*)out,
+                  c,                 vec_src(x, g, c, sizeof(T)) &&
+                                         (uintptr_t)out % (4 * sizeof(T)) == 0};
+}
+
+// The fixed-order pair's workspace: the tiles' footprints (16 bytes a
+// tile), the source pixels' cover (4 bytes a pixel, rounded up to 16),
+// each tile's shared bits and ranks (32 words each), then each source's
+// tile slots (kFxArea pixels of its c 64-bit values a tile).
+int64_t fx_tiles(int64_t n, int h, int w) {
+  return n * ((h + kFxTh - 1) / kFxTh) * ((w + kFxTw - 1) / kFxTw);
+}
+
+int64_t fx_cover_bytes(int64_t n, int h, int w) {
+  return (n * h * w * 4 + 15) / 16 * 16;
 }
 
 // The largest finite |x| of n values of T into *mx (already 0 or lower).
 template <typename T>
 void absmax(const void* x, int64_t n, unsigned* mx, cudaStream_t s) {
   if (x == nullptr || n <= 0) return;
-  int blocks = blocks_for(n, 256);
+  const int vec = (uintptr_t)x % (4 * sizeof(T)) == 0;
+  int blocks = blocks_for(vec ? n / 4 + 1 : n, 256);
   if (blocks > 132 * 8) blocks = 132 * 8;
-  absmax_kernel<T><<<blocks, 256, 0, s>>>((const T*)x, n, mx);
+  absmax_kernel<T><<<blocks, 256, 0, s>>>((const T*)x, n, mx, vec);
 }
 
 // out = the fixed-point sums q of n values, scaled by the maxima mx[0..
-// slots) and at most k contributions a value (fixed_exp), or their
-// non-finite sums nf; out null: nothing.
+// slots) and at most k contributions a value (fixed_exp), or the
+// non-finite sums their flags give; out null: nothing.
 template <typename T>
-void fixed_finish(const void* q, const void* nf, void* out, int64_t n,
+void fixed_finish(const void* q, const void* flags, void* out, int64_t n,
                   const unsigned* mx, int slots, long long k,
                   cudaStream_t s) {
   if (out == nullptr || n <= 0) return;
-  int blocks = blocks_for(n, 256);
+  const int vec = n % 4 == 0 && (uintptr_t)q % 32 == 0 &&
+                  (uintptr_t)flags % 4 == 0 &&
+                  (uintptr_t)out % (4 * sizeof(T)) == 0;
+  int blocks = blocks_for(vec ? n / 4 : n, 256);
   if (blocks > 132 * 64) blocks = 132 * 64;
   fixed_finish_kernel<T><<<blocks, 256, 0, s>>>(
-      (const long long*)q, (const float*)nf, (T*)out, n, mx, slots, k);
+      (const long long*)q, (const unsigned char*)flags, (T*)out, n, mx,
+      slots, k, vec);
 }
 
 template <typename T>
@@ -1079,36 +1842,62 @@ int flow_backward(const void* a, const void* ga, void* gxa, int ca,
   if (n <= 0 || h <= 0 || w <= 0) return (int)cudaGetLastError();
   if (n > 65535 || h > 65535) return (int)cudaErrorInvalidValue;  // grid
   const dim3 grid((w + kFwBlockPix - 1) / kFwBlockPix, h, (unsigned)n);
-  flow_warp_backward_kernel<T, false><<<grid, kFwThreads, 0, s>>>(
-      src<T>(a, ga, gxa, nullptr, nullptr, ca),
-      src<T>(b, gb, gxb, nullptr, nullptr, cb), (const float*)flow,
-      (float*)gflow, h, w, nullptr);
+  flow_warp_backward_kernel<T><<<grid, kFwThreads, 0, s>>>(
+      src<T>(a, ga, gxa, ca), src<T>(b, gb, gxb, cb), (const float*)flow,
+      (float*)gflow, h, w);
   return (int)cudaGetLastError();
 }
 
 // The fixed-order variant: the maximum of the output gradients that a
-// source gradient is taken of, the kernel into the fixed-point sums (qa,
-// qb) and non-finite sums (nfa, nfb), then each source gradient (outa,
-// outb; may be nfa, nfb for f32) from them.
+// source gradient is taken of (state[0]), the kernel into the tiles' slots
+// (or, for far tiles, the fixed-point sums qa, qb) and the non-finite
+// flags fa, fb, then the gather into each source gradient (outa, outb).
 template <typename T>
-int flow_backward_fixed(const void* a, const void* ga, void* qa, void* nfa,
+int flow_backward_fixed(const void* a, const void* ga, void* qa, void* fa,
                         void* outa, int ca, const void* b, const void* gb,
-                        void* qb, void* nfb, void* outb, int cb,
-                        const void* flow, void* gflow, unsigned* mx,
-                        int64_t n, int h, int w, cudaStream_t s) {
+                        void* qb, void* fb, void* outb, int cb,
+                        const void* flow, void* gflow, unsigned* state,
+                        void* ws, int64_t n, int h, int w, cudaStream_t s) {
   if (n <= 0 || h <= 0 || w <= 0) return (int)cudaGetLastError();
-  if (n > 65535 || h > 65535) return (int)cudaErrorInvalidValue;  // grid
-  const int64_t pix = n * h * w;
-  if (qa != nullptr) absmax<T>(ga, pix * ca, mx, s);
-  if (qb != nullptr && cb > 0) absmax<T>(gb, pix * cb, mx, s);
-  const dim3 grid((w + kFwBlockPix - 1) / kFwBlockPix, h, (unsigned)n);
-  flow_warp_backward_kernel<T, true><<<grid, kFwThreads, 0, s>>>(
-      src<T>(a, ga, nullptr, qa, nfa, ca), src<T>(b, gb, nullptr, qb, nfb, cb),
-      (const float*)flow, (float*)gflow, h, w, mx);
-  const long long k = (long long)h * w;
-  if (qa != nullptr) fixed_finish<T>(qa, nfa, outa, pix * ca, mx, 1, k, s);
-  if (qb != nullptr && cb > 0) {
-    fixed_finish<T>(qb, nfb, outb, pix * cb, mx, 1, k, s);
+  if (n > 65535 || (h + kFxTh - 1) / kFxTh > 65535) {
+    return (int)cudaErrorInvalidValue;  // grid
+  }
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flow_warp_backward_fixed_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kFxCap * (int)sizeof(unsigned long long));
+  if (attr != cudaSuccess) return (int)attr;
+  if (cb <= 0) qb = nullptr;
+  const int64_t pix = n * h * w, tiles = fx_tiles(n, h, w);
+  int4* tile_boxes = (int4*)ws;
+  int* cover = (int*)(tile_boxes + tiles);
+  unsigned* tile_bits = (unsigned*)((char*)cover + fx_cover_bytes(n, h, w));
+  int* tile_ranks = (int*)(tile_bits + tiles * 32);
+  char* slots = (char*)(tile_ranks + tiles * 32);
+  void* slots_a = qa != nullptr ? slots : nullptr;
+  void* slots_b = qb == nullptr ? nullptr
+                                : slots + (qa != nullptr ? tiles * kFxArea *
+                                                               ca * 8
+                                                         : 0);
+  if (qa != nullptr) absmax<T>(ga, pix * ca, state, s);
+  if (qb != nullptr) absmax<T>(gb, pix * cb, state, s);
+  const FxSrc<T> sa = fx_src<T>(a, ga, qa, fa, slots_a, outa, ca);
+  const FxSrc<T> sb = fx_src<T>(b, gb, qb, fb, slots_b, outb, cb);
+  const dim3 grid((w + kFxTw - 1) / kFxTw, (h + kFxTh - 1) / kFxTh,
+                  (unsigned)n);
+  cudaError_t err = cudaMemsetAsync(cover, 0, fx_cover_bytes(n, h, w), s);
+  if (err != cudaSuccess) return (int)err;
+  if (qa != nullptr || qb != nullptr) {
+    fx_cover_kernel<<<grid, kFxThreads, 0, s>>>((const float*)flow, h, w,
+                                                cover);
+  }
+  flow_warp_backward_fixed_kernel<T>
+      <<<grid, kFxThreads, kFxCap * sizeof(unsigned long long), s>>>(
+          sa, sb, (const float*)flow, (float*)gflow, cover, tile_boxes,
+          tile_bits, tile_ranks, h, w, state);
+  if (qa != nullptr || qb != nullptr) {
+    fx_gather_kernel<T><<<grid, kFxThreads, 0, s>>>(
+        sa, sb, tile_boxes, cover, tile_bits, tile_ranks, h, w, state);
   }
   return (int)cudaGetLastError();
 }
@@ -1126,12 +1915,13 @@ int launch_grouped(const GwArgs& args, int64_t n, int smem, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// Both modes: gx the f32 accumulator (gq, gnf, mx null), or, for the
-// fixed-order variant, gq and gnf its sums and mx its maxima (gx null).
+// Both modes: gx the f32 accumulator (gq, gflags, mx null), or, for the
+// fixed-order variant, gq and gflags its sums and non-finite flags and mx
+// its maxima (gx null).
 template <typename T>
 int grouped_backward(const void* x, const void* g, const void* fx,
                      const void* fy, const void* mask, void* gx, void* gfx,
-                     void* gfy, void* gmask, void* gq, void* gnf,
+                     void* gfy, void* gmask, void* gq, void* gflags,
                      unsigned* mx, int64_t n, int h, int w, int c_src,
                      int go, int group_num, cudaStream_t s) {
   if (n <= 0 || h <= 0 || w <= 0 || go <= 0) return (int)cudaGetLastError();
@@ -1143,7 +1933,8 @@ int grouped_backward(const void* x, const void* g, const void* fx,
   if (words % 2 == 0) ++words;
   const int gstride = words * 4 / (int)sizeof(T);
   const int64_t smem = (int64_t)3 * kGwPix * (go + 1) * 4 +
-                       (int64_t)kGwWarps * kGwBox * 4 +
+                       (int64_t)kGwWarps *
+                           (mx != nullptr ? kGwBoxFixed : kGwBox) * 4 +
                        (int64_t)kGwPix * gstride * sizeof(T);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   GwArgs args{x,
@@ -1156,7 +1947,7 @@ int grouped_backward(const void* x, const void* g, const void* fx,
               (float*)gfy,
               (float*)gmask,
               (unsigned long long*)gq,
-              (float*)gnf,
+              (unsigned*)gflags,
               mx,
               h,
               w,
@@ -1210,7 +2001,7 @@ extern "C" int lssvc_flow_warp_backward(const void* a, const void* ga,
 // x's dtype; fx, fy, mask (N,H,W,go) f32; gx a zeroed f32 (N,H,W,c_src)
 // accumulator; gfx, gfy, gmask (N,H,W,go) f32; each gradient may be null.
 // Refused (cudaErrorInvalidValue) where a block's staged tile would pass
-// the 227 KB of shared memory (go * cg past about 1,000 in f32).
+// the 226 KB of dynamic shared memory (go * cg past about 1,000 in f32).
 extern "C" int lssvc_grouped_warp_backward(const void* x, const void* g,
                                            const void* fx, const void* fy,
                                            const void* mask, void* gx,
@@ -1230,35 +2021,48 @@ extern "C" int lssvc_grouped_warp_backward(const void* x, const void* g,
 }
 
 // The fixed-order variant of lssvc_flow_warp_backward: the same inputs;
-// qa, qb zeroed int64 (N,H,W,c) fixed-point sums and nfa, nfb zeroed f32
-// (N,H,W,c) non-finite sums of the sources' gradients (null where a source
-// needs none), outa, outb those gradients in the sources' dtype (f32: may
-// be nfa, nfb); mx a zeroed 32-bit word.  The source gradients do not
-// depend on the order in which threads run: two launches on the same
-// inputs give the same bits.
+// qa, qb zeroed int64 (N,H,W,c) fixed-point sums and fa, fb zeroed bytes
+// (N,H,W,c, rounded up to a multiple of 4) of non-finite flags of the
+// sources' gradients (null where a source needs none), outa, outb those
+// gradients in the sources' dtype; state two zeroed 32-bit words; ws a
+// workspace of lssvc_flow_warp_backward_fixed_workspace bytes (any
+// contents).  The source gradients are the same bits whatever order the
+// threads run in: the integer sum of each tap's value round(v 2^s),
+// converted once.
 extern "C" int lssvc_flow_warp_backward_fixed(
-    const void* a, const void* ga, void* qa, void* nfa, void* outa, int ca,
-    const void* b, const void* gb, void* qb, void* nfb, void* outb, int cb,
-    const void* flow, void* gflow, void* mx, int64_t n, int h, int w,
-    int dtype, void* stream) {
+    const void* a, const void* ga, void* qa, void* fa, void* outa, int ca,
+    const void* b, const void* gb, void* qb, void* fb, void* outb, int cb,
+    const void* flow, void* gflow, void* state, void* ws, int64_t n, int h,
+    int w, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
-    return flow_backward_fixed<float>(a, ga, qa, nfa, outa, ca, b, gb, qb,
-                                      nfb, outb, cb, flow, gflow,
-                                      (unsigned*)mx, n, h, w, s);
+    return flow_backward_fixed<float>(a, ga, qa, fa, outa, ca, b, gb, qb, fb,
+                                      outb, cb, flow, gflow, (unsigned*)state,
+                                      ws, n, h, w, s);
   }
-  return flow_backward_fixed<__nv_bfloat16>(a, ga, qa, nfa, outa, ca, b, gb,
-                                            qb, nfb, outb, cb, flow, gflow,
-                                            (unsigned*)mx, n, h, w, s);
+  return flow_backward_fixed<__nv_bfloat16>(
+      a, ga, qa, fa, outa, ca, b, gb, qb, fb, outb, cb, flow, gflow,
+      (unsigned*)state, ws, n, h, w, s);
 }
 
-// The fixed-order variant of lssvc_grouped_warp_backward: qx a zeroed
-// int64 and nfx a zeroed f32 (N,H,W,c_src) for x's gradient (null where x
-// needs none), outx that gradient in x's dtype (f32: may be nfx); mx two
-// zeroed 32-bit words.
+// The bytes of lssvc_flow_warp_backward_fixed's workspace for sources of
+// ca and cb channels that take a gradient (0 for one that takes none).
+extern "C" int64_t lssvc_flow_warp_backward_fixed_workspace(int64_t n, int h,
+                                                            int w, int ca,
+                                                            int cb) {
+  const int64_t tiles = fx_tiles(n, h, w);
+  return tiles * (int64_t)sizeof(int4) + fx_cover_bytes(n, h, w) +
+         tiles * 32 * 8 + tiles * kFxArea * (int64_t)(ca + cb) * 8;
+}
+
+// The fixed-order variant of lssvc_grouped_warp_backward: qx zeroed int64
+// (N,H,W,c_src) and fx_ zeroed bytes (N,H,W,c_src, rounded up to a
+// multiple of 4) for x's gradient's sums and non-finite flags (null where
+// x needs none), outx that gradient in x's dtype; mx two zeroed 32-bit
+// words (the maxima |g| and |mask|).
 extern "C" int lssvc_grouped_warp_backward_fixed(
     const void* x, const void* g, const void* fx, const void* fy,
-    const void* mask, void* qx, void* nfx, void* outx, void* gfx, void* gfy,
+    const void* mask, void* qx, void* fx_, void* outx, void* gfx, void* gfy,
     void* gmask, void* mx, int64_t n, int h, int w, int c_src, int go,
     int group_num, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -1268,17 +2072,17 @@ extern "C" int lssvc_grouped_warp_backward_fixed(
   int err;
   if (dtype == 0) {
     err = grouped_backward<float>(x, g, fx, fy, mask, nullptr, gfx, gfy,
-                                  gmask, qx, nfx, (unsigned*)mx, n, h, w,
+                                  gmask, qx, fx_, (unsigned*)mx, n, h, w,
                                   c_src, go, group_num, s);
     if (err == 0 && qx != nullptr) {
-      fixed_finish<float>(qx, nfx, outx, elems, (unsigned*)mx, 2, k, s);
+      fixed_finish<float>(qx, fx_, outx, elems, (unsigned*)mx, 2, k, s);
     }
   } else {
     err = grouped_backward<__nv_bfloat16>(x, g, fx, fy, mask, nullptr, gfx,
-                                          gfy, gmask, qx, nfx, (unsigned*)mx,
+                                          gfy, gmask, qx, fx_, (unsigned*)mx,
                                           n, h, w, c_src, go, group_num, s);
     if (err == 0 && qx != nullptr) {
-      fixed_finish<__nv_bfloat16>(qx, nfx, outx, elems, (unsigned*)mx, 2, k,
+      fixed_finish<__nv_bfloat16>(qx, fx_, outx, elems, (unsigned*)mx, 2, k,
                                   s);
     }
   }

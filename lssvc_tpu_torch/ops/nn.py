@@ -16,7 +16,9 @@ OffsetDiversity's fusion) go through `rows_matmul`: GEMMs of one fixed
 row count, so that a row's result does not depend on how many rows the
 tensor holds.  cuBLAS (and the CPU's BLAS) pick their kernel, and with it
 the order of a row's sums, by the matrix's shape; an H-strip of a frame
-then gave other last bits than the frame's own rows.
+then gave other last bits than the frame's own rows.  cuDNN picks a
+conv's algorithm by the call's shape too; on H-strips each conv shape
+takes a route whose rows are the frame's bits (`ops/strips.py` `conv2d`).
 """
 
 from __future__ import annotations
@@ -357,19 +359,27 @@ def conv2d(x, w, b=None, stride=1, padding=None, groups=1):
     """2D convolution in the current mode. x: NHWC, w: OIHW ((out,
     in/groups, kh, kw)).
 
-    `padding` defaults to (k-1)//2 per axis; pass an int or (ph, pw); on
-    H-strips (`ops/strips.py`) also ((top, bottom), (left, right))."""
+    `padding` defaults to (k-1)//2 per axis; pass an int, (ph, pw) or
+    ((top, bottom), (left, right)) (an uneven padding pads the input
+    first).  On H-strips (`ops/strips.py` `conv2d`) each rank's rows are
+    the frame's bits."""
     if padding is None:
         padding = ((w.shape[2] - 1) // 2, (w.shape[3] - 1) // 2)
     elif isinstance(padding, int):
         padding = (padding, padding)
     if spatial_ctx.active():
-        return strips.conv2d(x, w, b, stride, padding, groups, _conv2d)
+        return strips.conv2d(x, w, b, stride, padding, groups, _conv2d,
+                             (current_mode(), _backend_flags()))
     return _conv2d(x, w, b, stride, padding, groups)
 
 
 def _conv2d(x, w, b, stride, padding, groups):
     x, w, b = _operands(x, w, b)
+    ph, pw = padding
+    if not (isinstance(ph, int) and isinstance(pw, int)):
+        (top, bottom), (left, right) = ((p, p) if isinstance(p, int) else p
+                                        for p in padding)
+        x, padding = _pad(x, (left, right, top, bottom)), (0, 0)
     if (current_mode().conv1x1_einsum and w.shape[2:] == (1, 1)
             and groups == 1 and stride in (1, (1, 1))
             and tuple(padding) == (0, 0)):
@@ -420,11 +430,9 @@ def conv_transpose2d(x, w, b=None, stride=2, padding=1, output_padding=1):
     w2 = taps[:, :, _deconv_gather(w.device)].reshape(cin, cout, 2, 2, 2, 2) \
         .permute(1, 2, 3, 0, 4, 5).reshape(4 * cout, cin, 2, 2)
     b2 = None if b is None else b.repeat_interleave(4)
-    if spatial_ctx.active():
-        # the 2x2 conv reads one row below: the next strip's first
-        return pixel_shuffle(conv2d(x, w2, b2, padding=((0, 1), (0, 1))), 2)
-    return pixel_shuffle(conv2d(pad_nhwc(x, (0, 1, 0, 1)), w2, b2,
-                                padding=0), 2)
+    # the 2x2 conv reads one row and column past each output: zero past the
+    # frame's bottom and right
+    return pixel_shuffle(conv2d(x, w2, b2, padding=((0, 1), (0, 1))), 2)
 
 
 def _pixel_shuffle(x, r: int):

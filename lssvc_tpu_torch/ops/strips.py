@@ -33,7 +33,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 
 from ..utils import collectives
 from . import spatial_ctx
@@ -225,22 +224,129 @@ def conv_rows(x, kh: int, stride_h: int, pad_h, local):
     return as_level(local(fetch_rows(x, span)), g_out)
 
 
-def conv2d(x, w, b, stride, padding, groups, local_conv):
-    """`ops.nn.conv2d` on strips.  `padding` is (ph, pw) or ((top, bottom),
-    (left, right)); `local_conv(x, w, b, stride, padding, groups)` is the
-    unsplit conv."""
-    ph, pw = padding
-    pad_h = _pair(ph)
-    pl, pr = _pair(pw)
-    stride = _pair(stride)
+# The routes of a conv on strips, cheapest first:
+#   "strip"  a conv of the rows the rank's output rows read (its strip and
+#            the halo), no padding along H;
+#   "embed"  those rows and `EXTRA_ROWS` more on either side, placed at
+#            their rows of a zeroed tensor of the level's height, convolved
+#            as the frame is;
+#   "level"  the whole level gathered and convolved as the frame is: the
+#            frame's own call on the frame's rows.
+ROUTES = ("strip", "embed", "level")
+# rows past the reach that "embed" fetches: a tile of the largest
+# Winograd transform, 6 output rows of a 3x3 conv, reads 8 input rows
+EXTRA_ROWS = 8
+# the route of each call shape, and each route's calls since
+# `reset_route_calls`
+_ROUTE_OF: dict = {}
+_ROUTE_CALLS = dict.fromkeys(ROUTES, 0)
 
-    def local(rows):
-        if pl != pr:
-            rows = F.pad(rows, (0, 0, pl, pr))
-            return local_conv(rows, w, b, stride, (0, 0), groups)
-        return local_conv(rows, w, b, stride, (0, pl), groups)
 
-    return conv_rows(x, w.shape[2], stride[0], pad_h, local)
+def reset_route_calls():
+    for route in ROUTES:
+        _ROUTE_CALLS[route] = 0
+
+
+def route_counts() -> dict:
+    """{route: {"shapes": call shapes taking it, "calls": its calls since
+    `reset_route_calls`}}, and for the routes past "strip" "convs": each
+    shape's (level rows, weight shape)."""
+    out = {route: {"shapes": 0, "calls": _ROUTE_CALLS[route]}
+           for route in ROUTES}
+    for key, route in _ROUTE_OF.items():
+        out[route]["shapes"] += 1
+        if route != "strip":
+            out[route].setdefault("convs", []).append((key[0], key[5]))
+    return out
+
+
+def _aligned(t):
+    # contiguous and 16-byte aligned: cuDNN's choice reads the layout and
+    # the pointers' alignment too, so the probe and the run see the same
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def conv2d(x, w, b, stride, padding, groups, frame_conv, mode):
+    """`ops.nn.conv2d` on strips: this rank's output rows, the same bits as
+    those rows of the frame's conv.  `padding` is (ph, pw) or ((top,
+    bottom), (left, right)); `frame_conv(x, w, b, stride, padding,
+    groups)` is the unsplit conv; `mode` keys what else it reads (the
+    precision and the backend flags).
+
+    cuDNN picks a conv's algorithm, and with it the order of each output's
+    sums, by the call's shape: a strip-shaped call may sum some rows in
+    another order than the frame's call (other last bits, which the model
+    amplifies), and a tiled or FFT algorithm's rows depend on rows past the
+    conv's reach.  So the first call of each shape probes the routes
+    (`ROUTES`) on random rows of the level's shape (the algorithm is
+    chosen by shape, not by value): the cheapest route whose rows equal the
+    frame's conv of the same rows bit for bit on every rank is taken from
+    then on; "level", the frame's own call, is the last resort."""
+    (pt, pb), (pl, pr) = (_pair(p) for p in padding)
+    kh, sh = w.shape[2], _pair(stride)[0]
+    g = global_rows(x)
+    g_out = (g + pt + pb - kh) // sh + 1
+    if is_whole(x) and not splits(g_out):
+        return whole(frame_conv(plain(x), w, b, stride, padding, groups))
+    strip_pad = (0, pl) if pl == pr else ((0, 0), (pl, pr))
+
+    def reach(r, extra):
+        o0, o1 = out_rows(g_out, r)
+        a, e = sh * o0 - pt, sh * (o1 - 1) - pt + kh
+        return (a, e) if extra is None else (max(a - extra, 0),
+                                             min(e + extra, g))
+
+    def framed(rows, a):
+        # the frame's conv of `rows` (global rows from `a`) placed in a
+        # zeroed level: this rank's output rows of it
+        if rows.shape[1] == g:
+            frame = _aligned(rows)
+        else:
+            frame = rows.new_zeros((rows.shape[0], g, *rows.shape[2:]))
+            frame[:, a:a + rows.shape[1]] = rows
+        out = frame_conv(frame, w, b, stride, padding, groups)
+        o0, o1 = out_rows(g_out)
+        return out if o1 - o0 == g_out else out[:, o0:o1].clone()
+
+    spans = {"strip": lambda r: reach(r, None),
+             "embed": lambda r: reach(r, EXTRA_ROWS),
+             "level": lambda r: (0, g)}
+    convs = {"strip": lambda rows, a: frame_conv(
+                 _aligned(rows), w, b, stride, strip_pad, groups),
+             "embed": framed, "level": framed}
+    key = (g, x.shape[0], tuple(x.shape[2:]), x.dtype, x.device.type,
+           tuple(w.shape), w.dtype, b is None, _pair(stride),
+           ((pt, pb), (pl, pr)), groups, mode, spatial_ctx.WORLD,
+           spatial_ctx.RANK)
+    route = _ROUTE_OF.get(key)
+    if route is None:
+        route = _ROUTE_OF[key] = _probe(x, g, spans, convs)
+    _ROUTE_CALLS[route] += 1
+    rows = gather_rows(x) if route == "level" else fetch_rows(x, spans[route])
+    a = max(spans[route](spatial_ctx.RANK)[0], 0)
+    return as_level(convs[route](rows, a), g_out)
+
+
+def _probe(x, g, spans, convs) -> str:
+    """The first route whose rows equal the frame's conv bit for bit on
+    every rank, on random rows of `x`'s level (the ranks agree by one
+    reduction a route tried)."""
+    gen = torch.Generator(device=x.device).manual_seed(0)
+    with torch.no_grad():
+        level = whole(torch.randn((x.shape[0], g, *x.shape[2:]),
+                                  generator=gen, dtype=x.dtype,
+                                  device=x.device))
+        want = convs["level"](plain(level), 0)
+        for route in ROUTES[:-1]:
+            span = spans[route]
+            got = convs[route](fetch_rows(level, span),
+                               max(span(spatial_ctx.RANK)[0], 0))
+            bad = torch.tensor([int(not torch.equal(got, want))],
+                               device=x.device)
+            if not int(all_reduce(bad, dist.ReduceOp.MAX)):
+                return route
+    return "level"
 
 
 def pool2d(x, k: int, local_pool):

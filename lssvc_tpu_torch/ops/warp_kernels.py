@@ -48,14 +48,18 @@ Reproducible training.  The backward kernels sum each source pixel's
 gradient with atomics, so by default two launches may differ in the last
 bits.  Under `torch.use_deterministic_algorithms(True)` both launch
 their fixed-order variant
-(`lssvc_*_backward_fixed`): the source gradient summed in 64-bit fixed
-point with integer atomics, the same bits in any order, counted on
-`<wrapper>.fixed_launches` as well.
+(`lssvc_*_backward_fixed`): each tap's value converted to a 64-bit
+integer on its own and the integers summed exactly, the same bits in any
+order, counted on `<wrapper>.fixed_launches` as well.  Their plain
+versions, `flow_warp_backward_fixed_plain` and
+`grouped_warp_backward_fixed_plain`, sum the same integers with an int64
+`index_add_`: the variants' source gradients are their bits.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -108,8 +112,11 @@ def _grad_lib():
         lib.lssvc_f32_to_bf16.restype = i32
         lib.lssvc_flow_warp_backward_fixed.argtypes = [
             vp, vp, vp, vp, vp, i32, vp, vp, vp, vp, vp, i32, vp, vp, vp,
-            i64, i32, i32, i32, vp]
+            vp, i64, i32, i32, i32, vp]
         lib.lssvc_flow_warp_backward_fixed.restype = i32
+        lib.lssvc_flow_warp_backward_fixed_workspace.argtypes = [
+            i64, i32, i32, i32, i32]
+        lib.lssvc_flow_warp_backward_fixed_workspace.restype = i64
         lib.lssvc_grouped_warp_backward_fixed.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32,
             i32, i32, i32, i32, vp]
@@ -358,25 +365,40 @@ grouped_warp.packed_launches = 0
 
 class _FixedSums:
     """The fixed-order variant's buffers of one source's gradient: zeroed
-    int64 fixed-point sums and f32 non-finite sums, and the gradient in
-    the source's dtype (an f32 gradient is written over its non-finite
-    sums)."""
+    int64 fixed-point sums, zeroed bytes of non-finite flags (one an
+    element, in whole 32-bit words), and the gradient in the source's
+    dtype."""
 
     def __init__(self, like):
         self.q = torch.zeros(like.shape, dtype=torch.int64,
                              device=like.device)
-        self.nf = torch.zeros(like.shape, dtype=torch.float32,
-                              device=like.device)
-        self.out = self.nf if like.dtype == torch.float32 else \
-            torch.empty(like.shape, dtype=like.dtype, device=like.device)
+        self.flags = torch.zeros((like.numel() + 3) // 4 * 4,
+                                 dtype=torch.uint8, device=like.device)
+        self.out = torch.empty(like.shape, dtype=like.dtype,
+                               device=like.device)
 
 
 def _fixed(like, need):
     return _FixedSums(like) if need else None
 
 
+def _pair_fixed_buffers(a, b, need_a, need_b):
+    """The fixed-order pair's sums (`_FixedSums` of each source that takes
+    a gradient, else None), its state (two zeroed words: the max |g|, a
+    non-finite value) and its workspace (the pixels' cover, the tiles'
+    footprints and slots, `lssvc_flow_warp_backward_fixed_workspace`)."""
+    n, h, w, ca = a.shape
+    cb = b.shape[-1] if b is not None else 0
+    fa, fb = _fixed(a, need_a), _fixed(b, need_b)
+    state = torch.zeros(2, dtype=torch.int32, device=a.device)
+    size = _grad_lib().lssvc_flow_warp_backward_fixed_workspace(
+        n, h, w, ca if need_a else 0, cb if need_b else 0)
+    ws = torch.empty(size, dtype=torch.uint8, device=a.device)
+    return fa, fb, state, ws
+
+
 def _fixed_ptrs(f):
-    return (0, 0, 0) if f is None else (f.q.data_ptr(), f.nf.data_ptr(),
+    return (0, 0, 0) if f is None else (f.q.data_ptr(), f.flags.data_ptr(),
                                         f.out.data_ptr())
 
 
@@ -431,13 +453,12 @@ def flow_warp_backward(flow, a, grad_a, b=None, grad_b=None, need_a=True,
     gflow = torch.empty((n, h, w, 2), dtype=torch.float32,
                         device=a.device) if need_flow else None
     if torch.are_deterministic_algorithms_enabled() and (need_a or need_b):
-        fa, fb = _fixed(a, need_a), _fixed(b, need_b)
-        mx = torch.zeros(1, dtype=torch.int32, device=a.device)
+        fa, fb, state, ws = _pair_fixed_buffers(a, b, need_a, need_b)
         err = _grad_lib().lssvc_flow_warp_backward_fixed(
             a.data_ptr(), grad_a.data_ptr(), *_fixed_ptrs(fa), ca, _ptr(b),
             _ptr(grad_b), *_fixed_ptrs(fb), cb, flow.data_ptr(),
-            _ptr(gflow), mx.data_ptr(), n, h, w, _DTYPES[a.dtype],
-            _stream(a))
+            _ptr(gflow), state.data_ptr(), ws.data_ptr(), n, h, w,
+            _DTYPES[a.dtype], _stream(a))
         _raise_on(err, "flow_warp_backward_fixed")
         flow_warp_backward.launches += 1
         flow_warp_backward.fixed_launches += 1
@@ -476,6 +497,195 @@ def flow_warp_backward_plain(flow, a, grad_a, b=None, grad_b=None):
         got = torch.autograd.grad(out, [fl, *srcs],
                                   torch.cat(grads, dim=-1).to(out.dtype))
     return got[0], got[1], got[2] if b is not None else None
+
+
+# The fixed-order variant's plain version.  Each tap's value v (a source
+# gradient's contribution) is the integer round(v * 2^s), summed exactly
+# by an int64 index_add_, whose sum does not depend on the order; the sum
+# is then converted once, as `csrc/warp_grad.cu` `fixed_finish_kernel`
+# does.  The kernels' source gradients are these bits.
+
+_NONFINITE = (("pos_inf", math.inf), ("neg_inf", -math.inf),
+              ("nan", math.nan))
+
+
+def _finite_absmax(t) -> float:
+    """The largest finite |t| (0 for none), as the kernels' max reduction
+    takes it."""
+    a = t.detach().float().abs()
+    a = a[torch.isfinite(a)]
+    return float(a.max()) if a.numel() else 0.0
+
+
+def fixed_exp(maxima, k: int) -> int:
+    """The scale exponent s of the fixed-order sums (`csrc/warp_grad.cu`
+    `fixed_exp`): k contributions of at most prod(maxima) each stay within
+    2^62 at the scale 2^s, s within f32's normal range."""
+    e = sum(math.frexp(m)[1] for m in maxima)
+    lk = max(int(k) - 1, 0).bit_length()  # ceil(log2 k)
+    return min(max(62 - lk - e, -126), 126)
+
+
+def _fixed_axis(f, pos, size: int):
+    """`csrc/warp_grad.cu` `axis` in f32: (i0, i1, frac) of clip(pos + f,
+    0, size - 1), a NaN sample at index 0 with a NaN weight."""
+    p = pos + f
+    p = torch.where(p < 0, p.new_zeros(()), p)
+    p = torch.where(p > size - 1, p.new_full((), float(size - 1)), p)
+    p0 = torch.floor(p)
+    i0 = torch.nan_to_num(p0, nan=0.0).to(torch.int64).clamp(0, size - 1)
+    return i0, (i0 + 1).clamp(max=size - 1), p - p0
+
+
+def _fixed_taps(fx, fy, h: int, w: int):
+    """The four taps of each sample of flows fx, fy (N, H, W[, U]): [(global
+    pixel index, row weight, column weight)] in the kernels' order (top
+    left, top right, bottom left, bottom right); the weights f32."""
+    lead = (1,) * (fx.dim() - 3)
+    pos_x = torch.arange(w, dtype=torch.float32,
+                         device=fx.device).reshape(1, 1, w, *lead)
+    pos_y = torch.arange(h, dtype=torch.float32,
+                         device=fx.device).reshape(1, h, 1, *lead)
+    x0, x1, wx = _fixed_axis(fx, pos_x, w)
+    y0, y1, wy = _fixed_axis(fy, pos_y, h)
+    img = torch.arange(fx.shape[0], device=fx.device).reshape(
+        -1, 1, 1, *lead) * h
+    ax, ay = 1.0 - wx, 1.0 - wy
+    r0, r1 = (img + y0) * w, (img + y1) * w
+    return [(r0 + x0, ay, ax), (r0 + x1, ay, wx), (r1 + x0, wy, ax),
+            (r1 + x1, wy, wx)]
+
+
+def fixed_total(contribs, shape, s: int, dtype, order=None):
+    """The fixed-order sum of `contribs` (an iterable of (values f32,
+    element indices int64), flat indices into `shape`) at scale 2^s, in
+    `dtype`: finite values as round(v * 2^s) summed in int64 and rounded
+    once (bf16: to f32 toward zero with the lowest bit set where inexact,
+    then to bf16); an element with a non-finite contribution takes their
+    f32 sum (NaN where a NaN or both infinities came).  `order`, a
+    permutation of all the contributions (for the tests; it concatenates
+    them first), changes nothing."""
+    if order is not None:
+        pieces = list(contribs)
+        vals = torch.cat([v.reshape(-1) for v, _ in pieces])[order]
+        idx = torch.cat([i.reshape(-1) for _, i in pieces])[order]
+        contribs = [(vals, idx)]
+    n = math.prod(shape)
+    q = counts = None
+    for vals, idx in contribs:
+        vals, idx = vals.reshape(-1), idx.reshape(-1)
+        if q is None:
+            q = torch.zeros(n, dtype=torch.int64, device=vals.device)
+            counts = {name: torch.zeros(n, dtype=torch.int64,
+                                        device=vals.device)
+                      for name, _ in _NONFINITE}
+        fin = torch.isfinite(vals)
+        q.index_add_(0, idx[fin], torch.round(vals[fin] * 2.0 ** s)
+                     .to(torch.int64))
+        if not bool(fin.all()):
+            for name, value in _NONFINITE:
+                hit = torch.isnan(vals) if math.isnan(value) else \
+                    vals == value
+                counts[name].index_add_(0, idx[hit], torch.ones_like(idx[hit]))
+    seen = {name: c > 0 for name, c in counts.items()}
+    inv = 2.0 ** -s
+    f = q.to(torch.float32)
+    if dtype == torch.bfloat16:
+        # round to odd: toward zero, the lowest bit set where inexact
+        away = f.to(torch.int64).abs() > q.abs()
+        f = torch.where(away, torch.nextafter(f, torch.zeros_like(f)), f)
+        inexact = f.to(torch.int64) != q
+        f = torch.where(inexact, (f.view(torch.int32) | 1).view(
+            torch.float32), f)
+    out = (f * inv).to(dtype)
+    nan = seen["nan"] | (seen["pos_inf"] & seen["neg_inf"])
+    for hit, value in ((seen["pos_inf"], math.inf),
+                       (seen["neg_inf"], -math.inf), (nan, math.nan)):
+        # the value made in `dtype` (NaN 0x7fc00000, bf16 0x7fc0)
+        out = torch.where(hit, torch.tensor(value, dtype=dtype,
+                                            device=out.device), out)
+    return out.reshape(shape)
+
+
+def _flow_fixed_contribs(flow, x, g):
+    """The pair's fixed-order contributions of one source x (N, H, W, c)
+    with output gradient g: (values, element indices) a tap, in the
+    kernels' order."""
+    n, h, w, _ = flow.shape
+    c = x.shape[-1]
+    g = g.float()
+    chans = torch.arange(c, device=g.device)
+    rows = {}
+    for pix, wrow, wcol in _fixed_taps(flow[..., 0].float(),
+                                       flow[..., 1].float(), h, w):
+        if id(wrow) not in rows:  # g * (1 - wy) and g * wy, as the kernel
+            rows[id(wrow)] = g * wrow[..., None]
+        yield rows[id(wrow)] * wcol[..., None], pix[..., None] * c + chans
+
+
+def flow_warp_backward_fixed_plain(flow, a, grad_a, b=None, grad_b=None,
+                                   need_a=True, need_b=True):
+    """The plain version of `lssvc_flow_warp_backward_fixed`: (grad_flow,
+    grad_a, grad_b).  The source gradients are the kernel's bits: each
+    tap's value g * (1 - wy or wy) * (1 - wx or wx) in f32, as round(v *
+    2^s) summed in int64 and rounded once, s from the largest finite
+    output gradient of a source that takes a gradient and h * w
+    contributions at most (`fixed_exp`).  The flow gradient is plain
+    autograd's (the kernel's is its own f32 sum over the channels, held to
+    it within the default path's bounds)."""
+    gflow = flow_warp_backward_plain(flow, a, grad_a, b, grad_b)[0]
+    need_b = need_b and b is not None
+    srcs = [(a, grad_a) if need_a else None, (b, grad_b) if need_b else None]
+    grads = [g for g, nd in ((grad_a, need_a), (grad_b, need_b)) if nd]
+    if not grads:
+        return gflow, None, None
+    n, h, w, _ = flow.shape
+    s = fixed_exp([max(_finite_absmax(g) for g in grads)], h * w)
+    out = [None if src is None else
+           fixed_total(_flow_fixed_contribs(flow, *src), src[0].shape, s,
+                       src[0].dtype)
+           for src in srcs]
+    return gflow, out[0], out[1]
+
+
+def grouped_fixed_contribs(x, flow_x, flow_y, mask, group_num, grad):
+    """The fixed-order contributions of the grouped warp's source: (values,
+    element indices) a tap, unit j's tap values g_kj * mask_j * (1 - wy or wy)
+    * (1 - wx or wx) of source channel (j % group_num) * cg + k."""
+    n, h, w, c_src = x.shape
+    go = flow_x.shape[-1]
+    cg = c_src // group_num
+    taps = _fixed_taps(flow_x.float(), flow_y.float(), h, w)
+    # channel k * go + j of the block layout
+    gm = grad.float().reshape(n, h, w, cg, go) * mask.float()[..., None, :]
+    chan = ((torch.arange(go, device=x.device) % group_num) * cg)[None, :] \
+        + torch.arange(cg, device=x.device)[:, None]  # (cg, go)
+    rows = {}
+    for pix, wrow, wcol in taps:
+        if id(wrow) not in rows:
+            rows[id(wrow)] = gm * wrow[..., None, :]
+        yield (rows[id(wrow)] * wcol[..., None, :],
+               pix[..., None, :] * c_src + chan)
+
+
+def grouped_warp_backward_fixed_plain(x, flow_x, flow_y, mask, group_num,
+                                      grad):
+    """The plain version of `lssvc_grouped_warp_backward_fixed`: (grad_x,
+    grad_flow_x, grad_flow_y, grad_mask).  grad_x is the kernel's bits:
+    each tap's value in f32 as round(v * 2^s) summed in int64 and rounded
+    once, s from the largest finite |grad| and |mask| and h * w *
+    ceil(go / group_num) contributions at most.  The flow and mask
+    gradients are plain autograd's."""
+    _, gfx, gfy, gm = grouped_warp_backward_plain(x, flow_x, flow_y, mask,
+                                                  group_num, grad)
+    n, h, w, _ = x.shape
+    go = flow_x.shape[-1]
+    s = fixed_exp([_finite_absmax(grad), _finite_absmax(mask)],
+                  h * w * -(-go // group_num))
+    gx = fixed_total(grouped_fixed_contribs(x, flow_x, flow_y, mask,
+                                            group_num, grad),
+                     x.shape, s, x.dtype)
+    return gx, gfx, gfy, gm
 
 
 def grouped_warp_backward(x, flow_x, flow_y, mask, group_num, grad,

@@ -11,11 +11,13 @@ While open, `OpDigests` wraps the public ops that the models import
 (convs, GDN, pools, resizes, the warps, OffsetDiversity's fusion product)
 in every module of the package that imported them, and records, for each
 outermost call in order, the op's name, its tensor arguments' shapes and a
-digest of each output: the float64 sum and sum of squares of each row (H)
-of an NHWC tensor.  A strip's digests are its own rows, a whole level's
+digest of each output: of each row (H) of an NHWC tensor, the integer sum
+and sum of squares of its values' bits (exact, so equal bits give equal
+digests in a tensor of any shape) and the float64 sum and sum of squares
+(the size of a difference).  A strip's digests are its own rows, a whole level's
 all of them, so the ranks' digests concatenated along H are the frame's.
 The digests are a diagnostic: two outputs with equal digests are taken as
-equal (a last-bit change moves a row's float64 sum), and the first op that
+equal (a last-bit change moves a row's bit sums), and the first op that
 differs names the computation whose result depends on the strip.
 """
 
@@ -38,14 +40,28 @@ OPS = (nn.conv2d, nn.conv_transpose2d, nn.gdn, nn.matmul_f32out,
 
 
 def digest(t: torch.Tensor):
-    """(whole level?, (2, H) float64: each row's sum and sum of squares);
-    a tensor of another rank one (1, 1) sum."""
+    """(whole level?, (2, H) float64: each row's sum and sum of squares,
+    (2, H) int64: each row's sum and wrapped sum of squares of its values'
+    bits); a tensor of another rank one (1, 1) sum and (2, 1) bits.  The
+    integer sums are exact, so a row's bits give the same digest in a
+    strip and in the frame, where a float64 sum's order (and its last bit)
+    may depend on the tensor's shape."""
     whole = strips.is_whole(t)
-    d = strips.plain(t).detach().double()
+    d = strips.plain(t).detach()
+    bits = d.contiguous()
+    if bits.is_floating_point():
+        bits = bits.view({8: torch.int64, 4: torch.int32,
+                          2: torch.int16}[bits.element_size()])
+    bits = bits.long()
+    d = d.double()
     if d.dim() != 4:
-        return True, d.reshape(1, -1).sum(1, keepdim=True).cpu()
-    return whole, torch.stack([d.sum(dim=(0, 2, 3)),
-                               (d * d).sum(dim=(0, 2, 3))]).cpu()
+        return (True, d.reshape(1, -1).sum(1, keepdim=True).cpu(),
+                torch.stack([bits.sum(), (bits * bits).sum()])[:, None]
+                .cpu())
+    dims = (0, 2, 3)
+    return whole, torch.stack([d.sum(dim=dims), (d * d).sum(dim=dims)]) \
+        .cpu(), torch.stack([bits.sum(dim=dims),
+                             (bits * bits).sum(dim=dims)]).cpu()
 
 
 class OpDigests:
@@ -108,11 +124,12 @@ def first_differences(ref, ranks, limit=4):
         if any(r[i][0] != name for r in ranks):
             return found + [{"error": f"op {i}: {name} against "
                                       f"{[r[i][0] for r in ranks]}"}]
-        for j, (_, want) in enumerate(outs):
+        for j, (_, want, want_bits) in enumerate(outs):
             parts = [r[i][2][j] for r in ranks]
-            got = parts[0][1] if parts[0][0] else torch.cat(
-                [p[1] for p in parts], dim=1)
-            if got.shape == want.shape and torch.equal(got, want):
+            got, got_bits = (parts[0][1:] if parts[0][0] else (
+                torch.cat([p[k] for p in parts], dim=1) for k in (1, 2)))
+            if got_bits.shape == want_bits.shape and \
+                    torch.equal(got_bits, want_bits):
                 continue
             entry = {"op": i, "name": name, "shapes": shapes,
                      "rank_shapes": ranks[0][i][1], "output": j}

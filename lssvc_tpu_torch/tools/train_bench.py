@@ -1,7 +1,7 @@
 """Time the trainer's step on the card and break it down.
 
     python -m lssvc_tpu_torch.tools.train_bench [--loss pair] [--crop 256]
-        [--batch 1] [--precision high] [--steps 6]
+        [--batch 1] [--precision high] [--steps 6] [--deterministic]
 
 One JSON line: the card, s a step and frames/s over the steps after a
 warm-up one (the CLI's synthetic batches, drawn and moved to the card
@@ -12,12 +12,16 @@ each timed on the host clock between synchronisations, the peak GiB, and
 a profile of one more step (`torch.profiler`): the device's kernel time,
 its share of the step's wall time, the kernel launches, and the ten
 kernels with the most device time, the warps' backward kernels among
-them.
+them.  `--deterministic` runs every step under
+`torch.use_deterministic_algorithms(True)` (`tools/warp_bench.py`
+`deterministic`, which also sets cuBLAS's workspace): the backward
+wrappers' fixed-order variants, reproducible training's cost.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 
@@ -28,6 +32,7 @@ from ..ops.nn import Mode, precision_scope
 from ..parallel import train as ptrain
 from ..train import SyntheticPairs, make_batch
 from .timing import card, require_cuda
+from .warp_bench import deterministic
 
 
 def parse_args(argv=None):
@@ -40,12 +45,19 @@ def parse_args(argv=None):
     p.add_argument("--frames", type=int, default=3,
                    help="chain length for --loss cascade")
     p.add_argument("--steps", type=int, default=6)
+    p.add_argument("--deterministic", action="store_true",
+                   help="under torch.use_deterministic_algorithms(True)")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
     dev = require_cuda()
+    with deterministic() if args.deterministic else contextlib.nullcontext():
+        run(args, dev)
+
+
+def run(args, dev):
     gen = torch.Generator().manual_seed(0)
     init = init_intra_ss if args.loss == "intra" else init_lssvc
     params = {k: v.to(dev) for k, v in init(gen).items()}
@@ -95,6 +107,7 @@ def main(argv=None):
     print(json.dumps({
         "card": card(), "loss": args.loss, "crop": args.crop,
         "batch": args.batch, "precision": args.precision, "steps": n,
+        "deterministic": args.deterministic,
         "s_per_step": s_step, "frames_per_s": args.batch * fpi / s_step,
         "split_s": {"batch": sum(s[0] for s in split) / n,
                     "forward_backward": sum(s[1] for s in split) / n,

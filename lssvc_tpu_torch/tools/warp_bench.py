@@ -44,7 +44,9 @@ the kernel, the fixed-order variant that
 `torch.use_deterministic_algorithms(True)` selects (its wrapper call and
 its C entry point, where the tree has one), and unless
 `--kernel-only` the plain autograd's backward and, for the pair,
-`F.grid_sample`'s backward.  It calls only the two public wrappers, so
+`F.grid_sample`'s backward, also under the deterministic flag
+(`fixed_library`: its ms, or the error PyTorch raises there).  It calls
+only the two public wrappers, so
 
     PYTHONPATH=<older tree> python lssvc_tpu_torch/tools/warp_bench.py \
         --backward --kernel-only
@@ -268,11 +270,29 @@ def backward_inputs(gen, kind, shape, flows, dtype):
             (fx.contiguous(), fy.contiguous(), mask), [grad])
 
 
+def _library_backward(srcs, flow, grads):
+    """F.grid_sample's backward on the pair's concat (bilinear, border,
+    align_corners: the library call's yardstick, which differs from JAX at
+    the clip's ties), as a call to time."""
+    x = torch.cat(srcs, -1).permute(0, 3, 1, 2).detach().requires_grad_()
+    _, h, w, _ = flow.shape
+    iy = torch.arange(h, device=flow.device,
+                      dtype=torch.float32)[None, :, None]
+    ix = torch.arange(w, device=flow.device,
+                      dtype=torch.float32)[None, None, :]
+    grid = torch.stack([(ix + flow[..., 0]) / ((w - 1) / 2) - 1,
+                        (iy + flow[..., 1]) / ((h - 1) / 2) - 1], -1) \
+        .to(x.dtype).requires_grad_()
+    with torch.enable_grad():
+        out = F.grid_sample(x, grid, mode="bilinear", padding_mode="border",
+                            align_corners=True)
+    gl = torch.cat(grads, -1).permute(0, 3, 1, 2)
+    return lambda: torch.autograd.grad(out, (x, grid), gl, retain_graph=True)
+
+
 def _plain_and_library_ms(kind, shape, srcs, flow, grads):
     """The plain autograd's backward (its graph built once) and, for the
-    pair, F.grid_sample's backward (bilinear, border, align_corners: the
-    library call's yardstick, which differs from JAX at the clip's
-    ties)."""
+    pair, F.grid_sample's backward (`_library_backward`)."""
     from lssvc_tpu_torch.ops import warp as plain
 
     with torch.enable_grad():
@@ -289,24 +309,23 @@ def _plain_and_library_ms(kind, shape, srcs, flow, grads):
         plain_ms = time_ms(lambda: torch.autograd.grad(
             out, ins, g, retain_graph=True), iters=5, warmup=1)
         del out
-        if kind != "flow_warp_backward":
-            return plain_ms, None
-        x = torch.cat(srcs, -1).permute(0, 3, 1, 2).detach() \
-            .requires_grad_()
-        _, h, w, _ = flow.shape
-        iy = torch.arange(h, device=flow.device,
-                          dtype=torch.float32)[None, :, None]
-        ix = torch.arange(w, device=flow.device,
-                          dtype=torch.float32)[None, None, :]
-        grid = torch.stack([(ix + flow[..., 0]) / ((w - 1) / 2) - 1,
-                            (iy + flow[..., 1]) / ((h - 1) / 2) - 1], -1) \
-            .to(x.dtype).requires_grad_()
-        lib_out = F.grid_sample(x, grid, mode="bilinear",
-                                padding_mode="border", align_corners=True)
-        gl = g.permute(0, 3, 1, 2)
-        library_ms = time_ms(lambda: torch.autograd.grad(
-            lib_out, (x, grid), gl, retain_graph=True), iters=10)
-    return plain_ms, library_ms
+    if kind != "flow_warp_backward":
+        return plain_ms, None
+    return plain_ms, time_ms(_library_backward(srcs, flow, grads), iters=10)
+
+
+def fixed_library(kind, srcs, flow, grads):
+    """The one PyTorch call for the fixed-order variant's function, under
+    the deterministic flag: F.grid_sample's backward for the pair (its ms,
+    or the first line of the error PyTorch raises), None for the grouped
+    warp, which no PyTorch call computes."""
+    if kind != "flow_warp_backward":
+        return None
+    try:
+        with deterministic():
+            return time_ms(_library_backward(srcs, flow, grads), iters=10)
+    except RuntimeError as e:
+        return str(e).splitlines()[0]
 
 
 def kernel_ms(kind, shape, srcs, flow, grads):
@@ -376,11 +395,16 @@ def fixed_kernel_ms(kind, shape, srcs, flow, grads):
     n, h, w = shape[:3]
     if kind == "flow_warp_backward":
         gflow = torch.empty((n, h, w, 2), dtype=torch.float32, device=dev)
+        pair = getattr(wk, "_pair_fixed_buffers", None)
+        # a tree whose pair takes a state and a workspace (the tiles' slots)
+        extra = (() if pair is None else
+                 pair(srcs[0], srcs[1], True, True)[2:])
         args = (srcs[0].data_ptr(), grads[0].data_ptr(),
                 *wk._fixed_ptrs(sums[0]), shape[3], srcs[1].data_ptr(),
                 grads[1].data_ptr(), *wk._fixed_ptrs(sums[1]), shape[4],
-                flow.data_ptr(), gflow.data_ptr(), mx.data_ptr(), n, h, w,
-                dtype, stream)
+                flow.data_ptr(), gflow.data_ptr(),
+                *([mx.data_ptr()] if pair is None else
+                  [t.data_ptr() for t in extra]), n, h, w, dtype, stream)
         fn = lib.lssvc_flow_warp_backward_fixed
     else:
         outs = [torch.empty(flow[0].shape, dtype=torch.float32, device=dev)
@@ -439,6 +463,9 @@ def backward_run(dev, kernel_only=False):
                         row["fixed_ms"] = time_ms(kernel)
                     row["fixed_kernel_ms"] = fixed_kernel_ms(
                         kind, shape, srcs, flow, grads)
+                if fixed and not kernel_only:
+                    row["fixed_library"] = fixed_library(kind, srcs, flow,
+                                                         grads)
                 if not kernel_only:
                     row["plain_ms"], row["library_ms"] = \
                         _plain_and_library_ms(kind, shape, srcs, flow, grads)

@@ -1071,48 +1071,106 @@ def _same_bits(a, b):
                                               b.contiguous().view(view))
 
 
+def _fixed_flows(shape, seed, flows, dev):
+    """Flows of a fixed-order case: "smooth" a 12 px field over 8-pixel
+    cells (the tiles' boxes fit), "random" +-6 px a pixel, "past" up to
+    three widths past the borders (every tap on an edge pixel, no box
+    fits), "nan" random with a tenth NaN (their taps at pixel 0),
+    "smooth40" a 12 px field plus each unit's own 40 px smooth offset (the
+    trainer's uncapped OffsetDiversity range)."""
+    n, h, w, c = shape
+    rng = np.random.default_rng(seed)
+
+    def smooth(amp, ch):
+        coarse = rng.uniform(-amp, amp, (n, h // 8 + 2, w // 8 + 2, ch))
+        return coarse[:, np.arange(h) // 8][:, :, np.arange(w) // 8]
+
+    if flows == "smooth":
+        f = smooth(12.0, c)
+    elif flows == "smooth40":
+        f = smooth(12.0, 1) + smooth(40.0, c)
+    elif flows == "past":
+        f = rng.uniform(-3 * w, 3 * w, shape)
+    else:
+        f = rng.uniform(-6, 6, shape)
+        if flows == "nan":
+            f[rng.random(shape) < 0.1] = np.nan
+    return torch.from_numpy(f.astype(np.float32)).to(dev)
+
+
+def _fixed_check(got, again, plain, auto, dtype, src):
+    """The fixed-order variant's gradients: every one bit-equal across two
+    launches and within the default path's bounds of plain autograd
+    (`auto`), NaN in its places; the source gradients (positions `src`)
+    bit-equal to the plain fixed-order version (`plain`)."""
+    for x, y in zip(got, again):
+        assert (x is None and y is None) or _same_bits(x, y)
+    for i in src:
+        assert (got[i] is None and plain[i] is None) or \
+            _same_bits(got[i], plain[i]), i
+    for i, (x, r) in enumerate(zip(got, auto)):
+        if x is None:
+            assert r is None
+            continue
+        nan = torch.isnan(r)
+        assert torch.equal(torch.isnan(x), nan), i
+        _grad_tol(x.masked_fill(nan, 0), r.masked_fill(nan, 0),
+                  dtype if x.dtype == dtype else torch.float32)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("flows", ["random", "past"])
+@pytest.mark.parametrize("flows", ["smooth", "random", "past", "nan"])
 def test_fixed_order_flow_warp_backward(dev, dtype, flows):
-    """Under the deterministic flag: one launch of the fixed-order variant, its
-    gradients within the default path's bounds of the plain autograd
-    (`_grad_tol`) and bit-equal across two launches."""
+    """Under the deterministic flag: one launch of the fixed-order variant
+    a call at batch 2 and an unaligned width (53); its source gradients
+    bit-equal to `flow_warp_backward_fixed_plain` (each tap's value as
+    round(v 2^s) summed in int64) and across two launches, its flow
+    gradient and its source gradients within the default path's bounds of
+    plain autograd; also a call whose first source takes no gradient."""
     n, h, w = 2, 37, 53
     a = _uniform((n, h, w, 3), 21, 0, 1, dev, dtype)
     b = _uniform((n, h, w, 48), 22, 0, 1, dev, dtype)
-    span = 6 if flows == "random" else 3 * w  # "past": taps on the borders
-    flow = _uniform((n, h, w, 2), 23, -span, span, dev)
+    flow = _fixed_flows((n, h, w, 2), 23, flows, dev)
     g_a = _uniform((n, h, w, 3), 24, -1, 1, dev, dtype)
     g_b = _uniform((n, h, w, 48), 25, -1, 1, dev, dtype)
-    before = wk.flow_warp_backward.fixed_launches
-    with deterministic():
-        got = wk.flow_warp_backward(flow, a, g_a, b, g_b)
-        again = wk.flow_warp_backward(flow, a, g_a, b, g_b)
-    assert wk.flow_warp_backward.fixed_launches == before + 2
-    ref = wk.flow_warp_backward_plain(flow, a, g_a, b, g_b)
-    for x, y, z in zip(got, again, ref):
-        assert _same_bits(x, y)
-        _grad_tol(x, z, dtype if x.dtype == dtype else torch.float32)
+    for need_a in (True, False):
+        before = wk.flow_warp_backward.fixed_launches
+        with deterministic():
+            got = wk.flow_warp_backward(flow, a, g_a, b, g_b, need_a=need_a)
+            again = wk.flow_warp_backward(flow, a, g_a, b, g_b,
+                                          need_a=need_a)
+        assert wk.flow_warp_backward.fixed_launches == before + 2
+        plain = wk.flow_warp_backward_fixed_plain(flow, a, g_a, b, g_b,
+                                                  need_a=need_a)
+        auto = list(wk.flow_warp_backward_plain(flow, a, g_a, b, g_b))
+        if not need_a:
+            auto[1] = None
+        _fixed_check(got, again, plain, auto, dtype, (1, 2))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("offset", [8.0, 40.0])
-def test_fixed_order_grouped_warp_backward(dev, dtype, offset):
-    n, h, w, c_src, go, gn = 2, 21, 35, 48, 32, 16
-    x = _uniform((n, h, w, c_src), 26, 0, 1, dev, dtype)
-    fx = _uniform((n, h, w, go), 27, -offset, offset, dev)
-    fy = _uniform((n, h, w, go), 28, -offset, offset, dev)
-    mask = _uniform((n, h, w, go), 29, 0, 1, dev)
-    g = _uniform((n, h, w, go * c_src // gn), 30, -1, 1, dev, dtype)
-    before = wk.grouped_warp_backward.fixed_launches
-    with deterministic():
-        got = wk.grouped_warp_backward(x, fx, fy, mask, gn, g)
-        again = wk.grouped_warp_backward(x, fx, fy, mask, gn, g)
-    assert wk.grouped_warp_backward.fixed_launches == before + 2
-    ref = wk.grouped_warp_backward_plain(x, fx, fy, mask, gn, g)
-    for u, v, r in zip(got, again, ref):
-        assert _same_bits(u, v)
-        _grad_tol(u, r, dtype if u.dtype == dtype else torch.float32)
+@pytest.mark.parametrize("flows", ["smooth", "smooth40", "random", "past",
+                                   "nan"])
+def test_fixed_order_grouped_warp_backward(dev, dtype, flows):
+    """The grouped warp's fixed-order variant at the model's shape (batch
+    2, an unaligned width 35) and at a generic one: x's gradient bit-equal
+    to `grouped_warp_backward_fixed_plain` and across two launches, every
+    gradient within the default path's bounds of plain autograd."""
+    for n, h, w, c_src, go, gn in ((2, 21, 35, 48, 32, 16),
+                                   (1, 17, 31, 12, 8, 4)):
+        x = _uniform((n, h, w, c_src), 26, 0, 1, dev, dtype)
+        fx = _fixed_flows((n, h, w, go), 27, flows, dev)
+        fy = _fixed_flows((n, h, w, go), 28, flows, dev)
+        mask = _uniform((n, h, w, go), 29, 0, 1, dev)
+        g = _uniform((n, h, w, go * c_src // gn), 30, -1, 1, dev, dtype)
+        before = wk.grouped_warp_backward.fixed_launches
+        with deterministic():
+            got = wk.grouped_warp_backward(x, fx, fy, mask, gn, g)
+            again = wk.grouped_warp_backward(x, fx, fy, mask, gn, g)
+        assert wk.grouped_warp_backward.fixed_launches == before + 2
+        plain = wk.grouped_warp_backward_fixed_plain(x, fx, fy, mask, gn, g)
+        auto = wk.grouped_warp_backward_plain(x, fx, fy, mask, gn, g)
+        _fixed_check(got, again, plain, auto, dtype, (0,))
 
 
 def test_train_step_is_reproducible_under_the_deterministic_flag(
@@ -1161,3 +1219,70 @@ def test_rows_matmul_strip_rows_equal_the_frame_rows(dev, precision):
             for lo, hi in ((0, 160), (128, 288), (37, 77)):
                 part = fn(x[:, lo:hi].contiguous())
                 assert torch.equal(part, whole[:, lo:hi]), (lo, hi)
+
+
+# ---------------------------------------------------------------------------
+# Convs on H-strips: each conv shape takes a route whose rows are the
+# frame's bits (`ops/strips.py` `conv2d`)
+
+def _strip_conv(monkeypatch, x, world, rank, fn):
+    """fn(x) as rank `rank` of `world` computes its strip's rows: the
+    spatial context set for the call, the rows the rank would fetch cut
+    from the whole frame (zero past it) in place of the exchange, and the
+    routes' probe agreed by this rank alone."""
+    from lssvc_tpu_torch.ops import spatial_ctx, strips
+
+    def fetch(t, span, fill=0.0):
+        a, b = span(rank)
+        full = strips.plain(t) if strips.is_whole(t) else x
+        rows = full[:, max(a, 0):min(b, full.shape[1])]
+        return torch.nn.functional.pad(
+            rows, (0, 0, 0, 0, max(-a, 0), max(b - full.shape[1], 0)),
+            value=fill)
+
+    monkeypatch.setattr(strips, "fetch_rows", fetch)
+    monkeypatch.setattr(strips, "gather_rows", lambda t: x)
+    monkeypatch.setattr(strips, "all_reduce", lambda t, op=None: t)
+    monkeypatch.setattr(spatial_ctx, "GROUP", object())
+    monkeypatch.setattr(spatial_ctx, "WORLD", world)
+    monkeypatch.setattr(spatial_ctx, "RANK", rank)
+    h = x.shape[1] // world
+    try:
+        return fn(x[:, rank * h:(rank + 1) * h].contiguous())
+    finally:
+        monkeypatch.setattr(spatial_ctx, "GROUP", None)
+
+
+@pytest.mark.parametrize("case", ["spynet_7x7", "el_3x3", "el_3x3_s2",
+                                  "el_deconv"])
+def test_strip_conv_rows_equal_the_frame_rows(dev, monkeypatch, case):
+    """On the card, in fp32, each rank's strip of a conv holds the frame's
+    conv rows bit for bit on 2 and 4 ranks: SpyNet's 7x7 64 -> 32 at the
+    BL's 1/8 level (1x72x120x64, 36-row strips on 2 ranks; the conv whose
+    strips cuDNN summed in another order than the frame), and a 1080p EL
+    level's 3x3 64 -> 64, strided 3x3 and transposed conv."""
+    shapes = {"spynet_7x7": ((1, 72, 120, 64), (32, 64, 7, 7)),
+              "el_3x3": ((1, 576, 960, 64), (64, 64, 3, 3)),
+              "el_3x3_s2": ((1, 576, 960, 64), (64, 64, 3, 3)),
+              "el_deconv": ((1, 288, 480, 64), (64, 64, 3, 3))}
+    xs, ws = shapes[case]
+    x = _uniform(xs, 41, -1, 1, dev)
+    w = _uniform(ws, 42, -1, 1, dev) / (ws[1] * ws[2] * ws[3]) ** 0.5
+    b = _uniform((ws[0],), 43, -0.1, 0.1, dev)
+    if case == "el_3x3_s2":
+        def fn(t):
+            return tnn.conv2d(t, w, b, stride=2)
+    elif case == "el_deconv":
+        def fn(t):
+            return tnn.conv_transpose2d(t, w, b)
+    else:
+        def fn(t):
+            return tnn.conv2d(t, w, b)
+    with tnn.precision_scope(tnn.Mode("fp32")):
+        whole = fn(x)
+        for world in (2, 4):
+            h = whole.shape[1] // world
+            for rank in range(world):
+                part = _strip_conv(monkeypatch, x, world, rank, fn)
+                assert torch.equal(part, whole[:, rank * h:(rank + 1) * h]), \
+                    (world, rank)

@@ -361,3 +361,122 @@ def strip_ops(rank, world, heights):
             out[f"{name}_h{h}"] = float((got - want).abs().max()) \
                 if got.shape == want.shape else float("inf")
     return out
+
+
+def strip_conv_bits(rank, world, heights, channels):
+    """The convs of the models on strips of frames `heights` rows tall:
+    {case: whether the gathered strips hold the whole frame's conv bit for
+    bit}.  A 3x3, a 7x7, a strided 3x3, a strided 1x1 without padding, a
+    depthwise 3x3 and both transposed convs, at `channels` channels, on a
+    frame 24 columns wide with values of a trained model's spread."""
+    from lssvc_tpu_torch.ops import nn, spatial_ctx, strips
+
+    gen = torch.Generator().manual_seed(100 + world)
+    c = channels
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen)
+
+    w1, w3, w7 = (rand(c, c, k, k) / k for k in (1, 3, 7))
+    wd, wt, b = rand(c, 1, 3, 3), rand(c, c, 3, 3) / 3, rand(c)
+    cases = {
+        "conv3x3": lambda t: nn.conv2d(t, w3, b),
+        "conv7x7": lambda t: nn.conv2d(t, w7, b),
+        "conv3x3_s2": lambda t: nn.conv2d(t, w3, b, stride=2),
+        "conv1x1_s2_pad0": lambda t: nn.conv2d(t, w1, None, stride=2,
+                                               padding=0),
+        "depthwise3x3": lambda t: nn.conv2d(t, wd, b, groups=c),
+        "deconv_s2": lambda t: nn.conv_transpose2d(t, wt, b),
+        "deconv_s1": lambda t: nn.conv_transpose2d(
+            t, wt, b, stride=1, padding=1, output_padding=0),
+    }
+    group = dist.group.WORLD
+    out = {}
+    for h in heights:
+        x = rand(1, h, 24, c)
+        for name, op in cases.items():
+            want = op(x)
+            with spatial_ctx.spatial(group):
+                got = strips.gather_rows(op(strip(x, rank, world)))
+            out[f"{name}_h{h}"] = got.shape == want.shape and \
+                torch.equal(got, want)
+    return out
+
+
+def _tiled_conv(t, w, b, stride, padding, groups):
+    """A conv whose rows also read their row in the call mod 4 (as a tiled
+    algorithm's do)."""
+    from lssvc_tpu_torch.ops import nn
+
+    out = nn._conv2d(t, w, b, stride, padding, groups)
+    ramp = (torch.arange(out.shape[1]) % 4).to(out.dtype)
+    return out + 1e-3 * ramp.view(1, -1, 1, 1)
+
+
+def _global_conv(t, w, b, stride, padding, groups):
+    """A conv whose rows also read every row of the call (as an FFT's
+    last bits do)."""
+    from lssvc_tpu_torch.ops import nn
+
+    return nn._conv2d(t, w, b, stride, padding, groups) + t.mean()
+
+
+def strip_conv_routes(rank, world, h):
+    """`strips.conv2d` of a 3x3 conv on strips of a frame `h` rows tall,
+    through three frame convs: the port's own, one whose rows read their
+    row in the call mod 4 and one whose rows read the whole call:
+    {name: (the route taken, whether the gathered strips hold the frame
+    conv's bits)}."""
+    from lssvc_tpu_torch.ops import nn, spatial_ctx, strips
+
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn((1, h, 10, 4), generator=gen)
+    w = torch.randn((4, 4, 3, 3), generator=gen)
+    out = {}
+    for name, conv in (("plain", nn._conv2d), ("tiled", _tiled_conv),
+                       ("global", _global_conv)):
+        want = conv(x, w, None, 1, (1, 1), 1)
+        strips.reset_route_calls()
+        with spatial_ctx.spatial(dist.group.WORLD):
+            got = strips.gather_rows(strips.conv2d(
+                strip(x, rank, world), w, None, 1, (1, 1), 1, conv, name))
+        calls = strips.route_counts()
+        route = [r for r in strips.ROUTES if calls[r]["calls"]]
+        out[name] = (route, got.shape == want.shape
+                     and torch.equal(got, want))
+    return out
+
+
+def spatial_digests(rank, world, params, x_bl, x_el, dpb, el_hw):
+    """One spatial P-frame on this rank's strips under
+    `tools/op_digests.py`: the records of every op and the gathered DPB."""
+    from lssvc_tpu_torch.parallel import spatial
+    from lssvc_tpu_torch.tools.op_digests import OpDigests
+
+    params = {k: torch.as_tensor(v) for k, v in params.items()}
+    group = dist.group.WORLD
+    fwd = spatial.make_spatial_forward(group, el_hw, 2.0, (0, 0, 0, 0),
+                                       kernel_warps=True)
+    sh = spatial.h_sharding(group)
+    with OpDigests() as rec:
+        out, bits = fwd(params, strip(x_bl, rank, world),
+                        strip(x_el, rank, world),
+                        {k: strip(v, rank, world) for k, v in dpb.items()})
+    return {"records": rec.records, "bits": float(bits),
+            "dpb": {k: sh.gather(v) for k, v in out.items()}}
+
+
+def frame_digests(rank, world, params, x_bl, x_el, dpb, el_hw):
+    """The unsharded P-frame of `spatial_digests` under
+    `tools/op_digests.py` (in a process with a rank's threads: the CPU's
+    convs split their sums by the thread count)."""
+    from lssvc_tpu_torch.models import lssvc as tl
+    from lssvc_tpu_torch.tools.op_digests import OpDigests
+
+    params = {k: torch.as_tensor(v) for k, v in params.items()}
+    with torch.no_grad(), OpDigests() as rec:
+        out = tl.forward_one_frame(params, x_bl, x_el,
+                                   *(dpb[k] for k in DPB_KEYS), el_hw, 2.0,
+                                   (0, 0, 0, 0))
+    return {"records": rec.records,
+            "bits": float(out["bit_bl"] + out["bit_el"]), "dpb": out["dpb"]}
