@@ -1,0 +1,3 @@
+"""`mfu.encode`: see `benchmark/lib/readers.py` `mfu`."""
+
+from benchmark.lib.readers import mfu as read  # noqa: F401
