@@ -26,6 +26,7 @@ import torch
 from ..convert import P
 from ..native import BufferedRansEncoder, RansDecoder, RansEncoder, \
     pmf_to_quantized_cdf
+from ..utils import spans
 from ..utils.checks import assert_finite_np
 from .models import (
     GAUSSIAN_SCALE_TABLE_IMG,
@@ -192,17 +193,34 @@ def build_entropy_bottleneck_table(params, prefix: str,
 # ---------------------------------------------------------------------------
 # symbol order: NHWC tensors <-> NCHW-flat host arrays
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """`t` as a host array; from the card, one copy that waits for the
+    card (the span `lssvc.wait.d2h`)."""
+    with spans.wait("lssvc.wait.d2h", t.is_cuda):
+        return t.cpu().numpy()
+
+
+def _to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on `device`.  To the card this is a copy from
+    pageable memory, after which PyTorch synchronises the stream: the host
+    waits there for every launch before it (the span `lssvc.wait.h2d`)."""
+    on_card = getattr(device, "type", device) != "cpu"
+    with spans.wait("lssvc.wait.h2d", on_card):
+        return t.to(device)
+
+
 def to_symbol_order(x: torch.Tensor) -> np.ndarray:
     """NHWC tensor of integer values (any device) -> flat NCHW-ordered
     int32 host array, in one device-to-host copy."""
-    return x.permute(0, 3, 1, 2).to(torch.int32).contiguous().cpu() \
-        .numpy().reshape(-1)
+    return _host(x.permute(0, 3, 1, 2).to(torch.int32).contiguous()) \
+        .reshape(-1)
 
 
 def from_symbol_order(flat: np.ndarray, shape_nhwc, device) -> torch.Tensor:
-    """Flat NCHW-ordered host array -> float32 NHWC tensor on `device`."""
+    """Flat NCHW-ordered host array -> float32 NHWC tensor on `device`
+    (to the card, a synchronising copy: `_to_device`)."""
     n, h, w, c = shape_nhwc
-    t = torch.from_numpy(flat).to(device).reshape(n, c, h, w)
+    t = _to_device(torch.from_numpy(flat), device).reshape(n, c, h, w)
     return t.permute(0, 2, 3, 1).float().contiguous()
 
 
@@ -219,16 +237,18 @@ class _StreamDecodeMixin:
     as float32 NHWC."""
 
     def factorized_symbols(self, shape_nhwc, table: CdfTable) -> np.ndarray:
-        return self.decoder.decode_stream(channel_indexes(shape_nhwc),
-                                          table.cdfs, table.sizes,
-                                          table.offsets)
+        with spans.span("lssvc.entropy.decode"):
+            return self.decoder.decode_stream(channel_indexes(shape_nhwc),
+                                              table.cdfs, table.sizes,
+                                              table.offsets)
 
     def gaussian_symbols(self, index_flat: np.ndarray) -> np.ndarray:
         """`index_flat`: the scale indexes in symbol order
         (`to_symbol_order`)."""
         table = self.gaussian_table
-        return self.decoder.decode_stream(index_flat, table.cdfs,
-                                          table.sizes, table.offsets)
+        with spans.span("lssvc.entropy.decode"):
+            return self.decoder.decode_stream(index_flat, table.cdfs,
+                                              table.sizes, table.offsets)
 
     def decode_factorized(self, shape_nhwc, table: CdfTable,
                           device) -> torch.Tensor:
@@ -312,60 +332,68 @@ class IntraCoder:
     # EntropyBottleneck ------------------------------------------------------
 
     def eb_compress(self, z_nhwc: torch.Tensor) -> list:
-        # f32 symbol boundary on the host: round(z - median) in numpy
-        # float32, which is IEEE as the device's subtract and round are
-        z = z_nhwc.detach().float().cpu().numpy()
-        assert_finite_np("EntropyBottleneck.compress", z=z)
-        symbols = np.round(z - self.medians).astype(np.int32)
-        return [self._encode(self.eb_table,
-                             symbols[i].transpose(2, 0, 1).reshape(-1),
-                             channel_indexes(z[i:i + 1].shape))
-                for i in range(z.shape[0])]
+        with spans.span("lssvc.entropy.encode"):
+            # f32 symbol boundary on the host: round(z - median) in numpy
+            # float32, which is IEEE as the device's subtract and round are
+            z = _host(z_nhwc.detach().float())
+            assert_finite_np("EntropyBottleneck.compress", z=z)
+            symbols = np.round(z - self.medians).astype(np.int32)
+            return [self._encode(self.eb_table,
+                                 symbols[i].transpose(2, 0, 1).reshape(-1),
+                                 channel_indexes(z[i:i + 1].shape))
+                    for i in range(z.shape[0])]
 
     def eb_decompress(self, strings, hw, device) -> torch.Tensor:
-        shape = (1, hw[0], hw[1], self.medians.size)
-        dec = RansDecoder()
-        outs = []
-        for s in strings:
-            dec.set_stream(s)
-            vals = dec.decode_stream(channel_indexes(shape),
-                                     self.eb_table.cdfs, self.eb_table.sizes,
-                                     self.eb_table.offsets)
-            outs.append(vals.reshape(shape[3], *hw).transpose(1, 2, 0))
-        # C-contiguous NHWC, as the encoder's tensors: a conv's algorithm,
-        # and so its last bits, can depend on its input's strides
-        out = np.ascontiguousarray(np.stack(outs), dtype=np.float32)
-        return torch.from_numpy(out + self.medians).to(device)
+        with spans.span("lssvc.entropy.decode"):
+            shape = (1, hw[0], hw[1], self.medians.size)
+            dec = RansDecoder()
+            outs = []
+            for s in strings:
+                dec.set_stream(s)
+                table = self.eb_table
+                vals = dec.decode_stream(channel_indexes(shape), table.cdfs,
+                                         table.sizes, table.offsets)
+                outs.append(vals.reshape(shape[3], *hw).transpose(1, 2, 0))
+            # C-contiguous NHWC, as the encoder's tensors: a conv's
+            # algorithm, and so its last bits, can depend on its input's
+            # strides
+            out = np.ascontiguousarray(np.stack(outs), dtype=np.float32)
+            return _to_device(torch.from_numpy(out + self.medians), device)
 
     # GaussianConditional ----------------------------------------------------
 
     def gc_compress(self, y_nhwc: torch.Tensor, index_nhwc: torch.Tensor,
                     means_nhwc: torch.Tensor) -> list:
-        # f32 symbol boundary on the host (see eb_compress): the same round
-        # as the closed loop's `intra_noar.y_roundtrip` on the device
-        y = y_nhwc.detach().float().cpu().numpy()
-        means = means_nhwc.detach().float().cpu().numpy()
-        assert_finite_np("GaussianConditional.compress", y=y, means=means)
-        symbols = np.round(y - means).astype(np.int32)
-        index = index_nhwc.cpu().numpy()
-        return [self._encode(self.gc_table,
-                             symbols[i].transpose(2, 0, 1).reshape(-1),
-                             index[i].transpose(2, 0, 1).reshape(-1))
-                for i in range(y.shape[0])]
+        with spans.span("lssvc.entropy.encode"):
+            # f32 symbol boundary on the host (see eb_compress): the same
+            # round as the closed loop's `intra_noar.y_roundtrip` on the
+            # device
+            y = _host(y_nhwc.detach().float())
+            means = _host(means_nhwc.detach().float())
+            assert_finite_np("GaussianConditional.compress", y=y,
+                             means=means)
+            symbols = np.round(y - means).astype(np.int32)
+            index = _host(index_nhwc)
+            return [self._encode(self.gc_table,
+                                 symbols[i].transpose(2, 0, 1).reshape(-1),
+                                 index[i].transpose(2, 0, 1).reshape(-1))
+                    for i in range(y.shape[0])]
 
     def gc_decompress(self, strings, index_nhwc: torch.Tensor,
                       means_nhwc: torch.Tensor) -> torch.Tensor:
-        index = index_nhwc.cpu().numpy()
-        dec = RansDecoder()
-        outs = []
-        for i, s in enumerate(strings):
-            dec.set_stream(s)
-            vals = dec.decode_stream(index[i].transpose(2, 0, 1).reshape(-1),
-                                     self.gc_table.cdfs, self.gc_table.sizes,
-                                     self.gc_table.offsets)
-            outs.append(vals.reshape(index.shape[3], *index.shape[1:3])
-                        .transpose(1, 2, 0))
-        # C-contiguous NHWC (see eb_decompress)
-        y_q = torch.from_numpy(np.ascontiguousarray(np.stack(outs),
-                                                    dtype=np.float32))
-        return y_q.to(means_nhwc.device) + means_nhwc
+        with spans.span("lssvc.entropy.decode"):
+            index = _host(index_nhwc)
+            dec = RansDecoder()
+            outs = []
+            for i, s in enumerate(strings):
+                dec.set_stream(s)
+                table = self.gc_table
+                vals = dec.decode_stream(
+                    index[i].transpose(2, 0, 1).reshape(-1), table.cdfs,
+                    table.sizes, table.offsets)
+                outs.append(vals.reshape(index.shape[3], *index.shape[1:3])
+                            .transpose(1, 2, 0))
+            # C-contiguous NHWC (see eb_decompress)
+            y_q = torch.from_numpy(np.ascontiguousarray(np.stack(outs),
+                                                        dtype=np.float32))
+            return _to_device(y_q, means_nhwc.device) + means_nhwc

@@ -26,6 +26,7 @@ import torch
 from ..convert import P
 from ..entropy.coder import VideoCoder
 from ..entropy.models import build_indexes_video
+from ..utils import spans
 from ..utils.checks import finite_flags, raise_if_nonfinite, sanitize_dpb
 from ..utils.stream import decode_p, encode_p, filesize, \
     get_downsampled_shape
@@ -140,64 +141,38 @@ def encode_device(params, x, ref_frame, ref_feature):
 def write_planes(coder, planes) -> bytes:
     """Host half: rANS-encode one BL frame's planes
     (`dmc_net_extend.py:87-92` order)."""
-    raise_if_nonfinite("DMC BL encode", planes["finite"])
-    coder.reset_encoder()
-    coder.encode_factorized(planes["mv_z_hat"], coder.z_mv_table)
-    coder.encode_gaussian(planes["mv_y_q"], planes["mv_idx"])
-    coder.encode_factorized(planes["z_hat"], coder.z_table)
-    coder.encode_gaussian(planes["y_q"], planes["y_idx"])
-    return coder.flush()
-
-
-class StageTimer:
-    """Wall-clock stage brackets for the decode-profiling dicts.  With
-    `profiling` None it does nothing; else each mark synchronises the
-    device first (`torch.cuda.synchronize`), so a stage's time is its
-    device work.  A mark may charge another layer's dict (`into`): the
-    two-layer decoder times both layers' stages on one timeline, and
-    `finish(other)` adds the frame's seconds to each dict's "overall"."""
-
-    def __init__(self, profiling: dict | None, device):
-        self.profiling = profiling
-        self.device = device
-        self.current = None
-        if profiling is not None:
-            self.t_start = self._now()
-
-    def _now(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def mark(self, key, into: dict | None = None):
-        if self.profiling is None:
-            return
-        now = self._now()
-        if self.current is not None:
-            target, name, since = self.current
-            target[name] += now - since
-        self.current = (self.profiling if into is None else into, key, now)
-
-    def finish(self, *others: dict):
-        if self.profiling is None:
-            return
-        self.mark(None)
-        for profiling in (self.profiling, *others):
-            profiling["overall"] += self.current[2] - self.t_start
-            profiling["frames"] += 1
+    with spans.span("lssvc.entropy.encode"):
+        raise_if_nonfinite("DMC BL encode", planes["finite"])
+        coder.reset_encoder()
+        coder.encode_factorized(planes["mv_z_hat"], coder.z_mv_table)
+        coder.encode_gaussian(planes["mv_y_q"], planes["mv_idx"])
+        coder.encode_factorized(planes["z_hat"], coder.z_table)
+        coder.encode_gaussian(planes["y_q"], planes["y_idx"])
+        return coder.flush()
 
 
 class DecodeProfilingMixin:
     """Per-stage decode wall-clock averages, the reference's
-    `--decoding_profiling` (`dmc_net_extend.py:19-47`).  Subclasses name
-    the stages their decoder's StageTimer fills in DECODING_STAGES."""
+    `--decoding_profiling` (`dmc_net_extend.py:19-47`), folded from the
+    decoder's spans: each stage in DECODING_STAGES is a span named
+    SPAN_PREFIX + stage inside the frame's `lssvc.p.decode` span
+    (`DecodeFrame`).  The stages follow one another and hold all of the
+    decoder's work between the first and the last, so they sum to
+    "overall", the seconds from the first stage's start to the last
+    one's end (less the microseconds of Python between two spans).  With
+    `profile_decoding` set, each stage is bracketed by device
+    synchronizes, so its time is its device work; without it, nothing
+    synchronises."""
 
     DECODING_STAGES: tuple = ()
+    SPAN_PREFIX = ""
 
     def _init_decoding_profiling(self):
         self.profile_decoding = False
         self.decoding_profiling = {
             k: 0 for k in ("frames", "overall", *self.DECODING_STAGES)}
+        self.stage_spans = {k: self.SPAN_PREFIX + k
+                            for k in self.DECODING_STAGES}
 
     def reset_decoding_profiling(self):
         for k in self.decoding_profiling:
@@ -208,9 +183,65 @@ class DecodeProfilingMixin:
         return {k: (v if k == "frames" else v / frames)
                 for k, v in self.decoding_profiling.items()}
 
-    def _stage_timer(self) -> StageTimer:
-        return StageTimer(self.decoding_profiling if self.profile_decoding
-                          else None, self.device)
+
+class _Synced:
+    """A span bracketed by device synchronizes."""
+
+    def __init__(self, span, device):
+        self.span, self.device = span, device
+
+    def __enter__(self):
+        _sync(self.device)
+        return self.span.__enter__()
+
+    def __exit__(self, *exc):
+        _sync(self.device)
+        return self.span.__exit__(*exc)
+
+
+class DecodeFrame:
+    """The spans of one decoded P-frame: the frame span `lssvc.p.decode`
+    and, through `stage(layer, key)`, each layer's stage spans.  `layers`
+    (DecodeProfilingMixin models) are the layers the frame decodes; the
+    first one's `profile_decoding` turns the profiling on: then each stage
+    is a span kept here, bracketed by device synchronizes, and at the
+    frame's end each layer's dict gets its stages' seconds, the stages'
+    extent ("overall") and one frame."""
+
+    def __init__(self, *layers):
+        self.layers = layers
+        self.device = layers[0].device if layers[0].profile_decoding \
+            else None
+        self.stages = []  # (layer, key, span) while profiling
+        self.frame = spans.frame("lssvc.p.decode")
+
+    def __enter__(self):
+        self.frame.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.frame.__exit__(*exc)
+        if self.stages and exc[0] is None:
+            self._fold()
+        return False
+
+    def stage(self, layer, key):
+        if self.device is None:
+            return spans.span(layer.stage_spans[key])
+        span = spans.Span(layer.stage_spans[key])
+        self.stages.append((layer, key, span))
+        return _Synced(span, self.device)
+
+    def _fold(self):
+        overall = (self.stages[-1][2].end_ns
+                   - self.stages[0][2].start_ns) * 1e-9
+        for layer in self.layers:
+            prof = layer.decoding_profiling
+            for owner, key, span in self.stages:
+                if owner is layer:
+                    prof[key] += span.seconds
+            prof["overall"] += overall
+            prof["frames"] += 1
 
 
 def _sync(device):
@@ -222,6 +253,8 @@ class DMCExtend(DecodeProfilingMixin, DMC):
     """The base layer with real bitstreams (`dmc_net_extend.py`)."""
 
     # the stages dmc_stream's decoder times, as the JAX package names them
+    # (spans SPAN_PREFIX + stage)
+    SPAN_PREFIX = "lssvc.p.decode.bl."
     DECODING_STAGES = (
         "entropy_dec_mv_z", "mv_y_prior_dec", "entropy_dec_mv_y", "mv_dec",
         "motion_compensation_ctx_refine", "entropy_dec_z", "y_prior",
@@ -255,31 +288,32 @@ class DMCExtend(DecodeProfilingMixin, DMC):
         dpb = sanitize_dpb(dpb)
         p = P(self.flat_params())
         coder = self._coder
-        timer = self._stage_timer()
-        coder.set_stream(string)
         z_shape = (1, *get_downsampled_shape(height, width, 64),
                    self.channel_N)
-
-        timer.mark("entropy_dec_mv_z")
-        mv_z = coder.decode_factorized(z_shape, coder.z_mv_table, self.device)
-        timer.mark("mv_y_prior_dec")
-        mv_idx, mv_means = dec_mv_prior(p, mv_z)
-        timer.mark("entropy_dec_mv_y")
-        mv_y_q = coder.decode_gaussian(mv_idx)
-        timer.mark("mv_dec")
-        mv_hat = dec_mv(p, mv_y_q, mv_means)
-        timer.mark("motion_compensation_ctx_refine")
-        c1, c2, c3 = dec_contexts(p, mv_hat, dpb["ref_frame_bl"],
-                                  dpb["ref_feature_bl"])
-        timer.mark("entropy_dec_z")
-        z = coder.decode_factorized(z_shape, coder.z_table, self.device)
-        timer.mark("y_prior")
-        y_idx, y_means = dec_y_prior(p, z, c1, c2, c3)
-        timer.mark("entropy_dec_y")
-        y_q = coder.decode_gaussian(y_idx)
-        timer.mark("res_dec")
-        recon, feature, y_hat = dec_recon(p, y_q, y_means, c1, c2, c3)
-        timer.finish()
+        with DecodeFrame(self) as frame:
+            with frame.stage(self, "entropy_dec_mv_z"):
+                coder.set_stream(string)
+                mv_z = coder.decode_factorized(z_shape, coder.z_mv_table,
+                                               self.device)
+            with frame.stage(self, "mv_y_prior_dec"):
+                mv_idx, mv_means = dec_mv_prior(p, mv_z)
+            with frame.stage(self, "entropy_dec_mv_y"):
+                mv_y_q = coder.decode_gaussian(mv_idx)
+            with frame.stage(self, "mv_dec"):
+                mv_hat = dec_mv(p, mv_y_q, mv_means)
+            with frame.stage(self, "motion_compensation_ctx_refine"):
+                c1, c2, c3 = dec_contexts(p, mv_hat, dpb["ref_frame_bl"],
+                                          dpb["ref_feature_bl"])
+            with frame.stage(self, "entropy_dec_z"):
+                z = coder.decode_factorized(z_shape, coder.z_table,
+                                            self.device)
+            with frame.stage(self, "y_prior"):
+                y_idx, y_means = dec_y_prior(p, z, c1, c2, c3)
+            with frame.stage(self, "entropy_dec_y"):
+                y_q = coder.decode_gaussian(y_idx)
+            with frame.stage(self, "res_dec"):
+                recon, feature, y_hat = dec_recon(p, y_q, y_means, c1, c2,
+                                                  c3)
         return {"dpb": {"ref_frame_bl": recon, "ref_feature_bl": feature,
                         "y_hat_bl": y_hat, "mv_hat_bl": mv_hat}}
 

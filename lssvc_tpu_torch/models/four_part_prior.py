@@ -15,6 +15,7 @@ import torch
 
 from ..ops import ste_round
 from ..ops.strips import row_offset
+from ..utils import spans
 from .components import cat, conv, depth_conv_block
 
 PASS_MASKS = ((0, 1, 2, 3), (3, 2, 1, 0), (2, 3, 0, 1), (1, 0, 3, 2))
@@ -22,13 +23,17 @@ PASS_MASKS = ((0, 1, 2, 3), (3, 2, 1, 0), (2, 3, 0, 1), (1, 0, 3, 2))
 
 def checkerboard_masks(h: int, w: int, device, row0: int = 0):
     """Four (1,H,W,1) quad-phase masks: mask k selects (row%2, col%2) phase;
-    `row0` is the first row's global index (a strip's offset on H-strips)."""
+    `row0` is the first row's global index (a strip's offset on H-strips).
+    To the card each mask is a copy from pageable memory, after which the
+    stream synchronises (the spans `lssvc.wait.h2d`)."""
     rows = (row0 + np.arange(h)) % 2
     cols = np.arange(w) % 2
+    on_card = getattr(device, "type", device) != "cpu"
     masks = []
     for (r, c) in ((0, 0), (0, 1), (1, 0), (1, 1)):
         m = ((rows[:, None] == r) & (cols[None, :] == c)).astype(np.float32)
-        masks.append(torch.from_numpy(m[None, :, :, None]).to(device))
+        with spans.wait("lssvc.wait.h2d", on_card):
+            masks.append(torch.from_numpy(m[None, :, :, None]).to(device))
     return masks
 
 

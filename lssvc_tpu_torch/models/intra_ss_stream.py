@@ -19,6 +19,7 @@ import torch
 from ..convert import P
 from ..entropy.models import build_indexes_img
 from ..ops import pad_nhwc
+from ..utils import spans
 from ..utils.stream import decode_i, encode_i, filesize, get_downsampled_shape
 from .intra_noar import y_roundtrip
 from .intra_ss import context_mining, el_analysis, el_priors, el_synthesis
@@ -41,8 +42,8 @@ def compress_stream(model, x_bl, x_el, bin_path_bl, bin_path_el,
     """Writes both .bin files; returns their bits and the decoder's
     reconstructions (closed loop, see the module docstring).  `rdo`
     refines the BL latents first (options `rdo_opt`).  Runs in the
-    model's mode."""
-    with torch.no_grad(), model.scope():
+    model's mode, as the frame span `lssvc.i.encode`."""
+    with torch.no_grad(), model.scope(), spans.frame("lssvc.i.encode"):
         return _compress_stream(model, x_bl, x_el, bin_path_bl, bin_path_el,
                                 pic_height_bl, pic_width_bl, pic_height_el,
                                 pic_width_el, rdo, rdo_opt)
@@ -86,8 +87,8 @@ def _compress_stream(model, x_bl, x_el, bin_path_bl, bin_path_el,
 def decompress_stream(model, bin_path_bl, bin_path_el):
     """Both layers' reconstructions from the two .bin files: the decoder
     half of `IntraSS.encode_decode`, and what the decode CLI runs, in the
-    model's mode."""
-    with torch.no_grad(), model.scope():
+    model's mode, as the frame span `lssvc.i.decode`."""
+    with torch.no_grad(), model.scope(), spans.frame("lssvc.i.decode"):
         return _decompress_stream(model, bin_path_bl, bin_path_el)
 
 

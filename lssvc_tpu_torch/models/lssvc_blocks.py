@@ -27,6 +27,7 @@ from ..ops import (
 )
 from ..ops.nn import clip, matmul_f32out, packed_width
 from ..ops.packed import pack_width, unpack_width
+from ..utils import spans
 from .components import (
     cat,
     conv,
@@ -129,8 +130,11 @@ def offset_diversity(p, x, aux_feature, flow, group_num=16, offset_num=2,
     warped = grouped_warp(x, flow_x, flow_y, mask, group_num)
 
     wg = p("fusion.weight")  # (C_out, offset_num*cg, 1, 1) grouped OIHW
-    scat = torch.from_numpy(
-        _offset_fusion_scatter(group_num, offset_num, cg)).to(wg)
+    # on the card a copy from pageable memory, after which the stream
+    # synchronises (the span `lssvc.wait.h2d`)
+    with spans.wait("lssvc.wait.h2d", wg.is_cuda):
+        scat = torch.from_numpy(
+            _offset_fusion_scatter(group_num, offset_num, cg)).to(wg)
     dense = torch.einsum("ou,iou->io", wg[:, :, 0, 0], scat)
     # operands in the compute dtype, f32 out (`lssvc_blocks.py:178-187`)
     return matmul_f32out(warped, dense) + p("fusion.bias")

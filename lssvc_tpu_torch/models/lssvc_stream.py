@@ -25,13 +25,15 @@ from ..convert import P
 from ..entropy.coder import VideoCoder, from_symbol_order, to_symbol_order
 from ..entropy.models import build_indexes_video
 from ..ops import pad_nhwc
+from ..utils import spans
 from ..utils.checks import finite_flags, raise_if_nonfinite, sanitize_dpb
 from ..utils.host import HostCopy, Stamps
 from ..utils.stream import decode_p, encode_p, filesize, \
     get_downsampled_shape
 from .components import cat, me_spynet
 from . import dmc_stream as ds
-from .dmc_stream import DecodeProfilingMixin, DMCExtend, _sync, quantize_i
+from .dmc_stream import DecodeFrame, DecodeProfilingMixin, DMCExtend, \
+    _sync, quantize_i
 from .four_part_prior import PASS_MASKS, checkerboard_masks, \
     spatial_prior_net
 from .base import scoped
@@ -56,6 +58,8 @@ from .lssvc_blocks import layer_prior_resampler, mv_resampler, prior_fusion
 
 # channels of the EL's residual hyper-latent z (its mv_z has channel_mv)
 EL_Z_CHANNELS = 128
+# the spans of the EL decoder's four checkerboard passes
+Y_PASS_SPANS = tuple(f"lssvc.p.decode.el.y_pass{i}" for i in range(4))
 
 
 def _depad(dpb, pad_size):
@@ -211,14 +215,15 @@ def encode_device(params, x_el, ref_el, feature_el, texture, mv_bl_hat,
 def write_planes(coder, planes) -> bytes:
     """Host half: rANS-encode one EL frame's planes
     (`LSSVC_net_extend.py:66-74` order)."""
-    raise_if_nonfinite("LSSVC EL encode", planes["finite"])
-    coder.reset_encoder()
-    coder.encode_factorized(planes["mv_z_hat"], coder.z_mv_table)
-    coder.encode_gaussian(planes["mv_y_q"], planes["mv_idx"])
-    coder.encode_factorized(planes["z_hat"], coder.z_table)
-    for sym, idx in zip(planes["y_syms"], planes["y_idxs"]):
-        coder.encode_gaussian(sym, idx)
-    return coder.flush()
+    with spans.span("lssvc.entropy.encode"):
+        raise_if_nonfinite("LSSVC EL encode", planes["finite"])
+        coder.reset_encoder()
+        coder.encode_factorized(planes["mv_z_hat"], coder.z_mv_table)
+        coder.encode_gaussian(planes["mv_y_q"], planes["mv_idx"])
+        coder.encode_factorized(planes["z_hat"], coder.z_table)
+        for sym, idx in zip(planes["y_syms"], planes["y_idxs"]):
+            coder.encode_gaussian(sym, idx)
+        return coder.flush()
 
 
 def _gaussian_host(dec, index: HostCopy):
@@ -244,123 +249,144 @@ def decode_frame_overlapped(model, string_bl, string_el, h_bl, w_bl, h_el,
         behind an event, and the planes decoded on the host go back to
         the card from the main thread.
 
+    Spans (`utils/spans.py`): the frame `lssvc.p.decode`; each stage of
+    either layer `lssvc.p.decode.bl.<stage>` / `.el.<stage>` (the
+    DECODING_STAGES), the EL's four checkerboard passes
+    `lssvc.p.decode.el.y_pass<i>` around their stages; the rANS decodes
+    `lssvc.entropy.decode`, on either thread; each wait for the worker
+    `lssvc.wait.worker`; each wait for an index plane's copy
+    `lssvc.wait.d2h`; and each decoded plane's copy back to the card
+    `lssvc.wait.h2d`, a copy from pageable memory after which the stream
+    synchronises, so the host waits there for every launch before it
+    (`entropy.coder.from_symbol_order`); the stages' own copies of
+    constants to the card are such waits too (the GDN and clip bounds,
+    the flow clamp, the checkerboard masks, OffsetDiversity's fusion
+    scatter).
+
     model: an LSSVCExtend with its tables built and its scale set; dpb:
     the DPB after the runner's clamp.  With the model's `profile_decoding`
-    each stage is charged to its layer's profiling dict on one timeline
-    (a plane decoded on the worker counts only the wait for it), and each
-    layer's "overall" is the two-layer frame's seconds.  `stamps`, if
-    given, is stamped once the BL picture is enqueued.  Returns {"dpb",
-    "bl_dpb", "mv_hat", "context"}."""
+    each stage is charged to its layer's profiling dict
+    (`dmc_stream.DecodeFrame`: a plane decoded on the worker counts only
+    the wait for it; the work between two stages, such as a submit to the
+    worker or an index plane's copy, is in the stage before it), and each
+    layer's "overall" is the two-layer frame's seconds from its first
+    stage to its last.  `stamps`, if given, is stamped once the BL picture is
+    enqueued.  Returns {"dpb", "bl_dpb", "mv_hat", "context"}."""
     bl = model.base_layer_model
     coder_bl, coder_el = bl._coder, model._coder
-    dec_bl = coder_bl.open_stream(string_bl)
-    dec_el = coder_el.open_stream(string_el)
     p_bl, p_el = P(bl.flat_params()), P(model.flat_params())
     device = model.device
     zb = (1, *get_downsampled_shape(h_bl, w_bl, 64), bl.channel_N)
     zh_e, zw_e = get_downsampled_shape(h_el, w_el, 64)
     pad = model.pad_size
     shape_hr = model.shape_hr
-    dpb = sanitize_dpb(dpb)
-    timer = model._stage_timer()
-
-    def bl_stage(key):
-        timer.mark(key, bl.decoding_profiling)
 
     def on_card(vals, shape):
         return from_symbol_order(vals, shape, device)
 
-    with torch.no_grad():
+    def worker(future):
+        with spans.span("lssvc.wait.worker"):
+            return future.result()
+
+    with torch.no_grad(), DecodeFrame(model, bl) as frame:
+        dec_bl = coder_bl.open_stream(string_bl)
+        dec_el = coder_el.open_stream(string_el)
+        dpb = sanitize_dpb(dpb)
+
+        def bl_stage(key):
+            return frame.stage(bl, key)
+
+        def el_stage(key):
+            return frame.stage(model, key)
+
         # --- BL head; the EL's mv_z decodes on the worker meanwhile
-        bl_stage("entropy_dec_mv_z")
-        mv_z = dec_bl.decode_factorized(zb, coder_bl.z_mv_table, device)
-        el_mvz_shape = (1, zh_e, zw_e, model.channel_mv)
-        el_mvz = pool.submit(dec_el.factorized_symbols, el_mvz_shape,
-                             coder_el.z_mv_table)
-        bl_stage("mv_y_prior_dec")
-        with bl.scope():
+        with bl_stage("entropy_dec_mv_z"):
+            mv_z = dec_bl.decode_factorized(zb, coder_bl.z_mv_table, device)
+            el_mvz_shape = (1, zh_e, zw_e, model.channel_mv)
+            el_mvz = pool.submit(spans.carry(dec_el.factorized_symbols),
+                                 el_mvz_shape, coder_el.z_mv_table)
+        with bl_stage("mv_y_prior_dec"), bl.scope():
             mv_idx, mv_means = ds.dec_mv_prior(p_bl, mv_z)
-        bl_stage("entropy_dec_mv_y")
-        mv_y_q = on_card(_gaussian_host(dec_bl, HostCopy(mv_idx)),
-                         mv_idx.shape)
-        bl_stage("mv_dec")
-        with bl.scope():
+        with bl_stage("entropy_dec_mv_y"):
+            mv_y_q = on_card(_gaussian_host(dec_bl, HostCopy(mv_idx)),
+                             mv_idx.shape)
+        with bl_stage("mv_dec"), bl.scope():
             mv_hat_bl = ds.dec_mv(p_bl, mv_y_q, mv_means)
-        bl_stage("motion_compensation_ctx_refine")
-        with bl.scope():
+        with bl_stage("motion_compensation_ctx_refine"), bl.scope():
             c1b, c2b, c3b = ds.dec_contexts(p_bl, mv_hat_bl,
                                             dpb["ref_frame_bl"],
                                             dpb["ref_feature_bl"])
         # BL z: static indexes, decodes while the context stage runs
-        bl_stage("entropy_dec_z")
-        z = dec_bl.decode_factorized(zb, coder_bl.z_table, device)
-        bl_stage("y_prior")
-        with bl.scope():
-            y_idx, y_means = ds.dec_y_prior(p_bl, z, c1b, c2b, c3b)
-        y_idx_host = HostCopy(y_idx)
+        with bl_stage("entropy_dec_z"):
+            z = dec_bl.decode_factorized(zb, coder_bl.z_table, device)
+        with bl_stage("y_prior"):
+            with bl.scope():
+                y_idx, y_means = ds.dec_y_prior(p_bl, z, c1b, c2b, c3b)
+            y_idx_host = HostCopy(y_idx)
 
         # --- EL motion setup: needs only the BL's mv_hat
-        timer.mark("mv_setup")
-        mv_bl_hat = pad_nhwc(
-            sanitize_dpb({"mv_hat_bl": mv_hat_bl})["mv_hat_bl"], pad)
-        with model.scope():
-            mv_ctx, mv_ctx_prior = dec_mv_setup(p_el, mv_bl_hat, shape_hr,
-                                                model.scale_factor)
-        timer.mark("entropy_dec_mv_z")
-        mv_z_el = on_card(el_mvz.result(), el_mvz_shape)
-        timer.mark("mv_prior_dec")
-        with model.scope():
-            el_mv_idx, el_mv_means = dec_mv_prior(p_el, mv_z_el,
-                                                  mv_ctx_prior)
-
-        # --- the BL's y plane, then the EL's mv_y (two streams), decode on
-        # the worker: BL y while the card runs the EL's motion setup and
-        # prior, EL mv_y while it runs the BL's recon
-        bl_y = pool.submit(_gaussian_host, dec_bl, y_idx_host)
-        el_mv_y = pool.submit(_gaussian_host, dec_el, HostCopy(el_mv_idx))
-        bl_stage("entropy_dec_y")
-        y_q = on_card(bl_y.result(), y_idx.shape)
-        bl_stage("res_dec")
-        with bl.scope():
-            recon_bl, feature_bl, y_hat_bl = ds.dec_recon(
-                p_bl, y_q, y_means, c1b, c2b, c3b)
-        if stamps is not None:
-            stamps.stamp()
+        with el_stage("mv_setup"):
+            mv_bl_hat = pad_nhwc(
+                sanitize_dpb({"mv_hat_bl": mv_hat_bl})["mv_hat_bl"], pad)
+            with model.scope():
+                mv_ctx, mv_ctx_prior = dec_mv_setup(p_el, mv_bl_hat,
+                                                    shape_hr,
+                                                    model.scale_factor)
+        with el_stage("entropy_dec_mv_z"):
+            mv_z_el = on_card(worker(el_mvz), el_mvz_shape)
+        with el_stage("mv_prior_dec"):
+            with model.scope():
+                el_mv_idx, el_mv_means = dec_mv_prior(p_el, mv_z_el,
+                                                      mv_ctx_prior)
+            # --- the BL's y plane, then the EL's mv_y (two streams),
+            # decode on the worker: BL y while the card runs the EL's
+            # motion setup and prior, EL mv_y while it runs the BL's recon
+            bl_y = pool.submit(spans.carry(_gaussian_host), dec_bl,
+                               y_idx_host)
+            el_mv_y = pool.submit(spans.carry(_gaussian_host), dec_el,
+                                  HostCopy(el_mv_idx))
+        with bl_stage("entropy_dec_y"):
+            y_q = on_card(worker(bl_y), y_idx.shape)
+        with bl_stage("res_dec"):
+            with bl.scope():
+                recon_bl, feature_bl, y_hat_bl = ds.dec_recon(
+                    p_bl, y_q, y_means, c1b, c2b, c3b)
+            if stamps is not None:
+                stamps.stamp()
         bl_dpb = {"ref_frame_bl": recon_bl, "ref_feature_bl": feature_bl,
                   "y_hat_bl": y_hat_bl, "mv_hat_bl": mv_hat_bl}
-        timer.mark("entropy_dec_mv_y")
-        el_mv_y = on_card(el_mv_y.result(), el_mv_idx.shape)
+        with el_stage("entropy_dec_mv_y"):
+            el_mv_y = on_card(worker(el_mv_y), el_mv_idx.shape)
 
         # --- EL contexts, then the residual's four passes
-        timer.mark("mv_dec_ctx")
-        layer = sanitize_dpb({"texture": feature_bl, "y_hat_bl": y_hat_bl,
-                              "mv_hat_bl": mv_hat_bl})
-        texture, _, y_bl_hat = _depad(layer, pad)
-        with model.scope():
-            mv_hat_el, c1, c2, c3, _ = dec_contexts(
-                p_el, el_mv_y, el_mv_means, mv_ctx, texture,
-                dpb["ref_frame_el"], dpb["ref_feature_el"], shape_hr,
-                model.od_offset_cap)
+        with el_stage("mv_dec_ctx"):
+            layer = sanitize_dpb({"texture": feature_bl,
+                                  "y_hat_bl": y_hat_bl,
+                                  "mv_hat_bl": mv_hat_bl})
+            texture, _, y_bl_hat = _depad(layer, pad)
+            with model.scope():
+                mv_hat_el, c1, c2, c3, _ = dec_contexts(
+                    p_el, el_mv_y, el_mv_means, mv_ctx, texture,
+                    dpb["ref_frame_el"], dpb["ref_feature_el"], shape_hr,
+                    model.od_offset_cap)
         # EL z: static indexes, decodes while the context stage runs
-        timer.mark("entropy_dec_z")
-        z_el = dec_el.decode_factorized((1, zh_e, zw_e, EL_Z_CHANNELS),
-                                        coder_el.z_table, device)
-        timer.mark("y_prior")
-        with model.scope():
+        with el_stage("entropy_dec_z"):
+            z_el = dec_el.decode_factorized((1, zh_e, zw_e, EL_Z_CHANNELS),
+                                            coder_el.z_table, device)
+        with el_stage("y_prior"), model.scope():
             common = dec_common_params(p_el, z_el, c3, y_bl_hat, shape_hr)
             idx, means_4 = dec_pass0(common)
         y_hat = None
         for pass_idx in range(4):
-            timer.mark("entropy_dec_y")
-            y_q_r = on_card(_gaussian_host(dec_el, HostCopy(idx)), idx.shape)
-            timer.mark("spatial_prior_update")
-            with model.scope():
-                y_hat, idx, means_4 = dec_pass_update(
-                    p_el, pass_idx, y_q_r, y_hat, common, means_4)
-        timer.mark("res_dec")
-        with model.scope():
+            with spans.span(Y_PASS_SPANS[pass_idx]):
+                with el_stage("entropy_dec_y"):
+                    y_q_r = on_card(_gaussian_host(dec_el, HostCopy(idx)),
+                                    idx.shape)
+                with el_stage("spatial_prior_update"), model.scope():
+                    y_hat, idx, means_4 = dec_pass_update(
+                        p_el, pass_idx, y_q_r, y_hat, common, means_4)
+        with el_stage("res_dec"), model.scope():
             recon_el, feature_el = dec_recon(p_el, y_hat, c1, c2, c3)
-        timer.finish(bl.decoding_profiling)
 
     return {"dpb": {"ref_frame_bl": recon_bl, "ref_feature_bl": feature_bl,
                     "ref_frame_el": recon_el, "ref_feature_el": feature_el},
@@ -373,8 +399,10 @@ class LSSVCExtend(DecodeProfilingMixin, LSSVC):
 
     BASE_LAYER = DMCExtend
     # the EL decoder's stages, as the JAX package names them
-    # (`lssvc_tpu/models/lssvc.py:518-521`): "entropy_dec_y" sums the four
-    # passes' rANS decodes, "spatial_prior_update" their prior updates
+    # (`lssvc_tpu/models/lssvc.py:518-521`; spans SPAN_PREFIX + stage):
+    # "entropy_dec_y" sums the four passes' rANS decodes,
+    # "spatial_prior_update" their prior updates
+    SPAN_PREFIX = "lssvc.p.decode.el."
     DECODING_STAGES = (
         "mv_setup", "entropy_dec_mv_z", "mv_prior_dec", "entropy_dec_mv_y",
         "mv_dec_ctx", "entropy_dec_z", "y_prior", "entropy_dec_y",
@@ -415,40 +443,40 @@ class LSSVCExtend(DecodeProfilingMixin, LSSVC):
         dpb = sanitize_dpb(dpb)
         p = P(self.flat_params())
         coder = self._coder
-        timer = self._stage_timer()
-        texture, mv_bl_hat, y_bl_hat = _depad(dpb, self.pad_size)
-        timer.mark("mv_setup")
-        mv_ctx, mv_ctx_prior = dec_mv_setup(p, mv_bl_hat, self.shape_hr,
-                                            self.scale_factor)
-        timer.mark("entropy_dec_mv_z")
-        coder.set_stream(string)
-        zh, zw = get_downsampled_shape(height, width, 64)
-        mv_z = coder.decode_factorized((1, zh, zw, self.channel_mv),
-                                       coder.z_mv_table, self.device)
-        timer.mark("mv_prior_dec")
-        mv_idx, mv_means = dec_mv_prior(p, mv_z, mv_ctx_prior)
-        timer.mark("entropy_dec_mv_y")
-        mv_y_q = coder.decode_gaussian(mv_idx)
-        timer.mark("mv_dec_ctx")
-        mv_hat, c1, c2, c3, _ = dec_contexts(
-            p, mv_y_q, mv_means, mv_ctx, texture, dpb["ref_frame_el"],
-            dpb["ref_feature_el"], self.shape_hr, self.od_offset_cap)
-        timer.mark("entropy_dec_z")
-        z = coder.decode_factorized((1, zh, zw, EL_Z_CHANNELS),
-                                    coder.z_table, self.device)
-        timer.mark("y_prior")
-        common = dec_common_params(p, z, c3, y_bl_hat, self.shape_hr)
-        idx, means_4 = dec_pass0(common)
-        y_hat = None
-        for pass_idx in range(4):
-            timer.mark("entropy_dec_y")
-            y_q_r = coder.decode_gaussian(idx)
-            timer.mark("spatial_prior_update")
-            y_hat, idx, means_4 = dec_pass_update(p, pass_idx, y_q_r, y_hat,
-                                                  common, means_4)
-        timer.mark("res_dec")
-        recon, feature = dec_recon(p, y_hat, c1, c2, c3)
-        timer.finish()
+        with DecodeFrame(self) as frame:
+            texture, mv_bl_hat, y_bl_hat = _depad(dpb, self.pad_size)
+            with frame.stage(self, "mv_setup"):
+                mv_ctx, mv_ctx_prior = dec_mv_setup(
+                    p, mv_bl_hat, self.shape_hr, self.scale_factor)
+            with frame.stage(self, "entropy_dec_mv_z"):
+                coder.set_stream(string)
+                zh, zw = get_downsampled_shape(height, width, 64)
+                mv_z = coder.decode_factorized((1, zh, zw, self.channel_mv),
+                                               coder.z_mv_table, self.device)
+            with frame.stage(self, "mv_prior_dec"):
+                mv_idx, mv_means = dec_mv_prior(p, mv_z, mv_ctx_prior)
+            with frame.stage(self, "entropy_dec_mv_y"):
+                mv_y_q = coder.decode_gaussian(mv_idx)
+            with frame.stage(self, "mv_dec_ctx"):
+                mv_hat, c1, c2, c3, _ = dec_contexts(
+                    p, mv_y_q, mv_means, mv_ctx, texture, dpb["ref_frame_el"],
+                    dpb["ref_feature_el"], self.shape_hr, self.od_offset_cap)
+            with frame.stage(self, "entropy_dec_z"):
+                z = coder.decode_factorized((1, zh, zw, EL_Z_CHANNELS),
+                                            coder.z_table, self.device)
+            with frame.stage(self, "y_prior"):
+                common = dec_common_params(p, z, c3, y_bl_hat, self.shape_hr)
+                idx, means_4 = dec_pass0(common)
+            y_hat = None
+            for pass_idx in range(4):
+                with spans.span(Y_PASS_SPANS[pass_idx]):
+                    with frame.stage(self, "entropy_dec_y"):
+                        y_q_r = coder.decode_gaussian(idx)
+                    with frame.stage(self, "spatial_prior_update"):
+                        y_hat, idx, means_4 = dec_pass_update(
+                            p, pass_idx, y_q_r, y_hat, common, means_4)
+            with frame.stage(self, "res_dec"):
+                recon, feature = dec_recon(p, y_hat, c1, c2, c3)
         return {"dpb": {"ref_frame_el": recon, "ref_feature_el": feature},
                 "context": c1}
 

@@ -25,12 +25,24 @@ writes only.  The two-layer decoder (`lssvc_stream.decode_frame_overlapped`,
 which the runner and the decode CLI use too) keeps the same split: the
 worker rANS-decodes one layer's planes while the card runs the other
 layer's stages; `decode_sequence` chains it over a run of P-frames.
+
+Spans of an encoded P-frame (`utils/spans.py`), on the main thread: the
+frame `lssvc.p.encode`; its layers' device encodes `lssvc.p.encode.bl`,
+`lssvc.p.encode.el`; the planes' host copies enqueued,
+`lssvc.p.encode.d2h`; the one-frame-in-flight wait, `lssvc.wait.pace`;
+inside the device encodes, each copy of a constant to the card, after
+which the stream synchronises, `lssvc.wait.h2d` (the GDN and clip bounds,
+the flow clamp, the checkerboard masks, OffsetDiversity's fusion scatter).
+On the worker, carrying the frame's id: `lssvc.p.write`, and inside it
+the wait for the planes' copy (`lssvc.wait.d2h`) and each layer's rANS
+encode (`lssvc.entropy.encode`).  The decoder's spans: its docstring.
 """
 
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
 
+from ..utils import spans
 from ..utils.host import HostCopy, clamp_dpb
 from ..utils.stream import decode_p, encode_p, filesize
 from . import dmc_stream as ds
@@ -45,10 +57,12 @@ def frame_device(model, x_bl, x_el, dpb):
     next DPB), through the models' own `encode_planes` (the device halves
     of their `compress`); nothing is read on the host."""
     bl = model.base_layer_model
-    bl_planes, bl_dpb = bl.encode_planes(x_bl, dpb)
-    el_planes, el_dpb = model.encode_planes(x_el, dict(
-        dpb, texture=bl_dpb["ref_feature_bl"], y_hat_bl=bl_dpb["y_hat_bl"],
-        mv_hat_bl=bl_dpb["mv_hat_bl"]))
+    with spans.span("lssvc.p.encode.bl"):
+        bl_planes, bl_dpb = bl.encode_planes(x_bl, dpb)
+    with spans.span("lssvc.p.encode.el"):
+        el_planes, el_dpb = model.encode_planes(x_el, dict(
+            dpb, texture=bl_dpb["ref_feature_bl"],
+            y_hat_bl=bl_dpb["y_hat_bl"], mv_hat_bl=bl_dpb["mv_hat_bl"]))
     next_dpb = {"ref_frame_bl": bl_dpb["ref_frame_bl"],
                 "ref_feature_bl": bl_dpb["ref_feature_bl"],
                 "ref_frame_el": el_dpb["ref_frame_el"],
@@ -59,11 +73,12 @@ def frame_device(model, x_bl, x_el, dpb):
 def _host_code_frame(model, planes: HostCopy, bl_path, el_path):
     """The worker's half: rANS-encode both layers' planes once their copy
     has landed, write the two files; returns their bits."""
-    bl_planes, el_planes = planes.get()
-    encode_p(ds.write_planes(model.base_layer_model._coder, bl_planes),
-             bl_path)
-    encode_p(ls.write_planes(model._coder, el_planes), el_path)
-    return filesize(bl_path) * 8, filesize(el_path) * 8
+    with spans.span("lssvc.p.write"):
+        bl_planes, el_planes = planes.get()
+        encode_p(ds.write_planes(model.base_layer_model._coder, bl_planes),
+                 bl_path)
+        encode_p(ls.write_planes(model._coder, el_planes), el_path)
+        return filesize(bl_path) * 8, filesize(el_path) * 8
 
 
 def submit_p_frame(model, x_bl, x_el, dpb, bl_path, el_path, pool):
@@ -72,14 +87,19 @@ def submit_p_frame(model, x_bl, x_el, dpb, bl_path, el_path, pool):
     encode, the runner's DPB clamp, the planes' host copies started, then
     the wait for this frame's device work (one frame in flight, as the
     JAX package paces, `pipeline.py:105-119`), then the host rANS handed
-    to `pool`.  While the card runs frame t+1, the worker codes frame t.
-    Returns (clamped DPB, future of (bits_bl, bits_el))."""
-    bl_planes, el_planes, dpb = frame_device(model, x_bl, x_el, dpb)
-    dpb = clamp_dpb(dpb)
-    planes = HostCopy((bl_planes, el_planes))
-    ds._sync(model.device)
-    return dpb, pool.submit(_host_code_frame, model, planes, bl_path,
-                            el_path)
+    to `pool` (`_host_code_frame` as the module holds it at the call,
+    carrying the frame's spans).  While the card runs frame t+1, the
+    worker codes frame t.  Returns (clamped DPB, future of (bits_bl,
+    bits_el))."""
+    with spans.frame("lssvc.p.encode"):
+        bl_planes, el_planes, dpb = frame_device(model, x_bl, x_el, dpb)
+        dpb = clamp_dpb(dpb)
+        with spans.span("lssvc.p.encode.d2h"):
+            planes = HostCopy((bl_planes, el_planes))
+        with spans.span("lssvc.wait.pace"):
+            ds._sync(model.device)
+        return dpb, pool.submit(spans.carry(_host_code_frame), model,
+                                planes, bl_path, el_path)
 
 
 def encode_sequence(model, frames_bl, frames_el, dpb, bl_paths, el_paths):

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import spans
 from . import spatial_ctx, strips
 from .int8 import Int8Sites
 
@@ -467,9 +468,15 @@ def clip(x, lo: float, hi: float):
     """clip(x, lo, hi) as the JAX package's `jnp.clip` computes it,
     min(max(x, lo), hi): on a bound x takes half the gradient (a tie of
     `jnp.maximum` / `jnp.minimum`), where `torch.clamp` gives it all; the
-    values are `torch.clamp`'s, NaN passing."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)),
-                         x.new_tensor(hi))
+    values are `torch.clamp`'s, NaN passing.  On the card each bound is a
+    copy from pageable memory, after which the stream synchronises (the
+    spans `lssvc.wait.h2d`)."""
+    with spans.wait("lssvc.wait.h2d", x.is_cuda):
+        lo = x.new_tensor(lo)
+    x = torch.maximum(x, lo)
+    with spans.wait("lssvc.wait.h2d", x.is_cuda):
+        hi = x.new_tensor(hi)
+    return torch.minimum(x, hi)
 
 
 def ste_round(x):
@@ -547,11 +554,15 @@ def gdn(x, beta, gamma, inverse: bool = False):
     (inverse) or x * rsqrt(norm)."""
     # lower bounds as `jnp.maximum` (`lssvc_tpu/ops/nn.py:371-372`): at a
     # tie the parameter takes half the gradient; at init every off-diagonal
-    # gamma sits on its bound
-    beta = torch.square(torch.maximum(beta, beta.new_tensor(_BETA_BOUND))) \
-        - _PEDESTAL
-    gamma = torch.square(torch.maximum(gamma, gamma.new_tensor(_GAMMA_BOUND))) \
-        - _PEDESTAL
+    # gamma sits on its bound.  On the card each bound is a copy from
+    # pageable memory, after which the stream synchronises (the spans
+    # `lssvc.wait.h2d`)
+    with spans.wait("lssvc.wait.h2d", beta.is_cuda):
+        bound = beta.new_tensor(_BETA_BOUND)
+    beta = torch.square(torch.maximum(beta, bound)) - _PEDESTAL
+    with spans.wait("lssvc.wait.h2d", gamma.is_cuda):
+        bound = gamma.new_tensor(_GAMMA_BOUND)
+    gamma = torch.square(torch.maximum(gamma, bound)) - _PEDESTAL
     # the JAX package's einsum of bf16 x^2 with the f32 gamma computes in
     # f32 (type promotion), and so does x * rsqrt(f32 norm); torch's
     # matmul takes one dtype, so the square is cast explicitly; the product

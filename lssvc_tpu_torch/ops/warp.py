@@ -24,6 +24,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import spans
 from . import spatial_ctx, strips
 from .nn import clip, compute_dtype
 
@@ -38,7 +39,10 @@ def clamp_flow(flow, h, w):
     if spatial_ctx.active():
         h = strips.global_rows(flow)
     big = float(max(h, w))
-    bound = torch.tensor([w, h], dtype=flow.dtype, device=flow.device)
+    # on the card a copy from pageable memory, after which the stream
+    # synchronises (the span `lssvc.wait.h2d`)
+    with spans.wait("lssvc.wait.h2d", flow.is_cuda):
+        bound = torch.tensor([w, h], dtype=flow.dtype, device=flow.device)
     flow = torch.nan_to_num(flow, nan=0.0, posinf=big, neginf=-big)
     return torch.minimum(torch.maximum(flow, -bound), bound)
 

@@ -8,6 +8,8 @@ import time
 
 import torch
 
+from . import spans
+
 
 def _map(tree, fn):
     if isinstance(tree, dict):
@@ -22,9 +24,10 @@ class HostCopy:
     the host.  Made on the main thread: each CUDA tensor's copy into a
     pinned buffer is enqueued at once, non-blocking, and one event is
     recorded after them; CPU tensors are kept.  `get()`, on any thread,
-    waits for that event only and returns the tree of host tensors.  (A
-    pinned buffer read before its event holds stale bytes; a copy into
-    pageable memory would block the main thread.)"""
+    waits for that event only (the span `lssvc.wait.d2h`) and returns the
+    tree of host tensors.  (A pinned buffer read before its event holds
+    stale bytes; a copy into pageable memory would block the main
+    thread.)"""
 
     def __init__(self, tree):
         self.event = None
@@ -42,7 +45,8 @@ class HostCopy:
 
     def get(self):
         if self.event is not None:
-            self.event.synchronize()
+            with spans.span("lssvc.wait.d2h"):
+                self.event.synchronize()
         return self.tree
 
 

@@ -124,9 +124,15 @@ def test_tables_against_jax(pair):
                               f"LSSVC {name} {k}")
 
 
-def test_decode_profiling_keys_are_the_jax_stage_names(pair, tmp_path):
+@pytest.mark.parametrize("recorder", ["off", "on"])
+def test_decode_profiling_keys_are_the_jax_stage_names(pair, tmp_path,
+                                                       recorder):
     """Both layers' profiling dicts carry the JAX package's stage names,
-    each filled by one decode."""
+    each filled by one decode, folded from the decoder's spans whether the
+    span recorder (`utils/spans.py`) is off or on; on, its ring also holds
+    the frame's spans."""
+    from lssvc_tpu_torch.utils import spans
+
     jm, tm = pair
     x_bl, x_el, dpb_np = _inputs(6)
     dpb = {k: torch.from_numpy(v) for k, v in dpb_np.items()}
@@ -134,17 +140,33 @@ def test_decode_profiling_keys_are_the_jax_stage_names(pair, tmp_path):
     for m in layers:
         m.profile_decoding = True
         m.reset_decoding_profiling()
+    spans.clear()
+    spans.enable(recorder == "on")
     try:
         tm.encode_decode(torch.from_numpy(x_bl), torch.from_numpy(x_el), dpb,
                          tmp_path / "bl.bin", tmp_path / "el.bin", EL[1],
                          EL[0], BL[1], BL[0])
     finally:
+        spans.enable(False)
         for m in layers:
             m.profile_decoding = False
+    names = [r["name"] for r in spans.snapshot()["spans"]]
+    spans.clear()
+    if recorder == "off":
+        assert names == []
+    else:
+        assert names.count("lssvc.p.decode") == 1
+        assert {m.stage_spans[k] for m in layers
+                for k in m.DECODING_STAGES} <= set(names)
     for m, jlayer in zip(layers, (jm.base_layer_model, jm)):
         prof = m.get_average_decoding_profiling()
         assert list(prof) == list(jlayer.decoding_profiling)
         assert prof["frames"] == 1
         assert all(v > 0 for v in prof.values())
-        assert sum(v for k, v in prof.items()
-                   if k not in ("frames", "overall")) <= prof["overall"]
+    # both layers' stages follow one another on one timeline and sum to
+    # "overall", less the Python between two spans
+    profs = [m.get_average_decoding_profiling() for m in layers]
+    stages = sum(v for prof in profs for k, v in prof.items()
+                 if k not in ("frames", "overall"))
+    assert profs[0]["overall"] == profs[1]["overall"]
+    assert 0.9 * profs[0]["overall"] <= stages <= profs[0]["overall"]
